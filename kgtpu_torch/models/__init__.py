@@ -1,0 +1,6 @@
+"""Model zoo of the port: the hourglass KGNet (NCHW channels-last inside,
+NHWC at its edges)."""
+
+from kgtpu_torch.models.kgnet import KGNet, build_model, init_weights
+
+__all__ = ["KGNet", "build_model", "init_weights"]

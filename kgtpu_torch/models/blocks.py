@@ -1,0 +1,107 @@
+"""Shared conv building blocks (NCHW tensors laid out channels-last).
+
+Counterparts of `kgtpu/models/blocks.py`.  Parameters are float32; each
+block computes in the dtype of its input (the model casts the image to the
+compute dtype once), as flax does with `dtype=compute_dtype`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kgtpu_torch.ops.groupnorm import (
+    group_norm_relu,
+    group_norm_relu_reference,
+    num_groups,
+)
+
+
+def same_pads(kernel: int, stride: int, size: int) -> tuple[int, int]:
+    """Flax/XLA padding="SAME" along one axis: (low, high).  Uneven for
+    stride-2 convs on even sides, e.g. (2, 3) for the 7x7 stem."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax nn.Conv(padding="SAME"): explicit F.pad, then an unpadded conv."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 bias: bool = False):
+        super().__init__()
+        self.kernel, self.stride = kernel, stride
+        self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ph = same_pads(self.kernel, self.stride, x.shape[2])
+        pw = same_pads(self.kernel, self.stride, x.shape[3])
+        if any(ph + pw):
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride)
+
+
+class GroupNorm(nn.Module):
+    """flax nn.GroupNorm (eps 1e-6, G = largest divisor of C <= 32), with an
+    optional fused ReLU, computed by the GroupNorm kernel on CUDA.
+
+    `plain` (set by `KGNet.use_plain_norm`, for comparisons only) computes
+    the plain PyTorch version instead, on any device."""
+
+    def __init__(self, channels: int, relu: bool = False):
+        super().__init__()
+        self.groups = num_groups(channels)
+        self.relu = relu
+        self.plain = False
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a no-op for the port's convolution outputs; the kernel needs it
+        x = x.contiguous(memory_format=torch.channels_last)
+        if self.plain:
+            return group_norm_relu_reference(x, self.weight, self.bias,
+                                             self.groups, self.relu)
+        return group_norm_relu(x, self.weight, self.bias, self.groups,
+                               self.relu)
+
+
+class ConvBlock(nn.Module):
+    """conv -> GroupNorm -> ReLU."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
+        super().__init__()
+        self.conv = Conv(cin, cout, kernel, stride)
+        self.norm = GroupNorm(cout, relu=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.conv(x))
+
+
+class Residual(nn.Module):
+    """conv3-conv3 residual block with a projection skip when the shape
+    changes."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.conv_block = ConvBlock(cin, cout, 3, stride)
+        self.conv = Conv(cout, cout, 3)
+        self.norm = GroupNorm(cout)
+        self.project = cin != cout or stride != 1
+        if self.project:
+            self.skip_conv = Conv(cin, cout, 1, stride)
+            self.skip_norm = GroupNorm(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm(self.conv(self.conv_block(x)))
+        skip = self.skip_norm(self.skip_conv(x)) if self.project else x
+        return torch.relu(y + skip)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")

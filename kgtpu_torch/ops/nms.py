@@ -1,0 +1,69 @@
+"""Greedy box NMS: counterpart of `kgtpu/ops/nms.py::box_nms` (and
+`batched_box_iou`), batched over a leading axis.
+
+Candidates are sorted score-descending (stable, so ties keep index order).
+Greedy suppression runs as parallel rounds: each round keeps every live box
+with no live higher-ranked box overlapping it (IoU > thresh, strict), then
+kills the boxes those keeps overlap.  The fixpoint is the sequential greedy
+keep-set; a round with no live box changes nothing, so the host checks for
+live boxes only every few rounds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from kgtpu_torch.ops.group import ROUNDS_PER_CHECK, Boxes
+
+
+def batched_box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU.  a [..., N, 4], b [..., M, 4] -> [..., N, M]."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (torch.clamp(a[..., 2] - a[..., 0], min=0.0)
+              * torch.clamp(a[..., 3] - a[..., 1], min=0.0))
+    area_b = (torch.clamp(b[..., 2] - b[..., 0], min=0.0)
+              * torch.clamp(b[..., 3] - b[..., 1], min=0.0))
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
+    return inter / torch.clamp(union, min=1e-9)
+
+
+def box_nms(dets: Boxes, iou_thresh: float, max_out: int | None = None) -> Boxes:
+    """dets [B, N] -> Boxes [B, max_out] with kept boxes first
+    (score-descending), padding after."""
+    n = dets.boxes.shape[1]
+    max_out = max_out or n
+    key = torch.where(dets.valid, dets.scores, torch.full_like(dets.scores, -1.0))
+    _, order = torch.sort(key, dim=1, descending=True, stable=True)
+    boxes = torch.gather(dets.boxes, 1, order[..., None].expand(-1, -1, 4))
+    scores = torch.gather(dets.scores, 1, order)
+    valid = torch.gather(dets.valid, 1, order)
+
+    iou = batched_box_iou(boxes, boxes)                   # [B, N, N]
+    idx = torch.arange(n, device=boxes.device)
+    # conflict[b, j, i]: row j outranks row i and overlaps it enough
+    conflict = (idx[:, None] < idx[None, :]) & (iou > iou_thresh)
+    live = valid
+    keep = torch.zeros_like(valid)
+    # each round keeps at least the best-ranked live row, so N rounds
+    # always suffice
+    for r in range(n):
+        if r % ROUNDS_PER_CHECK == 0 and not bool(live.any()):
+            break
+        blocked = (conflict & live[:, :, None]).any(dim=1)
+        acc = live & ~blocked
+        dead = (conflict & acc[:, :, None]).any(dim=1)
+        live = live & ~acc & ~dead
+        keep = keep | acc
+
+    _, out_order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True)
+    out_order = out_order[:, :max_out]
+    kept = torch.gather(keep, 1, out_order)
+    out_scores = torch.gather(scores, 1, out_order)
+    return Boxes(
+        boxes=torch.gather(boxes, 1, out_order[..., None].expand(-1, -1, 4)),
+        scores=torch.where(kept, out_scores, torch.zeros_like(out_scores)),
+        valid=kept,
+    )

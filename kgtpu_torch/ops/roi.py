@@ -1,0 +1,106 @@
+"""ROI crop and mask paste as separable-matmul resampling.  Counterpart of
+`kgtpu/ops/roi.py::crop_and_resize` (bilinear) and `paste_masks_batch`.
+
+Bilinear resampling is separable, so a crop or a paste is two matrix
+products with banded tent-weight matrices:
+
+    crop[j, i]  = sum_y sum_x  Wy[j, y] * img[y, x] * Wx[i, x]
+    paste[y, x] = sum_j sum_i  Py[y, j] * mask[j, i] * Px[x, i]
+
+Half-pixel centers: pixel i spans [i, i+1).  Crop output pixel j of R
+samples the source at x0 + (j + 0.5) * (x1 - x0) / R, edge-clamped; paste
+inverts that mapping.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def crop_weights(start: torch.Tensor, extent: torch.Tensor, r: int,
+                 n_src: int) -> torch.Tensor:
+    """[..., r, n_src] bilinear weights: crop texel j <- source pixels."""
+    j = torch.arange(r, dtype=torch.float32, device=start.device)
+    pos = start[..., None] + (j + 0.5) * extent[..., None] / r - 0.5
+    pos = torch.clamp(pos, 0.0, n_src - 1.0)
+    src = torch.arange(n_src, dtype=torch.float32, device=start.device)
+    return torch.clamp(1.0 - torch.abs(pos[..., None] - src), min=0.0)
+
+
+def paste_weights(start: torch.Tensor, extent: torch.Tensor, r: int,
+                  n_out: int) -> torch.Tensor:
+    """[..., n_out, r] bilinear weights: image pixel y <- mask texels; rows of
+    pixel centers outside the box are zero."""
+    y = torch.arange(n_out, dtype=torch.float32, device=start.device) + 0.5
+    mx = (y - start[..., None]) / torch.clamp(extent[..., None], min=1e-6) * r
+    inside = (mx >= 0.0) & (mx <= r)
+    pos = torch.clamp(mx - 0.5, 0.0, r - 1.0)
+    tex = torch.arange(r, dtype=torch.float32, device=start.device)
+    w = torch.clamp(1.0 - torch.abs(pos[..., None] - tex), min=0.0)
+    return w * inside[..., None]
+
+
+def crop_and_resize(img: torch.Tensor, boxes: torch.Tensor,
+                    out_size: int) -> torch.Tensor:
+    """Bilinear crop of each box, resized to out_size x out_size.
+
+    img [B, H, W, C], boxes [B, D, 4] (x0, y0, x1, y1) in img's pixel coords
+    -> [B, D, R, R, C] in img's dtype.  bf16 sources keep bf16 operands
+    (with f32 accumulation); others compute in f32.
+    """
+    b, h, w, c = img.shape
+    d = boxes.shape[1]
+    r = out_size
+    cd = torch.bfloat16 if img.dtype == torch.bfloat16 else torch.float32
+    boxes = boxes.float()
+    wy = crop_weights(boxes[..., 1], boxes[..., 3] - boxes[..., 1], r, h).to(cd)
+    wx = crop_weights(boxes[..., 0], boxes[..., 2] - boxes[..., 0], r, w).to(cd)
+    tmp = torch.bmm(wy.reshape(b, d * r, h), img.to(cd).reshape(b, h, w * c))
+    tmp = tmp.reshape(b, d, r, w, c)
+    out = torch.einsum("bdix,bdjxc->bdjic", wx, tmp)
+    return out.to(img.dtype)
+
+
+def paste_masks_batch(masks: torch.Tensor, boxes: torch.Tensor,
+                      scores: torch.Tensor, valid: torch.Tensor, height: int,
+                      width: int, thresh: float = 0.5,
+                      box_chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Paste per-box mask probabilities into per-image instance maps.
+
+    masks [B, D, r, r], boxes [B, D, 4] (image pixel coords), scores and
+    valid [B, D].  Each pixel goes to the highest-scoring valid instance
+    whose mask exceeds `thresh` there (ties: the lowest slot).  Slots run in
+    chunks of `box_chunk`; a chunk with no valid slot in any image is
+    skipped (one host-side check for the whole batch).
+
+    Returns (label_map [B, H, W] int32, 0 = background, d + 1 = slot d;
+    score_map [B, H, W] float32).
+    """
+    b, d, r, _ = masks.shape
+    dev = masks.device
+    pad = (-d) % box_chunk
+    if pad:
+        masks = torch.nn.functional.pad(masks, (0, 0, 0, 0, 0, pad))
+        boxes = torch.nn.functional.pad(boxes, (0, 0, 0, pad))
+        scores = torch.nn.functional.pad(scores, (0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
+    n_chunks = masks.shape[1] // box_chunk
+    live_chunks = valid.reshape(b, n_chunks, box_chunk).any(dim=2).any(dim=0)
+    label = torch.zeros((b, height, width), dtype=torch.int32, device=dev)
+    best = torch.zeros((b, height, width), dtype=torch.float32, device=dev)
+    for ci in torch.nonzero(live_chunks).flatten().tolist():
+        sl = slice(ci * box_chunk, (ci + 1) * box_chunk)
+        box = boxes[:, sl].float()
+        py = paste_weights(box[..., 1], box[..., 3] - box[..., 1], r, height)
+        px = paste_weights(box[..., 0], box[..., 2] - box[..., 0], r, width)
+        vals = torch.matmul(torch.matmul(py, masks[:, sl].float()),
+                            px.transpose(-1, -2))          # [B, ch, H, W]
+        fg = (vals > thresh) & valid[:, sl, None, None]
+        cand = torch.where(fg, scores[:, sl, None, None].float(),
+                           torch.full_like(vals, -1.0))
+        win_score, winner = cand.max(dim=1)               # first occurrence
+        win_id = (ci * box_chunk + winner + 1).to(torch.int32)
+        better = (win_score > 0) & (win_score > best)
+        label = torch.where(better, win_id, label)
+        best = torch.where(better, win_score, best)
+    return label, best

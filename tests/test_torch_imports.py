@@ -1,0 +1,72 @@
+"""Import hygiene of the PyTorch port: `kgtpu_torch` and `chip_smoke.py` run
+where jax, flax, optax, orbax, cv2 and the JAX package are not installed.
+
+A static scan of every import statement, a subprocess that imports the
+port with those modules blocked, and the entry points' refusal to fall back
+to the CPU when CUDA is missing and no device was named.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "kgtpu")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "kgtpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_import_nothing_forbidden():
+    files = _port_files()
+    assert len(files) >= 15 and os.path.exists(files[0])
+    bad = [(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_and_cv2_blocked():
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+        "import kgtpu_torch.infer, kgtpu_torch.predictor, kgtpu_torch.convert\n"
+        "import kgtpu_torch.ops.groupnorm\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    from kgtpu_torch.config import tiny_test_config
+    from kgtpu_torch.infer import build_infer_fn
+    from kgtpu_torch.models import build_model
+    from kgtpu_torch.predictor import Predictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_test_config()
+    model = build_model(cfg.model, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_infer_fn(model, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(cfg, model.state_dict())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg.model)
