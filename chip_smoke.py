@@ -3,15 +3,29 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the GroupNorm(+ReLU) kernel from kgtpu_torch/csrc with nvcc, holds it
-against its plain PyTorch version at every shape the main path gives it,
-serves the default Config at full width (2-stack hourglass, 128 channels,
-512x512, seeded random weights) through `build_infer_fn` and `Predictor`,
-checks that the kernel served the backbone and the mask head, compares the
-whole path against the plain GroupNorm, and times the kernel and the
-end-to-end path (and its stages; `--profile` adds a torch.profiler table
-of the e2e call's kernels and the device's idle share).  Exits non-zero without a result line when CUDA is missing
-or any check fails.  Builds into kgtpu_torch/_build/ and writes nothing else.
+[1] Builds both kernels of kgtpu_torch/csrc with nvcc, in parallel.
+[2] Holds the GroupNorm(+ReLU) kernel against its plain PyTorch version at
+    every shape the serving path gives it.
+[3] Serves the default Config at full width (2-stack hourglass, 128
+    channels, 512x512, seeded random weights) through `build_infer_fn` and
+    `Predictor`, and checks that the kernel served the backbone and the mask
+    head.
+[4] Compares the whole serving path against the plain GroupNorm, and times
+    the kernel and the end-to-end path (and its stages; `--profile` adds a
+    torch.profiler table of the e2e call's kernels and the device's idle
+    share, and one of a train step in [6]).
+[5] Holds the Gaussian target kernel against its plain version on hard
+    cases (empty and full images, border-touching and tiny boxes, two
+    instances on one pixel, a ragged height) and times it.
+[6] Trains the default Config at full width (batch 8, 512x512) for 20 steps
+    on one seeded batch: the loss with kernel targets equals the loss with
+    plain targets, each step launches the Gaussian kernel once and the
+    GroupNorm kernel never, every parameter gets a finite gradient, and the
+    loss falls.  Times train img/s and peak memory.
+[7] Serves from the trained model, through the GroupNorm kernel again.
+
+Exits non-zero without a result line when CUDA is missing or any check
+fails.  Builds into kgtpu_torch/_build/ and writes nothing else.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON record.  TF32 is off for every phase (cuDNN and matmul), so
@@ -20,16 +34,27 @@ f32 comparisons are full f32; the model itself computes in bf16.
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 WATCHDOG_S = 900            # the run's limit is 1200 s
 TOL = {"bfloat16": 0.05, "float32": 2e-4}   # tests/test_pallas.py's tolerances
 LABEL_AGREEMENT_FLOOR = 0.98
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+# expf goes through the special-function units: 16 results per clock per SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) x 132 SMs x 1.98 GHz boost clock
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+GAUSS_F32_OPS = 8           # f32 operations beside the expf per (pixel, class, instance)
+GAUSS_TOL = 1e-6
+TRAIN_STEPS = 20
+TRAIN_LOSS_RTOL = 1e-5
 PINNED_DETS = 24
 E2E_BATCH = 32
 # GroupNorm shapes of the main path at 512x512, NCHW (B = 8; the mask head
@@ -61,6 +86,25 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(torch, fn, names, launches_per_call: int, iters: int = 20) -> float:
+    """Device time per call of `fn` spent in the kernels whose names hold
+    one of `names`, from torch.profiler over `iters` calls; fails unless
+    each call launched them `launches_per_call` times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU and any(n in e.key for n in names)]
+    count = sum(e.count for e in rows)
+    require(count == iters * launches_per_call, f"profiler saw {count} launches of {names} "
+            f"in {iters} calls, want {iters * launches_per_call}")
+    return sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / iters / 1e3
 
 
 def phase_kernel_vs_plain(torch, gn) -> dict:
@@ -114,13 +158,17 @@ def phase_kernel_vs_plain(torch, gn) -> dict:
     b = torch.randn(c, device="cuda", generator=g) * 0.5
     wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
     ms = cuda_time_ms(lambda: gn.group_norm_relu(x, w, b, 32, True))
+    device_ms = kernel_device_ms(torch, lambda: gn.group_norm_relu(x, w, b, 32, True),
+                                 ("stats_kernel", "finalize_kernel", "normalize_kernel"),
+                                 launches_per_call=3)
     plain_ms = cuda_time_ms(lambda: gn.group_norm_relu_reference(x, w, b, 32, True))
     lib_ms = cuda_time_ms(lambda: torch.relu(F.group_norm(x, 32, wl, bl, eps=gn.EPS)))
     bound_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-    log(f"  timed shape {list(TIMED_SHAPE)} bf16 relu: kernel {ms:.4f} ms, plain "
+    log(f"  timed shape {list(TIMED_SHAPE)} bf16 relu: kernel {ms:.4f} ms (device time "
+        f"{device_ms:.4f} ms, torch.profiler), plain "
         f"{plain_ms:.4f} ms, library F.group_norm+relu {lib_ms:.4f} ms, HBM bound "
         f"{bound_ms:.4f} ms (2 * numel * 2 B at 3.35 TB/s)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": max_err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "per_shape": per_shape}
 
 
@@ -181,11 +229,17 @@ def stage_times(torch, infer, model, cfg, images, dets) -> dict:
 
 
 def profile_e2e(torch, fn, top: int = 20) -> None:
-    """torch.profiler over one pinned e2e call: kernels by device time, and
-    the device's idle share of the call's wall time."""
+    """torch.profiler over one call of `fn` (a pinned e2e call, or a train
+    step): kernels by device time, and the device's idle share of the call's
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    walls = []
+    for _ in range(4):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    bare_us = sorted(walls[1:])[1] * 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
@@ -198,8 +252,10 @@ def profile_e2e(torch, fn, top: int = 20) -> None:
                    if e.device_type != torch.autograd.DeviceType.CPU and dev(e) > 0),
                   key=dev, reverse=True)
     busy_us = sum(dev(e) for e in rows)
-    log(f"  profile: wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms, "
-        f"idle share {1 - busy_us / wall_us:.3f}")
+    log(f"  profile: wall {wall_us / 1e3:.2f} ms under the profiler, {bare_us / 1e3:.2f} ms "
+        f"without (median of 3), device busy {busy_us / 1e3:.2f} ms; idle share "
+        f"{1 - busy_us / wall_us:.3f} of the profiled call, {1 - busy_us / bare_us:.3f} of "
+        f"the unprofiled one")
     for e in rows[:top]:
         log(f"    {dev(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
@@ -216,6 +272,229 @@ def check_infer_output(torch, out, b, cfg, h, w):
             require(bool(torch.isfinite(out[k]).all()), f"{k} is not finite")
     lab = out["label_map"]
     require(int(lab.min()) >= 0 and int(lab.max()) <= d, "label ids outside [0, D]")
+
+
+def gaussian_scene(np, torch, b, n, hs, ws, n_valid, seed):
+    """Keypoints, sizes and validity in stride coords as the train step
+    hands them to the renderer (keypoints clamped to [0, ws - 1e-3]), with
+    n_valid[i] valid instances in image i.  Every image also holds
+    border-touching boxes (clamped corners at exactly ws - 1e-3), tiny boxes
+    (radius < 1, sigma 1/6) and two instances on one pixel."""
+    from kgtpu_torch.ops.targets import keypoints_from_boxes
+    rng = np.random.default_rng(seed)
+    wh = rng.uniform(1.5, 16, (b, n, 2))
+    xy = rng.uniform(0, [ws, hs] - wh)
+    boxes = np.concatenate([xy, xy + wh], -1)
+    boxes[:, 0:3, 2] = ws                              # touch the right edge
+    boxes[:, 2:5, 3] = hs                              # and the bottom
+    boxes[:, 5, :2] = 0.0
+    boxes[:, 6:9, 2:] = boxes[:, 6:9, :2] + rng.uniform(0.2, 1.5, (b, 3, 2))   # tiny
+    boxes[:, 10] = boxes[:, 9]                         # two instances on one pixel
+    valid = (np.arange(n)[None] < np.asarray(n_valid)[:, None]).astype(np.float32)
+    bt = torch.from_numpy(boxes.astype(np.float32)).cuda()
+    kpts = keypoints_from_boxes(bt)
+    kpts = torch.stack([torch.clamp(kpts[..., 0], 0.0, ws - 1e-3),
+                        torch.clamp(kpts[..., 1], 0.0, hs - 1e-3)], -1)
+    sizes = torch.stack([bt[..., 3] - bt[..., 1], bt[..., 2] - bt[..., 0]], -1)
+    return kpts.contiguous(), sizes.contiguous(), torch.from_numpy(valid).cuda()
+
+
+def gaussian_bound_ms(torch, kpts, sizes, valid, hs, ws):
+    """The least time for the render on these inputs: the larger of its
+    bytes (inputs read once, the f32 output written once) over HBM and its
+    operations over their peak rates.  The operations count what the data
+    needs: an expf and GAUSS_F32_OPS f32 operations for every (pixel, class,
+    valid instance) whose squared distance to that class's floored keypoint
+    gives d^2 * coef < 14 (the cutoff below which the targets' f32
+    resolution ends), counted with the renderer's own f32 arithmetic."""
+    from kgtpu_torch.ops.targets import splat_coef
+    k = torch.floor(kpts.float())
+    coef = splat_coef(sizes, valid)                              # [B, N]
+    ys = torch.arange(hs, device=kpts.device, dtype=torch.float32)[:, None]
+    xs = torch.arange(ws, device=kpts.device, dtype=torch.float32)[None, :]
+    exps = 0
+    for s in range(0, k.shape[1], 8):
+        dx = xs - k[:, s:s + 8, :, 0, None, None]               # [B, m, 5, 1, W]
+        dy = ys - k[:, s:s + 8, :, 1, None, None]               # [B, m, 5, H, 1]
+        cf = coef[:, s:s + 8, None, None, None]
+        exps += int(((dx * dx + dy * dy) * cf < 14.0).logical_and_(cf > 0).sum())
+    nbytes = (kpts.numel() + sizes.numel() + valid.numel()) * 4 + kpts.shape[0] * hs * ws * 5 * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(exps / SFU_OPS_PER_S, exps * GAUSS_F32_OPS / F32_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), exps
+
+
+def phase_gaussian(np, torch, gauss) -> dict:
+    """Kernel vs plain on the hard cases, then kernel / plain / bound at the
+    train step's shape ([8, 128, 128, 5], N = 128) with about 40 valid
+    instances per image."""
+    from kgtpu_torch.ops.targets import render_heatmaps_batch
+    max_err = 0.0
+    cases = [("n_valid 0/1/40/128", 128, 128, [0, 1, 40, 128, 40, 128, 1, 40]),
+             ("all 128 valid", 128, 128, [128] * 8),
+             ("ragged H=100", 100, 128, [40, 0, 128, 1, 40, 40, 40, 40])]
+    for i, (name, hs, ws, n_valid) in enumerate(cases):
+        kpts, sizes, valid = gaussian_scene(np, torch, 8, 128, hs, ws, n_valid, seed=10 + i)
+        before = gauss.launches
+        got = gauss.render_heatmaps(kpts, sizes, valid, hs, ws)
+        torch.cuda.synchronize()
+        require(gauss.launches == before + 1, "the Gaussian wrapper did not launch once")
+        want = render_heatmaps_batch(kpts, sizes, valid, hs, ws)
+        require(got.shape == (8, hs, ws, 5) and got.dtype == torch.float32,
+                "Gaussian kernel output shape/dtype")
+        err = float((got - want).abs().max())
+        pos_k, pos_p = got >= 1.0, want >= 1.0
+        same_pos = bool(torch.equal(pos_k, pos_p))
+        log(f"  gauss {name:20s} [8,{hs},{ws},5] max_abs_err={err:.3g} (tol {GAUSS_TOL}); "
+            f"positives kernel {int(pos_k.sum())} plain {int(pos_p.sum())}, equal {same_pos}")
+        require(err <= GAUSS_TOL, f"Gaussian kernel disagrees with plain ({name})")
+        require(same_pos, f"Gaussian kernel positive mask differs ({name})")
+        for j, nv in enumerate(n_valid):
+            require((int(pos_k[j].sum()) == 0) == (nv == 0),
+                    f"image {j} with {nv} valid instances has {int(pos_k[j].sum())} positives")
+        max_err = max(max_err, err)
+
+    kpts, sizes, valid = gaussian_scene(np, torch, 8, 128, 128, 128, [40] * 8, seed=20)
+    call = lambda: gauss.render_heatmaps(kpts, sizes, valid, 128, 128)
+    ms = cuda_time_ms(call, iters=50)
+    device_ms = kernel_device_ms(torch, call, ("render_kernel",), launches_per_call=1)
+    plain_ms = cuda_time_ms(lambda: render_heatmaps_batch(kpts, sizes, valid, 128, 128))
+    bound_ms, bound_by, exps = gaussian_bound_ms(torch, kpts, sizes, valid, 128, 128)
+    log(f"  timed [8,128,128,5], N=128, 40 valid/img: wrapper {ms:.4f} ms, kernel device "
+        f"time {device_ms:.5f} ms (torch.profiler), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}; {exps} exps within reach); no single PyTorch "
+        f"call computes it (library_ms null)")
+    return {"max_abs_err": max_err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "exps_within_reach": exps}
+
+
+def train_batch(np, cfg, b: int, seed: int) -> dict:
+    """A host batch in the loader's contract (kgtpu/data/loader.py): uint8
+    images, colour-jitter gain and bias, area-ranked boxes and validity from
+    the label map, and the renumbered uint16 label map.  Each image holds
+    20-60 filled ellipses ("cells") drawn with NumPy."""
+    from kgtpu_torch.data.transforms import boxes_from_label_map, renumber_label_map
+    rng = np.random.default_rng(seed)
+    size = cfg.data.input_size
+    out = {k: [] for k in ("image", "img_gain", "img_bias", "boxes", "valid", "label_map")}
+    for _ in range(b):
+        label = np.zeros((size, size), np.uint16)
+        img = rng.normal(40, 10, (size, size, 3))
+        for cell in range(1, int(rng.integers(20, 61)) + 1):
+            a, c = rng.uniform(6, 28, 2)
+            cx, cy = rng.uniform(0, size, 2)
+            th = rng.uniform(0, np.pi)
+            r = int(max(a, c)) + 1
+            y0, y1 = max(int(cy) - r, 0), min(int(cy) + r + 1, size)
+            x0, x1 = max(int(cx) - r, 0), min(int(cx) + r + 1, size)
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            u = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th)
+            v = -(xx - cx) * np.sin(th) + (yy - cy) * np.cos(th)
+            inside = (u / a) ** 2 + (v / c) ** 2 <= 1.0
+            label[y0:y1, x0:x1][inside] = cell
+            img[y0:y1, x0:x1][inside] = rng.normal(170, 25, 3)
+        boxes, valid, remap = boxes_from_label_map(label, cfg.data.max_instances)
+        out["image"].append(np.clip(img, 0, 255).astype(np.uint8))
+        out["img_gain"].append(rng.uniform(0.8, 1.2, 3).astype(np.float32))
+        out["img_bias"].append((rng.uniform(-0.2, 0.2, 3) * 30).astype(np.float32))
+        out["boxes"].append(boxes)
+        out["valid"].append(valid)
+        out["label_map"].append(renumber_label_map(label, remap))
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def phase_train(np, torch, gn, gauss, cfg) -> tuple:
+    """[6]: the loss with kernel vs plain targets, then TRAIN_STEPS steps on
+    one batch.  Returns (state, device batch, stats)."""
+    from kgtpu_torch import train_lib
+    from kgtpu_torch.ops.targets import render_heatmaps_batch
+    host = train_batch(np, cfg, cfg.train.batch_size, seed=3)
+    nv = host["valid"].sum(1)
+    log(f"  batch: {host['image'].shape} uint8, valid instances per image "
+        f"{[int(v) for v in nv]}, label map {host['label_map'].dtype}")
+    require(host["label_map"].dtype == np.uint16 and nv.min() >= 15, "batch contract")
+    batch = train_lib.batch_to_device(host, "cuda")
+    require(batch["label_map"].dtype == torch.int32, "label map not cast to int32")
+    state = train_lib.create_train_state(cfg, seed=0)
+    require(state.model.training, "the train state's model is not in training mode")
+    n_params = sum(p.numel() for p in state.model.parameters())
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    b, n = batch["valid"].shape
+    sel_u = torch.rand((b, n), generator=g, device="cuda")
+    jit_u = torch.rand((b, cfg.train.mask_train_rois, 4), generator=g, device="cuda")
+    with torch.no_grad():
+        _, m_kernel = train_lib.loss_fn(state.model, batch, sel_u, jit_u, cfg)
+        _, m_plain = train_lib.loss_fn(state.model, batch, sel_u, jit_u, cfg,
+                                       render=render_heatmaps_batch)
+    for k in m_kernel:
+        a, p = float(m_kernel[k]), float(m_plain[k])
+        require(abs(a - p) <= TRAIN_LOSS_RTOL * abs(p), f"{k}: kernel targets {a} vs plain {p}")
+    log("  loss with kernel vs plain targets (rtol %g): %s" % (TRAIN_LOSS_RTOL, ", ".join(
+        f"{k} {float(m_kernel[k]):.6f}/{float(m_plain[k]):.6f}" for k in m_kernel)))
+    # ROI selection with fewer valid instances than r: the zero keys tie, and
+    # the card's stable sort must take them by ascending index as the CPU's
+    # (and jax.lax.top_k) do
+    r = cfg.train.mask_train_rois
+    few = (torch.arange(n, device="cuda")[None] <
+           torch.tensor([0, 1, 5, r - 1, r, r + 1, 40, n], device="cuda")[:b, None]).float()
+    sel_card = train_lib.select_rois(sel_u, few, r).cpu()
+    require(torch.equal(sel_card, train_lib.select_rois(sel_u.cpu(), few.cpu(), r)),
+            "ROI selection on the card differs from the CPU's")
+
+    step = train_lib.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gn.launches = gauss.launches = 0                  # the training path's run
+    history, times = [], []
+    for i in range(TRAIN_STEPS):
+        g0, k0 = gauss.launches, gn.launches
+        t = time.perf_counter()
+        metrics = step(state, batch, g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        require(gauss.launches - g0 == 1, f"step {i}: Gaussian kernel launched "
+                f"{gauss.launches - g0} times, want 1")
+        require(gn.launches == k0, f"step {i}: the GroupNorm kernel ran in training")
+        vals = {k: float(v) for k, v in metrics.items()}
+        require(all(np.isfinite(v) for v in vals.values()), f"step {i}: {vals}")
+        history.append(vals)
+    gauss_launches = gauss.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, p in state.model.named_parameters():
+        require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                f"{name}: no finite gradient")
+    first, last = history[0]["loss"], history[-1]["loss"]
+    log("  step loss: " + " ".join(f"{h['loss']:.4f}" for h in history))
+    log(f"  first {history[0]}")
+    log(f"  last  {history[-1]}")
+    require(last < first, f"loss did not fall: {first} -> {last}")
+    steady = times[1:]
+    img_s = b * len(steady) / sum(steady)
+    size = cfg.data.input_size
+    if "--profile" in sys.argv[1:]:
+        profile_e2e(torch, lambda: step(state, batch, g))
+    log(f"  {TRAIN_STEPS} steps at batch {b}, {size}x{size}: first step {times[0] * 1e3:.1f} ms, "
+        f"then {img_s:.2f} img/s ({sum(steady) / len(steady) * 1e3:.1f} ms/step), peak "
+        f"{peak_gb:.2f} GB, {n_params} params; launches: Gaussian {gauss_launches}, "
+        f"GroupNorm {gn.launches}")
+
+    x = torch.randn((2, 64, 8, 8), device="cuda").contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    w, bias = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    before = gn.launches
+    try:
+        gn.group_norm_relu(x, w, bias, 32, True)
+        raised = False
+    except RuntimeError:
+        raised = True
+    require(raised and gn.launches == before,
+            "group_norm_relu accepted a grad-requiring CUDA input")
+    log("  group_norm_relu on a grad-requiring CUDA tensor raises, as it must")
+    return state, batch, {"train_img_per_s": img_s, "train_first_step_ms": times[0] * 1e3,
+                          "train_peak_mem_gb": peak_gb, "train_steps": TRAIN_STEPS,
+                          "train_loss_first": first, "train_loss_last": last,
+                          "gauss_launches": gauss_launches, "params": n_params}
 
 
 def main() -> int:
@@ -240,13 +519,15 @@ def main() -> int:
     from kgtpu_torch import infer
     from kgtpu_torch.config import Config
     from kgtpu_torch.models import build_model
+    from kgtpu_torch.ops import gaussian as gauss
     from kgtpu_torch.ops import groupnorm as gn
     from kgtpu_torch.predictor import Predictor
 
-    # 1. build
+    # 1. build both kernels, one nvcc each, in parallel
     t = time.perf_counter()
-    lib = gn.build()
-    log(f"[1] built {lib} with nvcc in {time.perf_counter() - t:.1f} s")
+    with ThreadPoolExecutor(2) as ex:
+        libs = list(ex.map(lambda m: m.build(), (gn, gauss)))
+    log(f"[1] built {', '.join(libs)} with nvcc in {time.perf_counter() - t:.1f} s")
 
     # 2. kernel vs plain
     log("[2] GroupNorm kernel vs plain PyTorch version")
@@ -267,7 +548,7 @@ def main() -> int:
     pinned = seeded_dets(np, torch, cfg, 8, seed=1)
     torch.cuda.synchronize()
 
-    gn.launches = 0                                   # the main path's run
+    gn.launches = gauss.launches = 0                  # the serving path's run
     t = time.perf_counter()
     outs = [infer_fn(b) for b in batches]
     preds = [predictor.predict(im) for im in singles]
@@ -347,23 +628,58 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_e2e(torch, lambda: run_pinned(torch, infer, model, cfg, imgs32, dets32))
 
+    # 5. the Gaussian target kernel
+    log("[5] Gaussian target kernel vs plain PyTorch version")
+    gstats = phase_gaussian(np, torch, gauss)
+
+    # 6. train the default Config at full width
+    log("[6] training the default Config (batch 8, 512x512, lr_warmup_steps=1)")
+    del model, infer_fn, predictor, imgs32, dets32
+    tcfg = cfg.replace(train=dataclasses.replace(cfg.train, lr_warmup_steps=1))
+    state, tbatch, tstats = phase_train(np, torch, gn, gauss, tcfg)
+
+    # 7. serve from the trained model
+    log("[7] serving from the trained model (eval mode, GroupNorm kernel)")
+    trained = state.model.eval()
+    gn.launches = gauss.launches = 0
+    with torch.no_grad():
+        served = infer.build_infer_fn(trained, tcfg)(tbatch["image"])
+    torch.cuda.synchronize()
+    require(gn.launches >= 58 and gauss.launches == 0, f"serving the trained model "
+            f"launched the GroupNorm kernel {gn.launches} and the Gaussian kernel "
+            f"{gauss.launches} times")
+    check_infer_output(torch, served, tcfg.train.batch_size, tcfg, 512, 512)
+    log(f"  GroupNorm kernel launches: {gn.launches}; detections per image "
+        f"{[int(v) for v in served['valid'].sum(1)]}")
+
     metrics = {"e2e_img_per_s": img_s, "e2e_batch": E2E_BATCH,
                "pinned_dets_per_img": PINNED_DETS, "decode_group_ms_per_img":
                dg_ms / E2E_BATCH, "peak_mem_gb": peak_gb,
                "gn_launches_per_forward": backbone_per_forward,
                "gn_launches_mask_head_pinned_batch": mask_launches,
                "label_map_agreement_vs_plain": same,
-               "gn_per_shape": kstats["per_shape"], "card": smi}
+               "gn_per_shape": kstats["per_shape"],
+               "gauss_exps_within_reach": gstats["exps_within_reach"],
+               **tstats, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     kernel = {"name": "group_norm_relu", "route": "cuda",
               "source": "kgtpu_torch/csrc/groupnorm.cu",
               "replaces": "kgtpu/ops/pallas/groupnorm.py:119",
               "launches": main_launches, "max_abs_err": kstats["max_abs_err"],
-              "ms": kstats["ms"], "plain_ms": kstats["plain_ms"],
+              "ms": kstats["ms"], "device_ms": kstats["device_ms"],
+              "plain_ms": kstats["plain_ms"],
               "bound_ms": kstats["bound_ms"], "bound_by": "bytes",
               "library_ms": kstats["library_ms"]}
-    print(json.dumps({"kernels": [kernel]}))
+    gkernel = {"name": "render_heatmaps", "route": "cuda",
+               "source": "kgtpu_torch/csrc/gaussian.cu",
+               "replaces": "kgtpu/ops/pallas/gaussian.py:74",
+               "launches": tstats["gauss_launches"], "max_abs_err": gstats["max_abs_err"],
+               "ms": gstats["ms"], "device_ms": gstats["device_ms"],
+               "plain_ms": gstats["plain_ms"],
+               "bound_ms": gstats["bound_ms"], "bound_by": gstats["bound_by"],
+               "library_ms": None}
+    print(json.dumps({"kernels": [kernel, gkernel]}))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

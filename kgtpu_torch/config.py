@@ -1,9 +1,11 @@
-"""Configuration of the PyTorch port: the dataclasses the inference slice reads.
+"""Configuration of the PyTorch port: the dataclasses the inference and
+training slices read.
 
-A copy of the inference-relevant sections of `kgtpu/config.py` with the same
+A copy of the sections of `kgtpu/config.py` that the port runs, with the same
 field names and defaults, so a `Config` written for one package means the same
-model and the same pipeline in the other.  Training settings and the argparse
-shim are not part of the port yet.
+model and the same pipeline in the other.  Checkpoint, mesh, host-RSS and
+multi-step-dispatch settings and the argparse shim are not part of the port
+yet.
 """
 
 from __future__ import annotations
@@ -38,10 +40,11 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The data settings inference reads."""
+    """The data settings inference and the train step read."""
 
     input_size: int = 512
     stride: int = 4
+    max_instances: int = 128           # N: instance slots per image
     mean: tuple[float, float, float] = (0.485, 0.456, 0.406)
     std: tuple[float, float, float] = (0.229, 0.224, 0.225)
 
@@ -71,6 +74,39 @@ class GroupConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The settings the train step reads (`train_lib`).
+
+    kgtpu's `target_renderer` is left out: it chooses between two XLA
+    implementations of one function.  Here the targets render through the
+    Gaussian kernel for CUDA tensors and through its plain version for CPU
+    tensors (`ops/gaussian.py`).
+    """
+
+    batch_size: int = 8
+    lr: float = 2.5e-4
+    lr_schedule: str = "constant"      # "constant" | "cosine" (decays to
+                                       # lr/100 over num_epochs*steps_per_epoch)
+    lr_warmup_steps: int = 500
+    num_epochs: int = 100
+    steps_per_epoch: int = 0           # 0 = derive from dataset length
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 5.0
+    ema_decay: float = 0.0             # 0 disables EMA params
+    seed: int = 0
+    # loss weights: focal on heatmaps, L1 on offsets and sizes, BCE+dice on
+    # masks
+    w_heatmap: float = 1.0
+    w_offset: float = 1.0
+    w_wh: float = 0.1
+    w_mask: float = 1.0
+    mask_train_rois: int = 16          # instances per image fed to the mask head
+    roi_jitter: float = 0.1            # train-time box jitter, fraction of box size
+    focal_alpha: float = 2.0           # CornerNet penalty-reduced focal exponents
+    focal_beta: float = 4.0
+
+
+@dataclasses.dataclass(frozen=True)
 class InferConfig:
     """Single-scale inference settings."""
 
@@ -85,6 +121,7 @@ class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     group: GroupConfig = dataclasses.field(default_factory=GroupConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     infer: InferConfig = dataclasses.field(default_factory=InferConfig)
 
     def replace(self, **sections) -> "Config":
@@ -99,8 +136,10 @@ def tiny_test_config() -> Config:
             hg_depth=2, head_channels=32, roi_size=8, mask_size=16,
             mask_channels=16, compute_dtype="float32",
         ),
-        data=DataConfig(input_size=128),
+        data=DataConfig(input_size=128, max_instances=16),
         group=GroupConfig(max_peaks_per_class=32, max_detections=32),
+        train=TrainConfig(batch_size=2, num_epochs=1, steps_per_epoch=2,
+                          mask_train_rois=4),
         infer=InferConfig(input_size=128),
     )
 

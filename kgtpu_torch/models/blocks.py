@@ -3,6 +3,16 @@
 Counterparts of `kgtpu/models/blocks.py`.  Parameters are float32; each
 block computes in the dtype of its input (the model casts the image to the
 compute dtype once), as flax does with `dtype=compute_dtype`.
+
+GroupNorm runs the hand-written kernel only in eval mode.  The kernel, like
+the Pallas kernel it replaces, has no backward, so its output has no
+`grad_fn`: a training forward through it would cut the graph at every norm
+and leave everything upstream without a gradient.  In training mode
+(`model.train()`) the norms compute the differentiable plain version
+instead, which is what the JAX train step runs (flax `nn.GroupNorm` under
+XLA; `Norm("group_fused")` is inference-only there too).  The choice follows
+`nn.Module.training` alone, and the kernel's wrapper raises if autograd
+would record a call.
 """
 
 from __future__ import annotations
@@ -47,10 +57,12 @@ class Conv(nn.Module):
 
 class GroupNorm(nn.Module):
     """flax nn.GroupNorm (eps 1e-6, G = largest divisor of C <= 32), with an
-    optional fused ReLU, computed by the GroupNorm kernel on CUDA.
+    optional fused ReLU.  In eval mode the GroupNorm kernel computes it on
+    CUDA; in training mode the differentiable plain version (`F.group_norm`
+    on an f32 upcast, cast back to the input dtype) does, on any device.
 
     `plain` (set by `KGNet.use_plain_norm`, for comparisons only) computes
-    the plain PyTorch version instead, on any device."""
+    the plain version in eval mode too."""
 
     def __init__(self, channels: int, relu: bool = False):
         super().__init__()
@@ -63,7 +75,7 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # a no-op for the port's convolution outputs; the kernel needs it
         x = x.contiguous(memory_format=torch.channels_last)
-        if self.plain:
+        if self.training or self.plain:
             return group_norm_relu_reference(x, self.weight, self.bias,
                                              self.groups, self.relu)
         return group_norm_relu(x, self.weight, self.bias, self.groups,

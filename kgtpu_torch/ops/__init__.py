@@ -1,2 +1,2 @@
-"""Inference ops of the port: plain PyTorch tensor functions with a leading
-batch axis, plus the GroupNorm kernel's wrapper (`groupnorm`)."""
+"""Ops of the port: plain PyTorch tensor functions with a leading batch
+axis, plus the wrappers of the CUDA kernels (`groupnorm`, `gaussian`)."""

@@ -10,39 +10,29 @@ header note gives the design and what bounds it).
 `group_norm_relu` takes an NCHW tensor laid out channels-last (NHWC in
 memory), the layout the port's convolutions produce.  A CPU tensor goes to
 `group_norm_relu_reference`; a CUDA tensor launches the kernel, which is
-built with nvcc at first use into `kgtpu_torch/_build/` and loaded with
-ctypes, or raises.  `launches` counts the kernel's launches.
+built with nvcc at first use (`ops/_cuda.py`), or raises.  The kernel has
+no backward, like the Pallas one: on CUDA the wrapper raises when autograd
+would record the call, rather than return a result with no `grad_fn`.
+`launches` counts the kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 import torch.nn.functional as F
+
+from kgtpu_torch.ops import _cuda
 
 EPS = 1e-6
 
 # Number of times the CUDA kernel was launched in this process.
 launches = 0
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "groupnorm.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+_SRC = "groupnorm.cu"
 # Blocks the stats pass aims for: about four per SM of a 132-SM H100.
 _TARGET_BLOCKS = 4 * 132
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 def num_groups(channels: int, max_groups: int = 32) -> int:
@@ -61,50 +51,18 @@ def group_norm_relu_reference(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the GroupNorm kernel cannot be built")
-
-
 def build() -> str:
-    """Compile csrc/groupnorm.cu into a shared library (once per source hash)
-    and return its path."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = os.path.join(_BUILD_DIR, f"libkgtpu_groupnorm_{digest[:16]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC], check=True,
-                       capture_output=True, text=True)
-        os.replace(tmp, out)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed:\n{e.stdout}\n{e.stderr}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    """Compile csrc/groupnorm.cu (once per source hash); its library path."""
+    return _cuda.build(_SRC)
 
 
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.kgtpu_group_norm_relu
-            p = ctypes.c_void_p
-            fn.argtypes = [p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int64,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                           ctypes.c_int, p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+def _fn():
+    p = ctypes.c_void_p
+    return _cuda.load(_SRC, "kgtpu_group_norm_relu",
+                      [p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, p])
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -132,6 +90,12 @@ def group_norm_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return group_norm_relu_reference(x, weight, bias, groups, relu)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        raise RuntimeError(
+            "the GroupNorm kernel has no backward: its output would cut the "
+            "autograd graph (train with the module in training mode, or run "
+            "under torch.no_grad / torch.inference_mode)")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("the GroupNorm kernel needs a channels_last tensor")
     if (weight.dtype != torch.float32 or bias.dtype != torch.float32
@@ -153,9 +117,8 @@ def group_norm_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x, memory_format=torch.channels_last)
     partial = torch.empty((b, nchunks, 2, c), device=x.device, dtype=torch.float32)
     ab = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
-    lib = _load()
     with torch.cuda.device(x.device):
-        err = lib.kgtpu_group_norm_relu(
+        err = _fn()(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
             partial.data_ptr(), ab.data_ptr(), b, hw, c, groups, chunk_rows,
             nchunks, int(relu), EPS, 0 if x.dtype == torch.float32 else 1, vec,

@@ -1,5 +1,6 @@
 """ROI crop and mask paste as separable-matmul resampling.  Counterpart of
-`kgtpu/ops/roi.py::crop_and_resize` (bilinear) and `paste_masks_batch`.
+`kgtpu/ops/roi.py::crop_and_resize` (bilinear and nearest) and
+`paste_masks_batch`.
 
 Bilinear resampling is separable, so a crop or a paste is two matrix
 products with banded tent-weight matrices:
@@ -9,7 +10,10 @@ products with banded tent-weight matrices:
 
 Half-pixel centers: pixel i spans [i, i+1).  Crop output pixel j of R
 samples the source at x0 + (j + 0.5) * (x1 - x0) / R, edge-clamped; paste
-inverts that mapping.
+inverts that mapping.  The nearest crop (GT label maps in the train step)
+selects source pixel floor(x0 + (j + 0.5) * (x1 - x0) / R), clamped: a
+gather, exact for any dtype, where the JAX package multiplies by one-hot
+rows.
 """
 
 from __future__ import annotations
@@ -40,17 +44,35 @@ def paste_weights(start: torch.Tensor, extent: torch.Tensor, r: int,
     return w * inside[..., None]
 
 
+def nearest_index(start: torch.Tensor, extent: torch.Tensor, r: int,
+                  n_src: int) -> torch.Tensor:
+    """[..., r] source index of each nearest-neighbour crop texel."""
+    j = torch.arange(r, dtype=torch.float32, device=start.device)
+    pos = start[..., None] + (j + 0.5) * extent[..., None] / r
+    return torch.clamp(torch.floor(pos), 0.0, n_src - 1.0).long()
+
+
 def crop_and_resize(img: torch.Tensor, boxes: torch.Tensor,
-                    out_size: int) -> torch.Tensor:
-    """Bilinear crop of each box, resized to out_size x out_size.
+                    out_size: int, method: str = "bilinear") -> torch.Tensor:
+    """Crop each box, resized to out_size x out_size.
 
     img [B, H, W, C], boxes [B, D, 4] (x0, y0, x1, y1) in img's pixel coords
-    -> [B, D, R, R, C] in img's dtype.  bf16 sources keep bf16 operands
-    (with f32 accumulation); others compute in f32.
+    -> [B, D, R, R, C] in img's dtype.  "bilinear": bf16 sources keep bf16
+    operands (with f32 accumulation), others compute in f32; differentiable
+    in `img`.  "nearest": an exact gather (label maps: ids are never
+    blended).
     """
     b, h, w, c = img.shape
     d = boxes.shape[1]
     r = out_size
+    if method == "nearest":
+        boxes = boxes.float()
+        iy = nearest_index(boxes[..., 1], boxes[..., 3] - boxes[..., 1], r, h)
+        ix = nearest_index(boxes[..., 0], boxes[..., 2] - boxes[..., 0], r, w)
+        bi = torch.arange(b, device=img.device)[:, None, None, None]
+        return img[bi, iy[:, :, :, None], ix[:, :, None, :]]    # [B, D, R, R, C]
+    if method != "bilinear":
+        raise ValueError(f"unknown method {method!r}")
     cd = torch.bfloat16 if img.dtype == torch.bfloat16 else torch.float32
     boxes = boxes.float()
     wy = crop_weights(boxes[..., 1], boxes[..., 3] - boxes[..., 1], r, h).to(cd)

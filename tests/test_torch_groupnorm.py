@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from kgtpu.ops.pallas.groupnorm import fused_group_norm
+from kgtpu_torch.ops import _cuda
 from kgtpu_torch.ops import groupnorm as gn
 
 TOL = {"float32": 2e-4, "bfloat16": 0.05}
@@ -96,5 +97,30 @@ def test_wrapper_rejects_bad_inputs():
 
 
 def test_build_flags_target_hopper():
-    flags = " ".join(gn.NVCC_FLAGS)
+    flags = " ".join(_cuda.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+
+
+def test_training_mode_takes_differentiable_norm_eval_mode_the_wrapper(monkeypatch):
+    """The norm follows nn.Module.training: training mode computes the plain
+    version (its graph reaches x, weight and bias), eval mode calls the
+    kernel's wrapper."""
+    from kgtpu_torch.models import blocks
+
+    calls = []
+    monkeypatch.setattr(blocks, "group_norm_relu",
+                        lambda *a: calls.append(a) or gn.group_norm_relu(*a))
+    norm = blocks.GroupNorm(64, relu=True)
+    x = torch.randn(2, 64, 4, 4).contiguous(memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    norm.train()
+    y = norm(x)
+    assert not calls and y.grad_fn is not None
+    y.square().sum().backward()
+    assert x.grad is not None and norm.weight.grad is not None
+    assert norm.bias.grad is not None
+    norm.eval()
+    with torch.no_grad():
+        y_eval = norm(x)
+    assert len(calls) == 1
+    torch.testing.assert_close(y_eval, y.detach(), rtol=0, atol=0)

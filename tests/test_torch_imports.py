@@ -49,6 +49,8 @@ def test_port_imports_with_jax_and_cv2_blocked():
         f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
         "import kgtpu_torch.infer, kgtpu_torch.predictor, kgtpu_torch.convert\n"
         "import kgtpu_torch.ops.groupnorm\n"
+        "import kgtpu_torch.losses, kgtpu_torch.train_lib, kgtpu_torch.ops.targets\n"
+        "import kgtpu_torch.ops.gaussian, kgtpu_torch.data.transforms\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
@@ -70,3 +72,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         Predictor(cfg, model.state_dict())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(cfg.model)
+
+
+def test_create_train_state_refuses_cpu_fallback(monkeypatch):
+    from kgtpu_torch.config import tiny_test_config
+    from kgtpu_torch.train_lib import create_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(tiny_test_config())
+    assert create_train_state(tiny_test_config(), device="cpu").model.training
