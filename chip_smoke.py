@@ -5,7 +5,11 @@
 
 [1] Builds both kernels of kgtpu_torch/csrc with nvcc, in parallel.
 [2] Holds the GroupNorm(+ReLU) kernel against its plain PyTorch version at
-    every shape the serving path gives it.
+    every shape the serving path gives it, at batch 1, 8 and 32, and at odd
+    shapes (an H*W no part size divides, C = 48, C = 100 and a misaligned
+    pointer, which take its one-element path); three calls on one input
+    must give bitwise-equal outputs, and the profiler must see one launch
+    per call.
 [3] Serves the default Config at full width (2-stack hourglass, 128
     channels, 512x512, seeded random weights) through `build_infer_fn` and
     `Predictor`, and checks that the kernel served the backbone and the mask
@@ -13,10 +17,13 @@
 [4] Compares the whole serving path against the plain GroupNorm, and times
     the kernel and the end-to-end path (and its stages; `--profile` adds a
     torch.profiler table of the e2e call's kernels and the device's idle
-    share, and one of a train step in [6]).
+    share, and one of a train step in [6]).  Times the GroupNorm kernel at
+    every shape of the batch-32 e2e call: CUDA-event and device ms, HBM
+    bound, launches per call and the wrapper's host enqueue time.
 [5] Holds the Gaussian target kernel against its plain version on hard
     cases (empty and full images, border-touching and tiny boxes, two
-    instances on one pixel, a ragged height) and times it.
+    instances on one pixel, a ragged height and width, sizes whose radius
+    lies just below or above an integer) and times it.
 [6] Trains the default Config at full width (batch 8, 512x512) for 20 steps
     on one seeded batch: the loss with kernel targets equals the loss with
     plain targets, each step launches the Gaussian kernel once and the
@@ -62,6 +69,15 @@ E2E_BATCH = 32
 GN_SHAPES = [(8, 64, 256, 256), (8, 128, 128, 128), (8, 128, 64, 64),
              (8, 128, 32, 32), (8, 128, 16, 16), (8, 128, 8, 8),
              (8 * 32, 64, 32, 32)]
+GN_LEVELS = [(64, 256, 256), (128, 128, 128), (128, 64, 64), (128, 32, 32),
+             (128, 16, 16), (128, 8, 8)]
+# batch 1 and 32 at every level, and shapes that take the kernel's other
+# paths: an H*W no part size divides, C = 48 (G = 24), C = 100 (vec = 1 in
+# bf16); the last flag misaligns x by one element (vec = 1 in f32 too)
+GN_MORE = ([((1, *lvl), False) for lvl in GN_LEVELS]
+           + [((32, *lvl), False) for lvl in GN_LEVELS]
+           + [((3, 128, 37, 41), False), ((4, 48, 24, 40), False),
+              ((2, 100, 20, 30), False), ((2, 128, 33, 17), True)])
 TIMED_SHAPE = (32, 128, 128, 128)
 
 
@@ -91,65 +107,81 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def kernel_device_ms(torch, fn, names, launches_per_call: int, iters: int = 20) -> float:
     """Device time per call of `fn` spent in the kernels whose names hold
     one of `names`, from torch.profiler over `iters` calls; fails unless
-    each call launched them `launches_per_call` times."""
+    each call launched them `launches_per_call` times.  The profiler has
+    been seen to drop a kernel record now and then, so a count that differs
+    is measured once more before it fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU and any(n in e.key for n in names)]
-    count = sum(e.count for e in rows)
-    require(count == iters * launches_per_call, f"profiler saw {count} launches of {names} "
-            f"in {iters} calls, want {iters * launches_per_call}")
-    return sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / iters / 1e3
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type != torch.autograd.DeviceType.CPU
+                and any(n in e.key for n in names)]
+        count = sum(e.count for e in rows)
+        if count == iters * launches_per_call:
+            return sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / iters / 1e3
+        log(f"  profiler saw {count} launches of {names} in {iters} calls, want "
+            f"{iters * launches_per_call}" + ("; measuring again" if attempt == 0 else ""))
+    require(False, f"profiler saw {count} launches of {names} in {iters} calls")
+
+
+def gn_input(torch, src, dtype, misalign: bool):
+    """`src` [B, H, W, C] as an NCHW tensor of `dtype` laid out channels-last;
+    with `misalign`, it starts one element past a 16-byte boundary."""
+    n, m = src.numel(), int(misalign)
+    base = torch.empty(n + 1, device="cuda", dtype=dtype)
+    nhwc = base[m:m + n].view(src.shape)
+    nhwc.copy_(src)
+    return nhwc.permute(0, 3, 1, 2)
 
 
 def phase_kernel_vs_plain(torch, gn) -> dict:
-    """Kernel vs plain at every main-path shape, relu on/off, bf16 and f32;
-    then kernel, plain and library times at TIMED_SHAPE."""
+    """Kernel vs plain at every main-path shape (batch 8), at batch 1 and 32
+    and at odd shapes, relu on/off, bf16 and f32, each called three times:
+    the outputs must be bitwise equal.  Then kernel, plain and library times
+    at TIMED_SHAPE."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
-    for shape in GN_SHAPES:
+    for shape, misalign in [(s, False) for s in GN_SHAPES] + GN_MORE:
         c = shape[1]
         groups = gn.num_groups(c)
         w = torch.randn(c, device="cuda", generator=g) * 0.2 + 1.0
         b = torch.randn(c, device="cuda", generator=g) * 0.5
-        xf = (torch.randn(shape, device="cuda", generator=g) * 3.0 + 2.0).contiguous(
-            memory_format=torch.channels_last)
+        bs, _, h, wd = shape
+        src = torch.randn((bs, h, wd, c), device="cuda", generator=g) * 3.0 + 2.0
         for dtype in ("bfloat16", "float32"):
-            x = xf.to(getattr(torch, dtype))
+            x = gn_input(torch, src, getattr(torch, dtype), misalign)
+            require(x.is_contiguous(memory_format=torch.channels_last)
+                    and (x.data_ptr() % 16 != 0) == misalign, "test input layout")
+            errs = []
             for relu in (False, True):
-                got = gn.group_norm_relu(x, w, b, groups, relu)
+                runs = [gn.group_norm_relu(x, w, b, groups, relu) for _ in range(3)]
                 want = gn.group_norm_relu_reference(x, w, b, groups, relu)
                 torch.cuda.synchronize()
+                got = runs[0]
                 require(got.dtype == x.dtype and got.shape == x.shape, "kernel output dtype/shape")
                 require(got.is_contiguous(memory_format=torch.channels_last),
                         "kernel output is not channels_last")
+                require(all(torch.equal(got, r) for r in runs[1:]),
+                        f"three calls at {shape} {dtype} relu={relu} are not bitwise equal")
                 diff = (got.float() - want.float()).abs()
                 err = float(diff.max())
                 excess = float((diff - TOL[dtype] * (1 + want.float().abs())).max())
-                log(f"  gn {str(list(shape)):22s} {dtype:8s} relu={int(relu)} "
-                    f"max_abs_err={err:.3g} (tol {TOL[dtype]} abs+rel)")
-                require(excess <= 0, f"kernel disagrees with plain at {shape} {dtype}")
+                require(excess <= 0, f"kernel disagrees with plain at {shape} {dtype} "
+                        f"relu={relu}: max_abs_err {err}")
+                errs.append(err)
                 max_err = max(max_err, err)
-        del xf
-
-    per_shape = []
-    for shape in GN_SHAPES:
-        c = shape[1]
-        x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        w, b = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
-        k = cuda_time_ms(lambda: gn.group_norm_relu(x, w, b, 32, True))
-        p = cuda_time_ms(lambda: gn.group_norm_relu_reference(x, w, b, 32, True))
-        bound = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
-        per_shape.append({"shape": list(shape), "ms": k, "plain_ms": p, "bound_ms": bound})
-        log(f"  time {str(list(shape)):22s} bf16 relu kernel {k:.4f} ms, "
-            f"plain {p:.4f} ms, bound {bound:.4f} ms")
+            log(f"  gn {str(list(shape)):20s} {dtype:8s}{' misaligned' if misalign else ''} "
+                f"max_abs_err relu=0 {errs[0]:.3g}, relu=1 {errs[1]:.3g} (tol {TOL[dtype]} "
+                f"abs+rel); 3 calls bitwise equal")
+            del x
+        del src
+    log("  every case within tolerance, every repeat bitwise equal")
 
     c = TIMED_SHAPE[1]
     x = torch.randn(TIMED_SHAPE, device="cuda", generator=g).to(torch.bfloat16).contiguous(
@@ -159,17 +191,65 @@ def phase_kernel_vs_plain(torch, gn) -> dict:
     wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
     ms = cuda_time_ms(lambda: gn.group_norm_relu(x, w, b, 32, True))
     device_ms = kernel_device_ms(torch, lambda: gn.group_norm_relu(x, w, b, 32, True),
-                                 ("stats_kernel", "finalize_kernel", "normalize_kernel"),
-                                 launches_per_call=3)
+                                 ("group_norm_kernel",), launches_per_call=1)
     plain_ms = cuda_time_ms(lambda: gn.group_norm_relu_reference(x, w, b, 32, True))
     lib_ms = cuda_time_ms(lambda: torch.relu(F.group_norm(x, 32, wl, bl, eps=gn.EPS)))
     bound_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
     log(f"  timed shape {list(TIMED_SHAPE)} bf16 relu: kernel {ms:.4f} ms (device time "
-        f"{device_ms:.4f} ms, torch.profiler), plain "
+        f"{device_ms:.4f} ms, torch.profiler, one launch per call), plain "
         f"{plain_ms:.4f} ms, library F.group_norm+relu {lib_ms:.4f} ms, HBM bound "
         f"{bound_ms:.4f} ms (2 * numel * 2 B at 3.35 TB/s)")
     return {"max_abs_err": max_err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "per_shape": per_shape}
+            "library_ms": lib_ms, "bound_ms": bound_ms}
+
+
+def gn_shape_counts(torch, infer, model, cfg, images, dets) -> dict:
+    """{shape: launches} of the GroupNorm kernel in one pinned e2e call."""
+    from kgtpu_torch.models import blocks
+    counts, wrapped = {}, blocks.group_norm_relu
+
+    def counting(x, *args):
+        counts[tuple(x.shape)] = counts.get(tuple(x.shape), 0) + 1
+        return wrapped(x, *args)
+
+    blocks.group_norm_relu = counting
+    try:
+        run_pinned(torch, infer, model, cfg, images, dets)
+    finally:
+        blocks.group_norm_relu = wrapped
+    return counts
+
+
+def gn_per_shape(torch, gn, counts: dict) -> list:
+    """The kernel at every shape of the e2e call (bf16, ReLU): CUDA-event ms
+    over back-to-back calls, device ms from torch.profiler (one launch per
+    call), the HBM bound and the wrapper's host time per call (enqueue
+    only: host clock over 50 calls, no synchronize inside)."""
+    rows = []
+    for shape, n in sorted(counts.items(), key=lambda kv: -kv[0][0] * kv[0][2] * kv[0][3]):
+        c = shape[1]
+        x = torch.randn(shape, device="cuda").to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        w, b = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+        call = lambda: gn.group_norm_relu(x, w, b, gn.num_groups(c), True)
+        ms = cuda_time_ms(call)
+        dev = kernel_device_ms(torch, call, ("group_norm_kernel",), launches_per_call=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            call()
+        host_us = (time.perf_counter() - t) / 50 * 1e6
+        torch.cuda.synchronize()
+        bound = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
+        rows.append({"shape": list(shape), "launches": n, "ms": ms, "device_ms": dev,
+                     "bound_ms": bound, "host_us": host_us})
+        log(f"  gn {str(list(shape)):20s} x{n:<3d} {ms:.4f} ms, device {dev:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound / dev:.2f} of it), host {host_us:.1f} us/call")
+        del x
+    tot = lambda k: sum(r["launches"] * r[k] for r in rows)
+    log(f"  e2e call's GroupNorm: {sum(r['launches'] for r in rows)} launches, device "
+        f"{tot('device_ms'):.3f} ms against a bound of {tot('bound_ms'):.3f} ms")
+    return rows
 
 
 def seeded_dets(np, torch, cfg, batch: int, seed: int):
@@ -332,7 +412,8 @@ def phase_gaussian(np, torch, gauss) -> dict:
     max_err = 0.0
     cases = [("n_valid 0/1/40/128", 128, 128, [0, 1, 40, 128, 40, 128, 1, 40]),
              ("all 128 valid", 128, 128, [128] * 8),
-             ("ragged H=100", 100, 128, [40, 0, 128, 1, 40, 40, 40, 40])]
+             ("ragged H=100", 100, 128, [40, 0, 128, 1, 40, 40, 40, 40]),
+             ("ragged H=100 W=77", 100, 77, [40, 128, 1, 0, 40, 40, 40, 40])]
     for i, (name, hs, ws, n_valid) in enumerate(cases):
         kpts, sizes, valid = gaussian_scene(np, torch, 8, 128, hs, ws, n_valid, seed=10 + i)
         before = gauss.launches
@@ -354,6 +435,8 @@ def phase_gaussian(np, torch, gauss) -> dict:
                     f"image {j} with {nv} valid instances has {int(pos_k[j].sum())} positives")
         max_err = max(max_err, err)
 
+    max_err = max(max_err, gaussian_radius_sweep(np, torch, gauss))
+
     kpts, sizes, valid = gaussian_scene(np, torch, 8, 128, 128, 128, [40] * 8, seed=20)
     call = lambda: gauss.render_heatmaps(kpts, sizes, valid, 128, 128)
     ms = cuda_time_ms(call, iters=50)
@@ -364,8 +447,50 @@ def phase_gaussian(np, torch, gauss) -> dict:
         f"time {device_ms:.5f} ms (torch.profiler), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by}; {exps} exps within reach); no single PyTorch "
         f"call computes it (library_ms null)")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(50):
+        call()
+    host_us = (time.perf_counter() - t) / 50 * 1e6
+    torch.cuda.synchronize()
+    log(f"  wrapper host time {host_us:.1f} us per call (enqueue only, 50 calls)")
     return {"max_abs_err": max_err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "exps_within_reach": exps}
+            "bound_ms": bound_ms, "bound_by": bound_by, "exps_within_reach": exps,
+            "host_us": host_us}
+
+
+def gaussian_radius_sweep(np, torch, gauss) -> float:
+    """Sizes whose CornerNet radius lies just below or just above an
+    integer (floor(r) picks sigma): the sizes on either side of each step of
+    floor(r) on a 1e-3 grid, and their f32 neighbours, square and 1:1.3.
+    The kernel's own prep must pick the plain version's sigma: positives
+    exactly equal and every value within GAUSS_TOL."""
+    from kgtpu_torch.ops.targets import gaussian_radius, render_heatmaps_batch
+    side = torch.arange(1.0, 80.0, 1e-3, device="cuda")
+    worst = 0.0
+    for aspect in (1.0, 1.3):
+        fl = torch.floor(gaussian_radius(torch.stack([side, side * aspect], -1)))
+        step = torch.nonzero(fl[1:] != fl[:-1]).flatten()
+        edge = torch.cat([side[step], side[step + 1]])
+        edge = torch.cat([torch.nextafter(edge, torch.zeros_like(edge)), edge,
+                          torch.nextafter(edge, torch.full_like(edge, 1e4))])
+        n = 128
+        b = -(-edge.numel() // n)
+        h = torch.full((b * n,), 5.0, device="cuda")
+        h[:edge.numel()] = edge
+        sizes = torch.stack([h, h * aspect], -1).view(b, n, 2)
+        rng = np.random.default_rng(int(aspect * 10))
+        kpts = torch.from_numpy(rng.uniform(0, 127.99, (b, n, 5, 2)).astype(np.float32)).cuda()
+        valid = torch.ones((b, n), device="cuda")
+        got = gauss.render_heatmaps(kpts, sizes, valid, 128, 128)
+        want = render_heatmaps_batch(kpts, sizes, valid, 128, 128)
+        err = float((got - want).abs().max())
+        same_pos = bool(torch.equal(got >= 1.0, want >= 1.0))
+        log(f"  gauss radius sweep 1:{aspect} ({edge.numel()} sizes at {step.numel()} steps "
+            f"of floor(r)) max_abs_err={err:.3g}; positives equal {same_pos}")
+        require(err <= GAUSS_TOL and same_pos, "Gaussian kernel disagrees near a radius step")
+        worst = max(worst, err)
+    return worst
 
 
 def train_batch(np, cfg, b: int, seed: int) -> dict:
@@ -625,6 +750,8 @@ def main() -> int:
         f"{dg_ms / E2E_BATCH:.4f} ms/img")
     log("  stages, ms per batch of %d: %s" % (E2E_BATCH, ", ".join(
         f"{k} {v:.2f}" for k, v in stages.items())))
+    log("  GroupNorm kernel at the shapes of one e2e call (bf16, ReLU):")
+    gn_rows = gn_per_shape(torch, gn, gn_shape_counts(torch, infer, model, cfg, imgs32, dets32))
     if "--profile" in sys.argv[1:]:
         profile_e2e(torch, lambda: run_pinned(torch, infer, model, cfg, imgs32, dets32))
 
@@ -658,8 +785,9 @@ def main() -> int:
                "gn_launches_per_forward": backbone_per_forward,
                "gn_launches_mask_head_pinned_batch": mask_launches,
                "label_map_agreement_vs_plain": same,
-               "gn_per_shape": kstats["per_shape"],
+               "gn_per_shape_b32": gn_rows,
                "gauss_exps_within_reach": gstats["exps_within_reach"],
+               "gauss_wrapper_host_us": gstats["host_us"],
                **tstats, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")

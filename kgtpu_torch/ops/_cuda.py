@@ -6,9 +6,11 @@ plain C interface, loaded with ctypes.
 flags, so a changed source or flag set builds anew and an unchanged one is
 reused.  `load(src, fn, argtypes)` builds, opens the library once per source
 and returns its C function with `argtypes` set (ctypes would otherwise pass
-every Python int as a 32-bit int and cut the pointers).  Nothing is built
-when a module is imported: the CPU tests import every module, and nvcc
-exists only beside the card.
+every Python int as a 32-bit int and cut the pointers).  `call_on(device,
+fn, *args)` calls a loaded function with its arguments' device current and
+the handle of that device's current stream as the last argument.  Nothing
+is built when a module is imported: the CPU tests import every module, and
+nvcc exists only beside the card.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -80,3 +84,14 @@ def load(src: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
         f.restype = ctypes.c_int
         _fns[(src, fn)] = f
         return f
+
+
+def call_on(device: torch.device, fn: ctypes._CFuncPtr, *args) -> int:
+    """fn(*args, stream) on `device`, with the handle of its current stream
+    (what torch.cuda.current_stream(device).cuda_stream gives, read without
+    building a Stream object, as torch's own generated kernels read it); the
+    device is made current only where it is not already."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))

@@ -7,11 +7,12 @@ what bounds it); the plain version is `ops/targets.py::
 render_heatmaps_batch`.
 
 `render_heatmaps` takes a CPU tensor to the plain version.  For CUDA tensors
-it floors the keypoints and computes each instance's 1 / (2 sigma^2) in torch
-on the card, then renders the whole batch in one launch of the kernel, which
-is built with nvcc at first use (`ops/_cuda.py`), or raises.  Targets are
-data: no gradient flows through them, and the output never requires one.
-`launches` counts the kernel's launches.
+it allocates the output and launches the kernel once for the whole batch on
+the inputs as they are (cast to contiguous f32 only where they are not): the
+kernel floors the keypoints and computes each instance's radius and
+1 / (2 sigma^2) itself.  It is built with nvcc at first use (`ops/_cuda.py`),
+or the call raises.  Targets are data: no gradient flows through them, and
+the output never requires one.  `launches` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -21,14 +22,18 @@ import ctypes
 import torch
 
 from kgtpu_torch.ops import _cuda
-from kgtpu_torch.ops.targets import render_heatmaps_batch, splat_coef
+from kgtpu_torch.ops.targets import render_heatmaps_batch
 
 # Number of times the CUDA kernel was launched in this process.
 launches = 0
 
 _SRC = "gaussian.cu"
-BAND_H = 8                  # rows per block: 128 blocks at [8, 128, 128]
-_MAX_INSTANCES = 1000       # the kernel's shared memory stays under 48 KB
+# A block renders a TILE_H x TILE_W tile of one image (csrc/gaussian.cu
+# kTileH, kTileW) from the instances within reach of the tile.
+TILE_H = 8
+TILE_W = 32
+CUTOFF = 14.0               # reach: d^2 * coef < CUTOFF, exp(-14) ~ 8.3e-7
+_MAX_INSTANCES = 1000       # the kernel's lists: 15 floats an instance
 
 
 def build() -> str:
@@ -40,7 +45,11 @@ def _fn():
     p = ctypes.c_void_p
     i = ctypes.c_int
     return _cuda.load(_SRC, "kgtpu_render_heatmaps",
-                      [p, p, p, p, i, i, i, i, i, p])
+                      [p, p, p, p, i, i, i, i, ctypes.c_double, p])
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
 
 
 def render_heatmaps(kpts: torch.Tensor, sizes_hw: torch.Tensor,
@@ -53,29 +62,22 @@ def render_heatmaps(kpts: torch.Tensor, sizes_hw: torch.Tensor,
     b, n = kpts.shape[:2]
     if sizes_hw.shape != (b, n, 2) or valid.shape != (b, n):
         raise ValueError("sizes_hw must be [B, N, 2] and valid [B, N]")
-    if kpts.device.type == "cpu":
+    dev = kpts.device
+    if dev.type == "cpu":
         return render_heatmaps_batch(kpts, sizes_hw, valid, height, width,
                                      min_overlap)
-    if kpts.device.type != "cuda":
-        raise ValueError(f"unsupported device {kpts.device}")
-    if sizes_hw.device != kpts.device or valid.device != kpts.device:
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if sizes_hw.device != dev or valid.device != dev:
         raise ValueError("kpts, sizes_hw and valid must be on one device")
-    out = torch.empty((b, height, width, 5), dtype=torch.float32, device=kpts.device)
-    if b == 0 or height == 0 or width == 0:
-        return out
-    if n == 0:
-        return out.zero_()
     if n > _MAX_INSTANCES:
         raise ValueError(f"{n} instances exceed the kernel's limit of {_MAX_INSTANCES}")
-    with torch.no_grad():
-        k = torch.floor(kpts.float())
-        kx = k[..., 0].transpose(1, 2).contiguous()                # [B, 5, N]
-        ky = k[..., 1].transpose(1, 2).contiguous()
-        coef = splat_coef(sizes_hw, valid, min_overlap).contiguous()  # [B, N]
-    with torch.cuda.device(out.device):
-        err = _fn()(kx.data_ptr(), ky.data_ptr(), coef.data_ptr(), out.data_ptr(),
-                    b, n, height, width, BAND_H,
-                    torch.cuda.current_stream(out.device).cuda_stream)
+    out = torch.empty((b, height, width, 5), dtype=torch.float32, device=dev)
+    if b == 0 or height == 0 or width == 0:
+        return out
+    k, s, v = _f32(kpts.detach()), _f32(sizes_hw.detach()), _f32(valid.detach())
+    err = _cuda.call_on(dev, _fn(), k.data_ptr(), s.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), b, n, height, width, min_overlap)
     if err != 0:
         raise RuntimeError(f"Gaussian kernel launch failed (error {err})")
     global launches

@@ -11,8 +11,9 @@ offset) and results come back in the input frame.  The two resizes follow
 cv2, which the JAX package uses, without needing it:
 
   * image: `cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT 0)` with the scale
-    matrix: destination pixel x samples source x / s (no half-pixel shift),
-    f32 bilinear weights, rounded half to even;
+    matrix, in cv2 5.0's f32 arithmetic: destination pixel x samples source
+    x / s (no half-pixel shift, taps outside the image read 0), interpolated
+    along x and then along y as fused multiply-adds, rounded half to even;
   * label map: `cv2.resize(INTER_NEAREST)`: source index floor(x * src/dst).
 """
 
@@ -27,9 +28,31 @@ from kgtpu_torch.infer import build_infer_fn
 from kgtpu_torch.models import KGNet
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 tensors with one rounding, as an FMA unit gives it.
+
+    The product of two f32 values is exact in f64; the f64 sum may round,
+    and its error (TwoSum) breaks the one case where rounding that sum to
+    f32 would round twice: a sum that lies on a tie between two floats."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)                  # s + err == p + c exactly
+    r = s.float()
+    toward = torch.nextafter(r, torch.where(err > 0, torch.inf, -torch.inf).float())
+    tie = (err != 0) & ((r.double() + toward.double()) * 0.5 == s)
+    return torch.where(tie, toward, r)
+
+
 def resize_image(image: torch.Tensor, out_size: int) -> torch.Tensor:
     """[H, W, 3] uint8 -> [out_size, out_size, 3] uint8: the long side scaled
-    to out_size, anchored at the top-left corner, zero elsewhere."""
+    to out_size, anchored at the top-left corner, zero elsewhere.  Equal to
+    cv2 5.0's warpAffine: the f32 source position x * (1 / s), its floor and
+    fraction, then top = fma(ax, p01 - p00, p00), bottom = fma(ax, p11 - p10,
+    p10), out = fma(ay, bottom - top, top).  The order matters only at
+    values within an ulp of a half: there one product rounding more (the
+    four-weight sum) moves the result by one."""
     h, w = image.shape[:2]
     s = out_size / max(h, w)
     inv = s * (1.0 / (s * s))         # cv2.invertAffineTransform's 1/s
@@ -38,26 +61,20 @@ def resize_image(image: torch.Tensor, out_size: int) -> torch.Tensor:
     frac = pos - i0.astype(np.float32)
     dev = image.device
     img = image.float()
+    lo = torch.from_numpy(i0).to(dev)
 
-    def axis(n):
-        lo = torch.from_numpy(i0).to(dev)
-        hi = lo + 1
-        return ((lo, (lo < n)), (hi, (hi < n)))
-
-    (y0, vy0), (y1, vy1) = axis(h)
-    (x0, vx0), (x1, vx1) = axis(w)
-
-    def tap(yy, vy, xx, vx):
+    def tap(yy, xx):
         v = img[yy.clamp(max=h - 1)][:, xx.clamp(max=w - 1)]
-        ok = (vy[:, None] & vx[None, :])[..., None]
+        ok = ((yy < h)[:, None] & (xx < w)[None, :])[..., None]
         return torch.where(ok, v, torch.zeros_like(v))
 
-    ay = torch.from_numpy(frac).to(dev)[:, None, None]
-    ax = torch.from_numpy(frac).to(dev)[None, :, None]
-    out = (tap(y0, vy0, x0, vx0) * (1 - ay) * (1 - ax)
-           + tap(y0, vy0, x1, vx1) * (1 - ay) * ax
-           + tap(y1, vy1, x0, vx0) * ay * (1 - ax)
-           + tap(y1, vy1, x1, vx1) * ay * ax)
+    p00, p01 = tap(lo, lo), tap(lo, lo + 1)
+    p10, p11 = tap(lo + 1, lo), tap(lo + 1, lo + 1)
+    f = torch.from_numpy(frac).to(dev)
+    ax, ay = f[None, :, None], f[:, None, None]
+    top = _fma(ax.expand_as(p00), p01 - p00, p00)
+    bottom = _fma(ax.expand_as(p10), p11 - p10, p10)
+    out = _fma(ay.expand_as(top), bottom - top, top)
     return torch.round(out).clamp(0, 255).to(torch.uint8)
 
 

@@ -124,3 +124,94 @@ def test_training_mode_takes_differentiable_norm_eval_mode_the_wrapper(monkeypat
         y_eval = norm(x)
     assert len(calls) == 1
     torch.testing.assert_close(y_eval, y.detach(), rtol=0, atol=0)
+
+
+# The main-path norms at 512x512 (B x C x H x W; the mask head sees
+# batch x mask_chunk crops) and odd shapes: an H*W no part size divides,
+# C = 48 (G = 24), C = 100 (vec = 1 in bf16), a sample larger than all
+# resident blocks' shared memory together.
+_LEVELS = [(64, 256, 256), (128, 128, 128), (128, 64, 64), (128, 32, 32),
+           (128, 16, 16), (128, 8, 8)]
+_PLAN_CASES = ([(b, *lvl, 2, 8) for b in (1, 8, 32) for lvl in _LEVELS]
+               + [(32 * 32, 64, 32, 32, 2, 8), (8, 64, 256, 256, 4, 4),
+                  (3, 128, 37, 41, 2, 8), (5, 48, 60, 70, 2, 8),
+                  (2, 100, 20, 30, 2, 1), (2, 100, 20, 30, 4, 1),
+                  (1, 64, 512, 512, 2, 8), (4, 64, 1024, 1024, 2, 8)])
+
+
+@pytest.mark.parametrize("capacity", [264, 132])
+@pytest.mark.parametrize("b,c,h,w,itemsize,vec", _PLAN_CASES)
+def test_launch_plan(b, c, h, w, itemsize, vec, capacity):
+    """The GroupNorm kernel's launch plan: parts cover a sample's rows with
+    none empty, a slab fits its shared memory, the persistent grid is a
+    multiple of the parts and fits the card, no sample straddles two rounds
+    of the walk, and x is read once wherever a sample fits the resident
+    blocks' shared memory."""
+    hw, groups = h * w, gn.num_groups(c)
+    p = gn.launch_plan(b, hw, c, groups, itemsize, vec, capacity)
+    row = c * itemsize
+    assert p.parts * p.rows_per_block >= hw > (p.parts - 1) * p.rows_per_block
+    assert p.slab_rows * p.chunks >= p.rows_per_block
+    assert p.slab_bytes % 16 == 0 and p.slab_bytes >= p.slab_rows * row
+    assert p.smem == gn.SLOTS * p.slab_bytes + gn.scratch_bytes(c, groups, vec)
+    assert p.smem <= gn.SMEM_PER_BLOCK
+    assert p.grid % p.parts == 0 and p.parts <= p.grid <= min(capacity, b * p.parts)
+    assert p.rounds == -(-b * p.parts // p.grid)
+    rounds_of = {}
+    for item in range(b * p.parts):
+        rounds_of.setdefault(item // p.parts, set()).add(item // p.grid)
+    assert all(len(r) == 1 for r in rounds_of.values())
+    assert p.workspace == b * p.parts * (-(-2 * groups // 4) * 4)
+    max_rows = (gn.SMEM_PER_BLOCK - gn.scratch_bytes(c, groups, vec) - 15 * gn.SLOTS) // (
+        gn.SLOTS * row)
+    assert (p.chunks == 1) == (hw <= capacity * max_rows)
+    main_path = (c, h, w) in _LEVELS or (b, c, h, w) == (32 * 32, 64, 32, 32)
+    if main_path and itemsize == 2 and capacity == 264:
+        assert p.chunks == 1     # bf16 at two blocks per H100 SM: x is read once
+
+
+def test_launch_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError):
+        gn.launch_plan(2, 64, 300, 30, 2, 1, 264)     # 300 vectors > 256 threads
+    with pytest.raises(ValueError):
+        gn.launch_plan(2, 64, 128, 32, 2, 8, 0)       # nothing fits the card
+    with pytest.raises(ValueError):
+        gn.launch_plan(2, 64, 129, 129, 2, 1, 264)    # 2G + 2 sums > the scratch's 2C
+
+
+def test_kernel_constants_match_wrapper():
+    """The wrappers' copies of the kernels' compile-time constants."""
+    import re
+    from pathlib import Path
+
+    from kgtpu_torch.ops import gaussian
+
+    src = Path(_cuda.CSRC)
+    gn_src = (src / "groupnorm.cu").read_text()
+    assert int(re.search(r"kThreads = (\d+);", gn_src).group(1)) == gn.THREADS
+    assert int(re.search(r"kSlots = (\d+);", gn_src).group(1)) == gn.SLOTS
+    g_src = (src / "gaussian.cu").read_text()
+    assert int(re.search(r"kTileH = (\d+);", g_src).group(1)) == gaussian.TILE_H
+    assert int(re.search(r"kTileW = (\d+);", g_src).group(1)) == gaussian.TILE_W
+    assert float(re.search(r"kCutoff = ([\d.]+)f;", g_src).group(1)) == gaussian.CUTOFF
+
+
+def test_workspace_banks_take_turns():
+    """The wrapper's workspace: successive calls on one stream count in the
+    two banks of arrival counters by turns (the kernel zeroes the bank the
+    next call counts in), and a call that needs more grows it with zeroed
+    counters."""
+    dev = torch.device("cpu")
+    stream = 12345
+    gn._work.pop((dev.index, stream), None)
+    try:
+        banks = [gn._workspace(dev, stream, 64, 4)[2] for _ in range(4)]
+        assert banks == [0, 1, 0, 1]
+        partial, counters, _ = gn._workspace(dev, stream, 32, 2)
+        assert partial.numel() == 64 and counters.shape == (2, 4)
+        counters.fill_(7)                      # as if a call had counted
+        partial, counters, bank = gn._workspace(dev, stream, 128, 8)
+        assert partial.numel() == 128 and counters.shape == (2, 8)
+        assert bank == 0 and not counters.any()
+    finally:
+        gn._work.pop((dev.index, stream), None)

@@ -218,7 +218,9 @@ def test_normalize_images():
 
 
 @pytest.mark.parametrize("h,w,canvas", [(400, 600, 128), (600, 400, 128),
-                                        (128, 96, 128), (300, 517, 256)])
+                                        (128, 96, 128), (300, 517, 256),
+                                        (517, 517, 512), (260, 347, 512),
+                                        (260, 347, 1024)])
 def test_resize_matches_cv2(h, w, canvas):
     """The predictor's image resize equals kgtpu's cv2.warpAffine resize on
     the CPU (exact; the scale-1 case is a copy), and its label-map resize
@@ -234,3 +236,52 @@ def test_resize_matches_cv2(h, w, canvas):
                         interpolation=cv2.INTER_NEAREST).astype(np.int32)
     got_l = resize_nearest(torch.from_numpy(lab.astype(np.int32)), h, w).numpy()
     np.testing.assert_array_equal(got_l, want_l)
+
+
+def test_resize_sweep_matches_cv2():
+    """A seeded sweep of 120 (image size, canvas) pairs: the predictor's image
+    resize equals cv2.warpAffine's exactly.  Half of the images take only the
+    values 0 and 255, whose bilinear blends land on or next to half-way
+    values, where the order of cv2's fused multiply-adds decides the
+    rounding."""
+    rng = np.random.default_rng(2024)
+    for i in range(120):
+        h, w = (int(v) for v in rng.integers(8, 600, 2))
+        canvas = int(rng.choice([64, 96, 128, 256, 384, 512, 100, 333]))
+        if i % 2:
+            img = (rng.integers(0, 2, (h, w, 3)) * 255).astype(np.uint8)
+        else:
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        want = resize_sample({"image": img, "label_map": np.zeros((h, w), np.int32)},
+                             canvas)["image"]
+        got = resize_image(torch.from_numpy(img), canvas).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"{(h, w)} -> {canvas}")
+
+
+def test_fma_rounds_once():
+    """The resize's fused multiply-add rounds a * b + c to f32 once, also
+    where the f64 sum lies on a tie between two floats and rounding it again
+    would go the wrong way (checked against exact rationals)."""
+    from fractions import Fraction
+
+    from kgtpu_torch.predictor import _fma
+
+    def exact32(x):
+        r = np.float32(float(x))
+        near = [np.nextafter(r, np.float32(-np.inf)), r, np.nextafter(r, np.float32(np.inf))]
+        return min(near, key=lambda v: (abs(Fraction(float(v)) - x),
+                                        int(np.float32(v).view(np.int32)) & 1))
+
+    rng = np.random.default_rng(0)
+    n = 300
+    c = rng.uniform(1, 255, n).astype(np.float32)
+    half_ulp = np.spacing(c).astype(np.float64) / 2 * rng.choice([1.0, -1.0], n)
+    a = np.concatenate([np.full(n, 1 + 2 ** -23), np.full(n, 1 - 2 ** -24),
+                        rng.uniform(0, 1, n)]).astype(np.float32)
+    b = np.concatenate([half_ulp * (1 - 2 ** -23), half_ulp * (1 + 2 ** -23),
+                        rng.uniform(-255, 255, n)]).astype(np.float32)
+    c = np.concatenate([c, c, c])
+    got = _fma(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    want = np.array([exact32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)

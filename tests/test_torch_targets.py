@@ -140,6 +140,62 @@ def test_kernel_wrapper_rejects_bad_shapes():
         gaussian.render_heatmaps(k, s[:, :3], v, 8, 8)
 
 
+def _tile_reach(kpts, sizes, valid, h, w):
+    """A plain mirror of the Gaussian kernel's per-class compaction: keep
+    [B, tiles_y, tiles_x, 5, N], true where valid instance i's floored
+    class-c keypoint is within reach of the tile (the rectangle distance d
+    gives d^2 * coef < CUTOFF, in the kernel's f32 arithmetic)."""
+    th, tw = gaussian.TILE_H, gaussian.TILE_W
+    k = torch.floor(kpts)                                         # [B, N, 5, 2]
+    coef = targets.splat_coef(sizes, valid)                       # [B, N]
+    y0 = torch.arange(0, h, th, dtype=torch.float32)
+    x0 = torch.arange(0, w, tw, dtype=torch.float32)
+    y1, x1 = torch.clamp(y0 + th, max=h) - 1, torch.clamp(x0 + tw, max=w) - 1
+    kx = k[..., 0].transpose(1, 2)[:, None, None]                 # [B, 1, 1, 5, N]
+    ky = k[..., 1].transpose(1, 2)[:, None, None]
+    dx = torch.clamp(torch.maximum(x0[None, None, :, None, None] - kx,
+                                   kx - x1[None, None, :, None, None]), min=0)
+    dy = torch.clamp(torch.maximum(y0[None, :, None, None, None] - ky,
+                                   ky - y1[None, :, None, None, None]), min=0)
+    return ((dx * dx + dy * dy) * coef[:, None, None, None] < gaussian.CUTOFF
+            ) & (valid > 0)[:, None, None, None]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(n_valid=32, border=True, seed=6), dict(tiny=True, stacked=True, seed=7),
+    dict(h=100, w=72, seed=8, n_valid=32),
+])
+def test_tile_reach_drops_only_what_the_cutoff_allows(kw):
+    """Rendering only the (tile, class, instance) triples the kernel's
+    compaction keeps differs from the plain renderer by at most the f32
+    exp(-14), keeps every positive, and drops most of the triples."""
+    scenes = [_scene(**{**kw, "seed": kw.get("seed", 0) + j}) for j in range(2)]
+    h, w = scenes[0][3], scenes[0][4]
+    kpts, sizes, valid = (torch.from_numpy(np.stack([sc[i] for sc in scenes]))
+                          for i in range(3))
+    keep = _tile_reach(kpts, sizes, valid, h, w)
+    assert keep.shape == (2, -(-h // gaussian.TILE_H), -(-w // gaussian.TILE_W), 5, 32)
+    live = keep.sum().item()
+    assert 0 < live < 0.5 * keep.numel() * valid.mean().item()
+    k = torch.floor(kpts)
+    coef = targets.splat_coef(sizes, valid)
+    ys = torch.arange(h, dtype=torch.float32)[:, None, None, None]
+    xs = torch.arange(w, dtype=torch.float32)[None, :, None, None]
+    kept = keep.repeat_interleave(gaussian.TILE_H, 1)[:, :h].repeat_interleave(
+        gaussian.TILE_W, 2)[:, :, :w]                             # [B, H, W, 5, N]
+    out = []
+    for b in range(2):
+        dx = xs - k[b, :, :, 0].T                                 # [1, W, 5, N]
+        dy = ys - k[b, :, :, 1].T                                 # [H, 1, 5, N]
+        g = torch.exp(-(dx * dx + dy * dy) * coef[b])
+        out.append(torch.where(kept[b], g, 0.0).amax(-1))
+    got = torch.stack(out)
+    want = targets.render_heatmaps_batch(kpts, sizes, valid, h, w)
+    cut = torch.exp(torch.tensor(-gaussian.CUTOFF)).item()
+    assert (got - want).abs().max().item() <= cut
+    assert torch.equal(got >= 1.0, want >= 1.0) and (want >= 1.0).any()
+
+
 # --------------------------------------------------------------------------
 # crops
 # --------------------------------------------------------------------------
