@@ -30,9 +30,26 @@
     GroupNorm kernel never, every parameter gets a finite gradient, and the
     loss falls.  Times train img/s and peak memory.
 [7] Serves from the trained model, through the GroupNorm kernel again.
+[8] Serves the trained flagship through the port's own entry points:
+    `Predictor.from_checkpoint` on the committed EMA weights
+    (assets_torch/flagship_ema), then `python -m kgtpu_torch.cli.test
+    --dataset folder` (called in-process) on the 16 committed synthetic_hard
+    images at 512x512, batch 16, once in the stored bf16 and once in f32, and
+    scores both with the port's evaluate against the committed ground truth:
+    mAP_dsb2018 within 0.01 (f32) and 0.02 (bf16) of kgtpu's committed
+    reference run; in f32 also every image's instance count equal to
+    kgtpu's and at most 16 label-map pixels off its map (a bf16 run is
+    thousands off).  The bf16 run must launch the GroupNorm kernel.
+
+The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
+median of 5 repeats of 10 calls, with their min and max.  The metrics line's
+`decode_group_ms_per_img` is the decode+group+NMS stage of the batch-32 e2e
+call, per image, as in earlier runs; the bench's own protocol (batch 16,
+planted peaks) is `decode_group_bench_ms_per_img_b16`.
 
 Exits non-zero without a result line when CUDA is missing or any check
-fails.  Builds into kgtpu_torch/_build/ and writes nothing else.
+fails.  Builds into kgtpu_torch/_build/; the CLI outputs of [8] go to a
+temporary directory that is removed.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 per-kernel JSON record.  TF32 is off for every phase (cuDNN and matmul), so
@@ -44,8 +61,10 @@ from __future__ import annotations
 import dataclasses
 import faulthandler
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -64,6 +83,11 @@ TRAIN_STEPS = 20
 TRAIN_LOSS_RTOL = 1e-5
 PINNED_DETS = 24
 E2E_BATCH = 32
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets_torch")
+# phase [8]: the flagship's mAP_dsb2018 on the card against kgtpu's reference
+MAP_TOL = {"float32": 0.01, "bfloat16": 0.02}
+COUNT_TOL = 1               # instances on one image, from_checkpoint (bf16)
+PIXELS_OFF_TOL = 16         # label-map pixels per image off kgtpu's, f32 CLI run
 # GroupNorm shapes of the main path at 512x512, NCHW (B = 8; the mask head
 # sees batch x mask_chunk crops)
 GN_SHAPES = [(8, 64, 256, 256), (8, 128, 128, 128), (8, 128, 64, 64),
@@ -203,8 +227,9 @@ def phase_kernel_vs_plain(torch, gn) -> dict:
             "library_ms": lib_ms, "bound_ms": bound_ms}
 
 
-def gn_shape_counts(torch, infer, model, cfg, images, dets) -> dict:
-    """{shape: launches} of the GroupNorm kernel in one pinned e2e call."""
+def gn_shape_counts(call) -> dict:
+    """{shape: launches} of the GroupNorm kernel in one `call` (a pinned e2e
+    call)."""
     from kgtpu_torch.models import blocks
     counts, wrapped = {}, blocks.group_norm_relu
 
@@ -214,7 +239,7 @@ def gn_shape_counts(torch, infer, model, cfg, images, dets) -> dict:
 
     blocks.group_norm_relu = counting
     try:
-        run_pinned(torch, infer, model, cfg, images, dets)
+        call()
     finally:
         blocks.group_norm_relu = wrapped
     return counts
@@ -250,38 +275,6 @@ def gn_per_shape(torch, gn, counts: dict) -> list:
     log(f"  e2e call's GroupNorm: {sum(r['launches'] for r in rows)} launches, device "
         f"{tot('device_ms'):.3f} ms against a bound of {tot('bound_ms'):.3f} ms")
     return rows
-
-
-def seeded_dets(np, torch, cfg, batch: int, seed: int):
-    """Detections pinned like the JAX bench (benchmarks/common.py::
-    pin_valid_dets): the first PINNED_DETS slots of every image valid.  An
-    untrained net finds next to nothing, so the boxes come from a seed:
-    sides of 1/16 to 1/3.2 of the stride-4 map (8-40 stride px at 512x512),
-    inside the map, scores descending."""
-    from kgtpu_torch.ops.group import Boxes
-    rng = np.random.default_rng(seed)
-    d = cfg.group.max_detections
-    side = cfg.infer.input_size / cfg.data.stride
-    wh = rng.uniform(side / 16, side / 3.2, (batch, d, 2))
-    xy = rng.uniform(0, side - wh)
-    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
-    scores = np.sort(rng.uniform(0.2, 1.0, (batch, d)), axis=1)[:, ::-1].astype(np.float32)
-    valid = np.zeros((batch, d), bool)
-    valid[:, :PINNED_DETS] = True
-    scores[~valid] = 0.0
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
-    return Boxes(boxes=t(boxes), scores=t(scores), valid=t(valid))
-
-
-def run_pinned(torch, infer, model, cfg, images, dets):
-    """Detect on `images` (raw uint8, on the card), then the mask stage on
-    the pinned `dets`.  Returns (detections, mask-stage output)."""
-    from kgtpu_torch.ops.preprocess import normalize_images
-    with torch.inference_mode():
-        x = normalize_images(images, cfg.data.mean, cfg.data.std)
-        found, feats = infer.detect_batch(model, cfg, x)
-        out = infer.mask_batch(model, cfg, feats, dets, images.shape[1], images.shape[2])
-    return found, out
 
 
 def stage_times(torch, infer, model, cfg, images, dets) -> dict:
@@ -584,7 +577,7 @@ def phase_train(np, torch, gn, gauss, cfg) -> tuple:
         vals = {k: float(v) for k, v in metrics.items()}
         require(all(np.isfinite(v) for v in vals.values()), f"step {i}: {vals}")
         history.append(vals)
-    gauss_launches = gauss.launches
+    gauss_launches, gn_launches = gauss.launches, gn.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, p in state.model.named_parameters():
         require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
@@ -602,7 +595,7 @@ def phase_train(np, torch, gn, gauss, cfg) -> tuple:
     log(f"  {TRAIN_STEPS} steps at batch {b}, {size}x{size}: first step {times[0] * 1e3:.1f} ms, "
         f"then {img_s:.2f} img/s ({sum(steady) / len(steady) * 1e3:.1f} ms/step), peak "
         f"{peak_gb:.2f} GB, {n_params} params; launches: Gaussian {gauss_launches}, "
-        f"GroupNorm {gn.launches}")
+        f"GroupNorm {gn_launches}")
 
     x = torch.randn((2, 64, 8, 8), device="cuda").contiguous(
         memory_format=torch.channels_last).requires_grad_(True)
@@ -619,7 +612,88 @@ def phase_train(np, torch, gn, gauss, cfg) -> tuple:
     return state, batch, {"train_img_per_s": img_s, "train_first_step_ms": times[0] * 1e3,
                           "train_peak_mem_gb": peak_gb, "train_steps": TRAIN_STEPS,
                           "train_loss_first": first, "train_loss_last": last,
-                          "gauss_launches": gauss_launches, "params": n_params}
+                          "gauss_launches": gauss_launches, "gn_launches_train": gn_launches,
+                          "params": n_params}
+
+
+def phase_flagship(np, torch, gn, gauss) -> dict:
+    """[8]: the committed EMA weights through `Predictor.from_checkpoint` on
+    one image, then the test CLI over the 16 committed images in bf16 and in
+    f32 (TF32 is off), each scored against the committed ground truth and
+    held against kgtpu's committed reference run."""
+    from kgtpu_torch.cli import test as test_cli
+    from kgtpu_torch.cli.eval import metrics as eval_metrics
+    from kgtpu_torch.cli.eval import records
+    from kgtpu_torch.data.png import read_png
+    from kgtpu_torch.predictor import Predictor
+    weights = os.path.join(ASSETS, "flagship_ema")
+    images = os.path.join(ASSETS, "synthetic_hard", "images")
+    ref = np.load(os.path.join(ASSETS, "kgtpu_reference.npz"))
+    ids = [str(i) for i in ref["ids"]]
+    ref_metrics = json.loads(str(ref["metrics_json"]))
+    gt = {i: read_png(os.path.join(ASSETS, "synthetic_hard", "labels", f"{i}.png"),
+                      "unchanged").astype(np.int32) for i in ids}
+
+    gn.launches = 0
+    predictor = Predictor.from_checkpoint(weights, use_ema=True)
+    one = predictor.predict(read_png(os.path.join(images, f"{ids[0]}.png"), "color"))
+    n_ref = int(ref["counts_bfloat16"][0])
+    log(f"  Predictor.from_checkpoint: {ids[0]} has {one['num_instances']} instances "
+        f"(kgtpu bf16: {n_ref}); GroupNorm kernel launches {gn.launches}")
+    require(gn.launches > 0 and abs(one["num_instances"] - n_ref) <= COUNT_TOL,
+            "from_checkpoint did not serve the flagship through the kernel")
+    del predictor
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("bfloat16", "float32"):
+            save = os.path.join(tmp, dtype)
+            gn.launches = gauss.launches = 0          # this path's run
+            t = time.perf_counter()
+            rc = test_cli.main(["--dataset", "folder", "--data_dir", images,
+                                "--weights", weights, "--use_ema", "--input_size", "512",
+                                "--batch_size", "16", "--compute_dtype", dtype,
+                                "--save_dir", save])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = gn.launches
+            require(rc == 0 and gauss.launches == 0, f"cli.test {dtype} failed")
+            with open(os.path.join(save, "detections.json")) as f:
+                det = {r["id"]: r for r in json.load(f)["images"]}
+            require(sorted(det) == sorted(ids), f"cli.test {dtype} served {sorted(det)}")
+            m = eval_metrics(records(save, gt, 512))
+            counts = np.array([det[i]["num_instances"] for i in ids])
+            dcount = counts - ref[f"counts_{dtype}"]
+            pixels = [int((read_png(os.path.join(save, f"{i}_label.png"), "unchanged")
+                           != ref[f"labels_{dtype}"][k]).sum()) for k, i in enumerate(ids)]
+            dmap = m["mAP_dsb2018"] - ref_metrics[dtype]["mAP_dsb2018"]
+            log(f"  {dtype}: mAP_dsb2018 {m['mAP_dsb2018']:.6f} (kgtpu "
+                f"{ref_metrics[dtype]['mAP_dsb2018']:.6f}, diff {dmap:+.6f}, tol "
+                f"{MAP_TOL[dtype]}); AP_coco {m['AP_coco']:.6f} (kgtpu "
+                f"{ref_metrics[dtype]['AP_coco']:.6f}), AJI {m['AJI']:.6f} (kgtpu "
+                f"{ref_metrics[dtype]['AJI']:.6f}), PQ {m['PQ']:.6f} (kgtpu "
+                f"{ref_metrics[dtype]['PQ']:.6f})")
+            log(f"    instances per image {counts.tolist()}, largest count diff "
+                f"{int(np.abs(dcount).max())}, label-map pixels off kgtpu's: max "
+                f"{max(pixels)} of {512 * 512}, images equal {pixels.count(0)}/16; "
+                f"GroupNorm kernel launches {launches}; CLI wall {wall:.2f} s")
+            require(m["num_images"] == 16 and abs(dmap) <= MAP_TOL[dtype],
+                    f"{dtype} mAP_dsb2018 {m['mAP_dsb2018']} is off kgtpu's by {dmap}")
+            if dtype == "float32":
+                require(not dcount.any(), f"f32 instance counts off kgtpu's: {dcount.tolist()}")
+                require(max(pixels) <= PIXELS_OFF_TOL, f"f32 label maps off kgtpu's by "
+                        f"{pixels} pixels (at most {PIXELS_OFF_TOL} an image)")
+            else:
+                require(launches > 0, "the bf16 flagship run did not launch the GroupNorm "
+                        "kernel")
+            out.update({f"flagship_mAP_dsb2018_{dtype}": m["mAP_dsb2018"],
+                        f"flagship_mAP_diff_{dtype}": dmap,
+                        f"flagship_metrics_{dtype}": m,
+                        f"flagship_count_diff_max_{dtype}": int(np.abs(dcount).max()),
+                        f"flagship_pixels_off_max_{dtype}": max(pixels),
+                        f"flagship_gn_launches_{'bf16' if dtype == 'bfloat16' else 'f32'}":
+                            launches})
+    return out
 
 
 def main() -> int:
@@ -642,6 +716,8 @@ def main() -> int:
 
     import numpy as np
     from kgtpu_torch import infer
+    from kgtpu_torch.cli.bench import (REPEATS, decode_group_bench, e2e_bench, pinned_call,
+                                       seeded_dets)
     from kgtpu_torch.config import Config
     from kgtpu_torch.models import build_model
     from kgtpu_torch.ops import gaussian as gauss
@@ -670,7 +746,7 @@ def main() -> int:
     singles = [rng.integers(0, 256, s, dtype=np.uint8) for s in ((400, 600, 3), (512, 512, 3))]
     pinned_imgs = torch.from_numpy(
         rng.integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)).cuda()
-    pinned = seeded_dets(np, torch, cfg, 8, seed=1)
+    pinned = seeded_dets(cfg, 8, seed=1)
     torch.cuda.synchronize()
 
     gn.launches = gauss.launches = 0                  # the serving path's run
@@ -678,7 +754,7 @@ def main() -> int:
     outs = [infer_fn(b) for b in batches]
     preds = [predictor.predict(im) for im in singles]
     n0 = gn.launches
-    found, pinned_out = run_pinned(torch, infer, model, cfg, pinned_imgs, pinned)
+    found, pinned_out = pinned_call(model, cfg, pinned_imgs, pinned)
     n1 = gn.launches
     torch.cuda.synchronize()
     with torch.inference_mode():
@@ -718,7 +794,7 @@ def main() -> int:
     log("[4] whole path with the plain GroupNorm on the same pinned batch")
     before = gn.launches
     model.use_plain_norm(True)
-    found_p, plain_out = run_pinned(torch, infer, model, cfg, pinned_imgs, pinned)
+    found_p, plain_out = pinned_call(model, cfg, pinned_imgs, pinned)
     model.use_plain_norm(False)
     require(gn.launches == before, "the plain run launched the kernel")
     same = float((plain_out["label_map"] == pinned_out["label_map"]).float().mean())
@@ -731,29 +807,28 @@ def main() -> int:
     # e2e throughput (bench.py protocol: batch 32, 512x512, 24 pinned dets)
     imgs32 = torch.from_numpy(
         rng.integers(0, 256, (E2E_BATCH, 512, 512, 3), dtype=np.uint8)).cuda()
-    dets32 = seeded_dets(np, torch, cfg, E2E_BATCH, seed=2)
-    run_pinned(torch, infer, model, cfg, imgs32, dets32)
+    dets32 = seeded_dets(cfg, E2E_BATCH, seed=2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    iters = 5
-    t = time.perf_counter()
-    for _ in range(iters):
-        _, o = run_pinned(torch, infer, model, cfg, imgs32, dets32)
-        o["label_map"].sum().item()
-    e2e_s = (time.perf_counter() - t) / iters
-    img_s = E2E_BATCH / e2e_s
+    e2e = e2e_bench(model, cfg, batch=E2E_BATCH, ndets=PINNED_DETS)
+    img_s = e2e["img_per_s"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dg = decode_group_bench(cfg, "cuda")
     stages = stage_times(torch, infer, model, cfg, imgs32, dets32)
-    dg_ms = stages["decode_group_nms"]
-    log(f"  e2e {img_s:.2f} img/s ({e2e_s * 1e3:.1f} ms per batch of {E2E_BATCH}, "
-        f"{PINNED_DETS} pinned dets/img, peak {peak_gb:.2f} GB); decode+group+nms "
-        f"{dg_ms / E2E_BATCH:.4f} ms/img")
+    log(f"  e2e {img_s:.2f} img/s, median of {REPEATS} repeats of {e2e['iters']} "
+        f"calls (min {e2e['img_per_s_min']:.2f}, max {e2e['img_per_s_max']:.2f}; batch "
+        f"{E2E_BATCH}, {PINNED_DETS} pinned dets/img, peak {peak_gb:.2f} GB), "
+        f"{e2e['flops_per_img'] / 1e9:.2f} GFLOP/img (FlopCounterMode); decode+group+nms "
+        f"{stages['decode_group_nms'] / E2E_BATCH:.4f} ms/img (stage of the batch-{E2E_BATCH} "
+        f"call), {dg['ms_per_img']:.4f} ms/img (bench protocol, batch {dg['batch']}; min "
+        f"{dg['ms_per_img_min']:.4f}, max {dg['ms_per_img_max']:.4f})")
     log("  stages, ms per batch of %d: %s" % (E2E_BATCH, ", ".join(
         f"{k} {v:.2f}" for k, v in stages.items())))
     log("  GroupNorm kernel at the shapes of one e2e call (bf16, ReLU):")
-    gn_rows = gn_per_shape(torch, gn, gn_shape_counts(torch, infer, model, cfg, imgs32, dets32))
+    gn_rows = gn_per_shape(torch, gn, gn_shape_counts(
+        lambda: pinned_call(model, cfg, imgs32, dets32)))
     if "--profile" in sys.argv[1:]:
-        profile_e2e(torch, lambda: run_pinned(torch, infer, model, cfg, imgs32, dets32))
+        profile_e2e(torch, lambda: pinned_call(model, cfg, imgs32, dets32))
 
     # 5. the Gaussian target kernel
     log("[5] Gaussian target kernel vs plain PyTorch version")
@@ -779,22 +854,41 @@ def main() -> int:
     log(f"  GroupNorm kernel launches: {gn.launches}; detections per image "
         f"{[int(v) for v in served['valid'].sum(1)]}")
 
-    metrics = {"e2e_img_per_s": img_s, "e2e_batch": E2E_BATCH,
-               "pinned_dets_per_img": PINNED_DETS, "decode_group_ms_per_img":
-               dg_ms / E2E_BATCH, "peak_mem_gb": peak_gb,
+    # 8. the trained flagship through the port's checkpoint and CLIs
+    log("[8] serving the trained flagship (assets_torch) through from_checkpoint and "
+        "kgtpu_torch.cli.test, scored with the port's evaluate")
+    del trained, state, tbatch, served
+    torch.cuda.empty_cache()
+    fstats = phase_flagship(np, torch, gn, gauss)
+
+    metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
+               "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
+               "e2e_img_per_s_all": e2e["img_per_s_all"], "e2e_batch": E2E_BATCH,
+               "gflops_per_img": e2e["flops_per_img"] / 1e9,
+               "pinned_dets_per_img": PINNED_DETS,
+               "decode_group_ms_per_img": stages["decode_group_nms"] / E2E_BATCH,
+               "decode_group_bench_ms_per_img_b16": dg["ms_per_img"],
+               "decode_group_bench_ms_per_img_b16_min": dg["ms_per_img_min"],
+               "decode_group_bench_ms_per_img_b16_max": dg["ms_per_img_max"],
+               "peak_mem_gb": peak_gb,
                "gn_launches_per_forward": backbone_per_forward,
                "gn_launches_mask_head_pinned_batch": mask_launches,
                "label_map_agreement_vs_plain": same,
                "gn_per_shape_b32": gn_rows,
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
-               **tstats, "card": smi}
+               **tstats, **fstats, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     kernel = {"name": "group_norm_relu", "route": "cuda",
               "source": "kgtpu_torch/csrc/groupnorm.cu",
               "replaces": "kgtpu/ops/pallas/groupnorm.py:119",
-              "launches": main_launches, "max_abs_err": kstats["max_abs_err"],
+              "launches": main_launches,
+              "launches_by_phase": {"serve [3]": main_launches,
+                                    "train [6]": tstats["gn_launches_train"],
+                                    "flagship bf16 [8]": fstats["flagship_gn_launches_bf16"],
+                                    "flagship f32 [8]": fstats["flagship_gn_launches_f32"]},
+              "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],
               "bound_ms": kstats["bound_ms"], "bound_by": "bytes",

@@ -5,19 +5,23 @@ The JAX package `kgtpu` is the reference; this package imports nothing of it.
 Ported so far: single-scale two-stage inference with hourglass backbones
 (`infer.build_infer_fn`, `predictor.Predictor`), whose GroupNorm(+ReLU) runs
 through a hand-written CUDA kernel (`ops/groupnorm.py`, `csrc/groupnorm.cu`),
-and the train step (`train_lib`), whose Gaussian heatmap targets render
-through a second one (`ops/gaussian.py`, `csrc/gaussian.cu`).
+the train step (`train_lib`), whose Gaussian heatmap targets render through
+a second one (`ops/gaussian.py`, `csrc/gaussian.cu`), checkpoints in the
+port's own format, and the test, eval and bench CLIs (`cli/`).
 
 Layout mirrors kgtpu/:
-  config     — the inference and train-step config dataclasses
+  config     — the config dataclasses, their JSON, the test/eval flags
   models/    — hourglass backbone, heads, mask head, KGNet
   ops/       — preprocess, decode, group, nms, roi, targets, groupnorm and
                gaussian (kernel wrappers), _cuda (nvcc build + ctypes load)
   losses     — focal, offset, wh and mask losses
   train_lib  — optimizer, train state, loss_fn, train step
-  data/      — label map -> instance slots (NumPy)
+  data/      — PNG codec, dataset readers, eval resize, sample prep
   infer      — batched two-stage inference
-  predictor  — serving API (image in, instances out)
+  predictor  — serving API (image in, instances out), from_checkpoint
+  checkpoint — model_<epoch> save / restore / resolve / prune
+  evaluate   — DSB mAP, COCO AP, AJI, PQ; coco_export — COCO results JSON
+  cli/       — test, eval and bench entry points
   convert    — flax param tree (numpy) -> state_dict
 """
 

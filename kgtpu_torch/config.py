@@ -1,16 +1,21 @@
-"""Configuration of the PyTorch port: the dataclasses the inference and
-training slices read.
+"""Configuration of the PyTorch port: the dataclasses, their JSON form and
+the argparse shim of the test and eval CLIs.
 
-A copy of the sections of `kgtpu/config.py` that the port runs, with the same
+A copy of the parts of `kgtpu/config.py` that the port runs, with the same
 field names and defaults, so a `Config` written for one package means the same
-model and the same pipeline in the other.  Checkpoint, mesh, host-RSS and
-multi-step-dispatch settings and the argparse shim are not part of the port
-yet.
+model and the same pipeline in the other.  `config_from_json` reads configs
+that kgtpu wrote (its checkpoints store one): a field the port does not hold
+must be at kgtpu's default, or reading raises, unless it is one of
+`NO_EFFECT_FIELDS`, which choose how kgtpu computes or where a run writes,
+not what it computes.
 """
 
 from __future__ import annotations
 
+import argparse
+import copy
 import dataclasses
+import json
 
 # Keypoint class indices: four box corners (TL, TR, BL, BR) + center.
 KP_TL, KP_TR, KP_BL, KP_BR, KP_CENTER = 0, 1, 2, 3, 4
@@ -40,11 +45,22 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The data settings inference and the train step read."""
+    """Datasets, augmentation, fixed-shape batching.  The augmentation fields
+    are held so a stored training config reads back whole; the augmenting
+    loader is not ported yet (`data/loader.py` raises)."""
 
+    dataset: str = "synthetic"         # see data/registry.py
+    data_dir: str = ""
+    synthetic_train_images: int = 64   # generated train-set size (synthetic*)
     input_size: int = 512
     stride: int = 4
     max_instances: int = 128           # N: instance slots per image
+    flip_prob: float = 0.5
+    scale_range: tuple[float, float] = (0.8, 1.2)
+    rotate_deg: float = 0.0
+    color_jitter: float = 0.2
+    elastic_alpha: float = 0.0         # elastic deformation, max px (0 = off)
+    elastic_sigma: float = 32.0        # its noise-grid spacing, px
     mean: tuple[float, float, float] = (0.485, 0.456, 0.406)
     std: tuple[float, float, float] = (0.229, 0.224, 0.225)
 
@@ -108,12 +124,18 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class InferConfig:
-    """Single-scale inference settings."""
+    """Inference settings.  The port runs single-scale inference; the CLI
+    refuses other test_scales and test_flip (ROADMAP item 6)."""
 
+    weights: str = ""                  # checkpoint to load
+    test_scales: tuple[float, ...] = (1.0,)
+    test_flip: bool = False
     input_size: int = 512              # inference canvas (square)
     mask_chunk: int = 32               # detection slots per mask-head chunk;
                                        # chunks with no valid slot are skipped
     mask_rescore: float = 0.0          # w > 0: score *= maskness ** w
+    batch_size: int = 1
+    save_dir: str = "results"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,3 +170,242 @@ def required_divisor(cfg: ModelConfig) -> int:
     """Input sides must be divisible by this: the stride-4 stem times the
     hourglass's pool/upsample pairs."""
     return 4 * (2 ** cfg.hg_depth)
+
+
+# ---------------------------------------------------------------------------
+# Config <-> JSON
+# ---------------------------------------------------------------------------
+
+_SECTIONS = {"model": ModelConfig, "data": DataConfig, "group": GroupConfig,
+             "train": TrainConfig, "infer": InferConfig}
+
+# kgtpu fields that choose how a run is computed or where it writes, not what
+# it computes (a run gives the same parameters and outputs whatever their
+# value): checkpoint paths and cadence, the RSS watchdog, the device count
+# and dispatch grouping of data parallelism, the target renderer and the
+# fused norm (one function, two implementations), rematerialisation.
+NO_EFFECT_FIELDS = frozenset({
+    ("train", "save_dir"), ("train", "save_every_epochs"), ("train", "keep_last"),
+    ("train", "eval_every_epochs"), ("train", "resume"), ("train", "init_from"),
+    ("train", "rss_limit_gb"), ("train", "num_devices"),
+    ("train", "steps_per_dispatch"), ("train", "target_renderer"),
+    ("model", "remat"), ("infer", "fused_norm"),
+})
+
+# kgtpu fields the port does not hold, with kgtpu's defaults: a stored config
+# may carry them only at these values (TTA voting and tiling, ROADMAP items 6
+# and 7)
+ABSENT_DEFAULTS = {
+    ("infer", "tta_vote"): "mean", ("infer", "tta_vote_iou"): 0.5,
+    ("infer", "tta_vote_thresh"): 0.15, ("infer", "tile_size"): 512,
+    ("infer", "tile_overlap"): 64,
+}
+
+
+def config_to_json(cfg: Config) -> str:
+    """The whole config tree as JSON (stored in every checkpoint)."""
+    return json.dumps(dataclasses.asdict(cfg), sort_keys=True)
+
+
+def config_from_json(s: str) -> Config:
+    """Inverse of `config_to_json`, and reader of the JSON that kgtpu's
+    `config_to_json` writes.  Missing keys keep the defaults; lists become
+    the tuples the dataclasses declare.  A key the port does not hold is
+    dropped when it is in NO_EFFECT_FIELDS or holds kgtpu's default
+    (ABSENT_DEFAULTS); any other raises ValueError naming it, since dropping
+    it would change the result."""
+    raw = json.loads(s)
+    unknown = sorted(set(raw) - set(_SECTIONS))
+    if unknown:
+        raise ValueError(f"config sections the port does not know: {unknown}")
+    sections = {}
+    for name, cls in _SECTIONS.items():
+        d = raw.get(name, {})
+        held = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for k, v in d.items():
+            v = tuple(v) if isinstance(v, list) else v
+            if k in held:
+                kwargs[k] = v
+            elif (name, k) in NO_EFFECT_FIELDS:
+                continue
+            elif (name, k) in ABSENT_DEFAULTS:
+                if v != ABSENT_DEFAULTS[name, k]:
+                    raise ValueError(
+                        f"config field {name}.{k} = {v!r} is not ported (only "
+                        f"its default {ABSENT_DEFAULTS[name, k]!r} is)")
+            else:
+                raise ValueError(f"config field {name}.{k} = {v!r} is not known to "
+                                 "the port")
+        sections[name] = cls(**kwargs)
+    return Config(**sections)
+
+
+def apply_model_overrides(model: ModelConfig, a: argparse.Namespace,
+                          explicit: set[str]) -> ModelConfig:
+    """Override a checkpoint-stored ModelConfig with the architecture flags
+    the user explicitly passed; everything not passed keeps the trained
+    value."""
+    kw = {}
+    if "backbone" in explicit:
+        kw["backbone"] = a.backbone
+    if "num_stacks" in explicit:
+        kw["num_stacks"] = a.num_stacks
+    if "norm" in explicit:
+        kw["norm"] = a.norm
+    if "wh_head" in explicit:
+        kw["use_wh_head"] = bool(a.wh_head) or a.decode == "centernet"
+    elif "decode" in explicit and a.decode == "centernet":
+        # centernet decode needs the wh head; an explicit `--decode kg` must
+        # not force the parser-default wh_head=1 onto a checkpoint without one
+        kw["use_wh_head"] = True
+    if "inter_inject" in explicit:
+        kw["inter_inject"] = a.inter_inject
+    if "roi_size" in explicit:
+        kw["roi_size"] = a.roi_size
+        kw["mask_size"] = a.mask_size or 2 * a.roi_size
+    if "mask_size" in explicit and a.mask_size:
+        kw["mask_size"] = a.mask_size
+    return dataclasses.replace(model, **kw)
+
+
+def explicit_cli_dests(parser: argparse.ArgumentParser,
+                       argv: list[str] | None = None) -> set[str]:
+    """The argparse dests the user passed on the command line (not
+    defaults): stored checkpoint config is the base, explicit flags
+    override."""
+    probe = copy.deepcopy(parser)
+    for a in probe._actions:
+        a.default = argparse.SUPPRESS
+    ns, _ = probe.parse_known_args(argv)
+    return set(vars(ns))
+
+
+# ---------------------------------------------------------------------------
+# argparse shim: the flags of kgtpu's test.py and eval.py
+# ---------------------------------------------------------------------------
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dataset", default="dsb2018",
+                   choices=["synthetic", "synthetic_crowded",
+                            "synthetic_hard", "dsb2018", "neural_cells",
+                            "coco", "folder"])
+    p.add_argument("--data_dir", default="")
+    p.add_argument("--input_size", type=int, default=512)
+    p.add_argument("--backbone", default="hourglass",
+                   choices=["hourglass", "hourglass_lite", "hourglass_fast",
+                            "resnet_fpn", "unet"])
+    p.add_argument("--num_stacks", type=int, default=2)
+    p.add_argument("--norm", default="group", choices=["group", "batch"])
+    p.add_argument("--decode", default="kg", choices=["kg", "centernet"])
+    p.add_argument("--K", dest="max_peaks", type=int, default=128,
+                   help="per-class top-k peaks kept by the decoder")
+    p.add_argument("--max_detections", type=int, default=128)
+    p.add_argument("--conf_thresh", type=float, default=0.15)
+    p.add_argument("--nms_iou", type=float, default=0.5)
+    p.add_argument("--max_box_size", type=float, default=0.0,
+                   help="hard cap on box side in input pixels (0 = unlimited)")
+    p.add_argument("--size_prune", type=float, default=3.0,
+                   help="kill (TL, BR) pairs spanning more than this multiple "
+                        "of the wh-head size at the corner peaks (0 disables)")
+    p.add_argument("--wh_head", type=int, default=1, choices=[0, 1])
+    p.add_argument("--inter_inject", action="store_true")
+    p.add_argument("--roi_size", type=int, default=32)
+    p.add_argument("--synthetic_n", type=int, default=64)
+    p.add_argument("--mask_size", type=int, default=0,
+                   help="mask-logit resolution (0 = 2x --roi_size)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--debug_nans", action="store_true",
+                   help="not ported (ROADMAP item 10)")
+
+
+def build_test_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("python -m kgtpu_torch.cli.test",
+                                description="Run KG inference (PyTorch port)")
+    _add_common(p)
+    p.add_argument("--weights", default="", help="checkpoint dir to load")
+    p.add_argument("--ensemble", default="", help="not ported (ROADMAP item 6)")
+    p.add_argument("--use_ema", action="store_true",
+                   help="load EMA params from the checkpoint when present")
+    p.add_argument("--batch_size", type=int, default=8,
+                   help="inference batch (the last chunk is padded)")
+    p.add_argument("--save_vis", action="store_true",
+                   help="not ported (ROADMAP item 10)")
+    p.add_argument("--tiled", action="store_true",
+                   help="not ported (ROADMAP item 7)")
+    p.add_argument("--test_scales", default="1.0",
+                   help="comma-separated TTA scales; the port runs 1.0 only "
+                        "(ROADMAP item 6)")
+    p.add_argument("--test_flip", action="store_true",
+                   help="not ported (ROADMAP item 6)")
+    p.add_argument("--tta_vote", default="mean", choices=["max", "mean"])
+    p.add_argument("--mask_chunk", type=int, default=32,
+                   help="mask-stage detection-slot chunk size (0 = dense)")
+    p.add_argument("--tta_vote_thresh", type=float, default=0.15)
+    p.add_argument("--mask_rescore", type=float, default=0.0,
+                   help="w > 0 multiplies each detection score by maskness^w")
+    p.add_argument("--fused_norm", default="off", choices=["auto", "off"],
+                   help="kgtpu's TPU kernel switch; in the port every serving "
+                        "GroupNorm runs through its CUDA kernel either way")
+    p.add_argument("--save_dir", default="results")
+    p.add_argument("--coco_json", default="",
+                   help="also write predictions as COCO results JSON")
+    p.add_argument("--ngpus", "--num_devices", dest="num_devices", type=int,
+                   default=0, help="more than 1 is not ported (ROADMAP item 9)")
+    p.add_argument("--tile_size", type=int, default=512)
+    p.add_argument("--tile_overlap", type=int, default=64)
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of the run here")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--compute_dtype", default="", choices=["", "bfloat16", "float32"],
+                   help="activation dtype; default: the checkpoint's")
+    return p
+
+
+def build_eval_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("python -m kgtpu_torch.cli.eval",
+                                description="Evaluate mask AP")
+    p.add_argument("--pred_dir", default="results")
+    p.add_argument("--gt_dir", default="")
+    p.add_argument("--dataset", default="dsb2018")
+    p.add_argument("--protocol", default="dsb2018",
+                   choices=["dsb2018", "coco", "aji", "pq", "all"])
+    return p
+
+
+def config_from_test_args(a: argparse.Namespace) -> Config:
+    c = Config()
+    scales = tuple(float(s) for s in str(a.test_scales).split(",") if s)
+    if not scales:
+        raise SystemExit("--test_scales must list at least one scale")
+    if 1.0 not in scales:
+        raise SystemExit(
+            f"--test_scales {a.test_scales!r} must include 1.0 (the base "
+            "scale that the mask stage and the TTA merge are anchored to)")
+    return Config(
+        model=dataclasses.replace(c.model, backbone=a.backbone,
+                                  num_stacks=a.num_stacks, norm=a.norm,
+                                  use_wh_head=(bool(a.wh_head)
+                                               or a.decode == "centernet"),
+                                  inter_inject=a.inter_inject,
+                                  roi_size=a.roi_size,
+                                  mask_size=a.mask_size or 2 * a.roi_size),
+        data=dataclasses.replace(c.data, dataset=a.dataset, data_dir=a.data_dir,
+                                 input_size=a.input_size,
+                                 synthetic_train_images=a.synthetic_n),
+        group=dataclasses.replace(c.group, method=a.decode,
+                                  max_peaks_per_class=a.max_peaks,
+                                  max_detections=a.max_detections,
+                                  max_box_size=(a.max_box_size / c.data.stride
+                                                if a.max_box_size > 0 else 1e9),
+                                  size_prune=a.size_prune,
+                                  score_thresh=a.conf_thresh, nms_iou=a.nms_iou),
+        train=c.train,
+        infer=dataclasses.replace(c.infer, weights=a.weights, test_scales=scales,
+                                  test_flip=a.test_flip,
+                                  mask_chunk=a.mask_chunk,
+                                  mask_rescore=a.mask_rescore,
+                                  input_size=a.input_size, save_dir=a.save_dir,
+                                  batch_size=a.batch_size),
+    )

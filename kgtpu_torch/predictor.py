@@ -1,8 +1,10 @@
 """Serving API: one image in, instances out.  Counterpart of
-`kgtpu/predictor.py::Predictor` (`__init__` and `predict`), built from a
-`Config` and a `state_dict` (see `kgtpu_torch.convert` for flax params).
+`kgtpu/predictor.py` (`size_prior_fallback` and `Predictor`), built from a
+`Config` and a `state_dict`, or from a checkpoint in the port's format
+(`kgtpu_torch.checkpoint`; `tools/orbax_to_torch.py` converts kgtpu's).
 
-    p = Predictor(cfg, state_dict)            # on the GPU
+    p = Predictor.from_checkpoint("weights", use_ema=True)   # on the GPU
+    p = Predictor(cfg, state_dict)
     result = p.predict(image_uint8)           # [H, W, 3] RGB, any size
     result["label_map"], result["boxes"], result["scores"], result["masks"]
 
@@ -11,71 +13,23 @@ offset) and results come back in the input frame.  The two resizes follow
 cv2, which the JAX package uses, without needing it:
 
   * image: `cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT 0)` with the scale
-    matrix, in cv2 5.0's f32 arithmetic: destination pixel x samples source
-    x / s (no half-pixel shift, taps outside the image read 0), interpolated
-    along x and then along y as fused multiply-adds, rounded half to even;
+    matrix (`data/transforms.resize_image`);
   * label map: `cv2.resize(INTER_NEAREST)`: source index floor(x * src/dst).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from kgtpu_torch import checkpoint as ckpt
 from kgtpu_torch.config import Config, required_divisor
+from kgtpu_torch.data.transforms import resize_image
 from kgtpu_torch.device import resolve_device
 from kgtpu_torch.infer import build_infer_fn
 from kgtpu_torch.models import KGNet
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a * b + c for f32 tensors with one rounding, as an FMA unit gives it.
-
-    The product of two f32 values is exact in f64; the f64 sum may round,
-    and its error (TwoSum) breaks the one case where rounding that sum to
-    f32 would round twice: a sum that lies on a tie between two floats."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    z = s - p
-    err = (p - (s - z)) + (c - z)                  # s + err == p + c exactly
-    r = s.float()
-    toward = torch.nextafter(r, torch.where(err > 0, torch.inf, -torch.inf).float())
-    tie = (err != 0) & ((r.double() + toward.double()) * 0.5 == s)
-    return torch.where(tie, toward, r)
-
-
-def resize_image(image: torch.Tensor, out_size: int) -> torch.Tensor:
-    """[H, W, 3] uint8 -> [out_size, out_size, 3] uint8: the long side scaled
-    to out_size, anchored at the top-left corner, zero elsewhere.  Equal to
-    cv2 5.0's warpAffine: the f32 source position x * (1 / s), its floor and
-    fraction, then top = fma(ax, p01 - p00, p00), bottom = fma(ax, p11 - p10,
-    p10), out = fma(ay, bottom - top, top).  The order matters only at
-    values within an ulp of a half: there one product rounding more (the
-    four-weight sum) moves the result by one."""
-    h, w = image.shape[:2]
-    s = out_size / max(h, w)
-    inv = s * (1.0 / (s * s))         # cv2.invertAffineTransform's 1/s
-    pos = np.arange(out_size, dtype=np.float32) * np.float32(inv)
-    i0 = np.floor(pos).astype(np.int64)
-    frac = pos - i0.astype(np.float32)
-    dev = image.device
-    img = image.float()
-    lo = torch.from_numpy(i0).to(dev)
-
-    def tap(yy, xx):
-        v = img[yy.clamp(max=h - 1)][:, xx.clamp(max=w - 1)]
-        ok = ((yy < h)[:, None] & (xx < w)[None, :])[..., None]
-        return torch.where(ok, v, torch.zeros_like(v))
-
-    p00, p01 = tap(lo, lo), tap(lo, lo + 1)
-    p10, p11 = tap(lo + 1, lo), tap(lo + 1, lo + 1)
-    f = torch.from_numpy(frac).to(dev)
-    ax, ay = f[None, :, None], f[:, None, None]
-    top = _fma(ax.expand_as(p00), p01 - p00, p00)
-    bottom = _fma(ax.expand_as(p10), p11 - p10, p10)
-    out = _fma(ay.expand_as(top), bottom - top, top)
-    return torch.round(out).clamp(0, 255).to(torch.uint8)
 
 
 def resize_nearest(label: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -86,6 +40,23 @@ def resize_nearest(label: torch.Tensor, height: int, width: int) -> torch.Tensor
     ys = torch.from_numpy(ys.astype(np.int64)).to(label.device)
     xs = torch.from_numpy(xs.astype(np.int64)).to(label.device)
     return label[ys][:, xs]
+
+
+def size_prior_fallback(cfg: Config, extra: dict) -> Config:
+    """The grouper's size cap for checkpoints without an active wh-head size
+    gate, from the dataset stats stored at train time (largest GT box side
+    in train-canvas pixels, rescaled to this canvas, times 1.5).  No-op when
+    wh-head pruning is active (the default) or a cap is already set."""
+    side = float(extra.get("max_gt_box_side_px", 0.0))
+    train_canvas = float(extra.get("train_input_size", 0.0))
+    prune_active = cfg.group.size_prune > 0 and cfg.model.use_wh_head
+    if (side > 0 and train_canvas > 0 and cfg.group.max_box_size >= 1e9
+            and not prune_active):
+        side_here = side * cfg.infer.input_size / train_canvas
+        cfg = dataclasses.replace(
+            cfg, group=dataclasses.replace(
+                cfg.group, max_box_size=1.5 * side_here / cfg.data.stride))
+    return cfg
 
 
 class Predictor:
@@ -100,6 +71,20 @@ class Predictor:
         self.model = KGNet(cfg.model)
         self.model.load_state_dict(state_dict, strict=True)
         self._infer = build_infer_fn(self.model, cfg, device=self.device)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: Config | None = None,
+                        use_ema: bool = False,
+                        device: str | torch.device = "cuda") -> "Predictor":
+        """A Predictor on a checkpoint of the port's format.  Without `cfg`,
+        the architecture comes from the checkpoint's stored config and the
+        inference settings are the defaults; a given `cfg` is used whole."""
+        state_dict, extra = ckpt.restore_bundle(path, use_ema=use_ema)
+        if cfg is None:
+            stored = ckpt.decode_config(extra)
+            cfg = Config() if stored is None else dataclasses.replace(
+                Config(), model=stored.model)
+        return cls(size_prior_fallback(cfg, extra), state_dict, device=device)
 
     @torch.inference_mode()
     def predict(self, image: np.ndarray, score_thresh: float | None = None) -> dict:

@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: `kgtpu_torch` and `chip_smoke.py` run
-where jax, flax, optax, orbax, cv2 and the JAX package are not installed.
+where jax, flax, optax, orbax, cv2, PIL and the JAX package are not
+installed.
 
 A static scan of every import statement, a subprocess that imports the
 port with those modules blocked, and the entry points' refusal to fall back
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "kgtpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "kgtpu")
 
 
 def _port_files():
@@ -37,7 +38,7 @@ def _imported_roots(path):
 
 def test_port_files_import_nothing_forbidden():
     files = _port_files()
-    assert len(files) >= 15 and os.path.exists(files[0])
+    assert len(files) >= 30 and os.path.exists(files[0])
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -51,6 +52,13 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.ops.groupnorm\n"
         "import kgtpu_torch.losses, kgtpu_torch.train_lib, kgtpu_torch.ops.targets\n"
         "import kgtpu_torch.ops.gaussian, kgtpu_torch.data.transforms\n"
+        "import kgtpu_torch.checkpoint, kgtpu_torch.evaluate, kgtpu_torch.coco_export\n"
+        "import kgtpu_torch.data.png, kgtpu_torch.data.folder, kgtpu_torch.data.dsb2018\n"
+        "import kgtpu_torch.data.registry, kgtpu_torch.data.loader\n"
+        "import kgtpu_torch.cli.test, kgtpu_torch.cli.eval, kgtpu_torch.cli.bench\n"
+        "import importlib.util as u\n"
+        "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "s.loader.exec_module(u.module_from_spec(s))\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
@@ -72,6 +80,27 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         Predictor(cfg, model.state_dict())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(cfg.model)
+
+
+def test_cli_and_from_checkpoint_refuse_cpu_fallback(monkeypatch, tmp_path):
+    from kgtpu_torch import checkpoint
+    from kgtpu_torch.cli import bench, test
+    from kgtpu_torch.config import tiny_test_config
+    from kgtpu_torch.models import build_model
+    from kgtpu_torch.predictor import Predictor
+
+    cfg = tiny_test_config()
+    d = str(tmp_path / "w")
+    checkpoint.write_payload(d, 0, {"params": build_model(cfg.model, device="cpu").state_dict()},
+                             {"config_json": checkpoint.encode_config(cfg)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor.from_checkpoint(d)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        test.main(["--dataset", "folder", "--data_dir", str(tmp_path), "--weights", d,
+                   "--save_dir", str(tmp_path / "o")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.main([])
 
 
 def test_create_train_state_refuses_cpu_fallback(monkeypatch):

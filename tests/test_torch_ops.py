@@ -24,7 +24,8 @@ from kgtpu.ops import preprocess as jpre
 from kgtpu.ops import roi as jroi
 from kgtpu_torch.config import GroupConfig
 from kgtpu_torch.ops import decode, group, nms, preprocess, roi
-from kgtpu_torch.predictor import resize_image, resize_nearest
+from kgtpu_torch.data.transforms import resize_image
+from kgtpu_torch.predictor import resize_nearest
 from tests.golden import oracles
 
 
@@ -264,7 +265,7 @@ def test_fma_rounds_once():
     would go the wrong way (checked against exact rationals)."""
     from fractions import Fraction
 
-    from kgtpu_torch.predictor import _fma
+    from kgtpu_torch.data.transforms import _fma
 
     def exact32(x):
         r = np.float32(float(x))
