@@ -40,6 +40,21 @@
     reference run; in f32 also every image's instance count equal to
     kgtpu's and at most 16 label-map pixels off its map (a bf16 run is
     thousands off).  The bf16 run must launch the GroupNorm kernel.
+[9] Trains from the command line: `python -m kgtpu_torch.cli.train`, called
+    in-process, at full width (the default Config, batch 8, 512x512, EMA,
+    lr 1e-3 after 50 warmup steps) on `synthetic` (64 generated images,
+    rotation up to 15 degrees) for CLI_EPOCHS epochs of CLI_STEPS steps,
+    evaluated on the 16 val images at the last one, then `--resume` for one
+    more epoch.  Requires: the EMA weights' val mAP_dsb2018 and AP50 above
+    their floors; a Gaussian launch every step; at least 58 GroupNorm
+    launches per eval batch of 8 (raw and EMA weights) and none in
+    training; best.json naming a checkpoint that exists; exactly
+    --keep_last checkpoint directories; one metrics.jsonl line per epoch;
+    the resumed run starting at the saved epoch and step; and `cli.test`
+    on the best checkpoint, serving the 16 val images, giving the label
+    maps of the in-training eval.  Times the CLI's steady img/s (eval and
+    saves excluded), its wait for batches per step, and the host's ms per
+    augmented 512x512 sample.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -88,6 +103,13 @@ ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets_torch"
 MAP_TOL = {"float32": 0.01, "bfloat16": 0.02}
 COUNT_TOL = 1               # instances on one image, from_checkpoint (bf16)
 PIXELS_OFF_TOL = 16         # label-map pixels per image off kgtpu's, f32 CLI run
+# phase [9]: the training CLI.  Floors at about 70% of the EMA val metrics
+# this run reached on an H100 80GB HBM3 at 700 W (mAP_dsb2018 0.6437, AP50
+# 0.8143 after 240 steps), as tests/test_e2e.py sets its floors
+CLI_STEPS, CLI_EPOCHS, CLI_KEEP = 40, 6, 2
+GN_PER_FORWARD = 58         # GroupNorm launches of one full-width forward
+CLI_MAP_FLOOR, CLI_AP50_FLOOR = 0.45, 0.57
+CLI_PHASE_S = 300           # phase [9]'s budget
 # GroupNorm shapes of the main path at 512x512, NCHW (B = 8; the mask head
 # sees batch x mask_chunk crops)
 GN_SHAPES = [(8, 64, 256, 256), (8, 128, 128, 128), (8, 128, 64, 64),
@@ -696,6 +718,141 @@ def phase_flagship(np, torch, gn, gauss) -> dict:
     return out
 
 
+def host_sample_ms(np, torch, cfg) -> dict:
+    """Host time per augmented sample of the CLI's data path at full size:
+    one thread, the CLI's pinned torch threads, and the 4-worker iterator
+    (wall time per sample over 8 batches of 8)."""
+    from kgtpu_torch.data.loader import batch_iterator, prepare_sample
+    from kgtpu_torch.data.registry import build_dataset
+    ds = build_dataset(cfg.data, split="train")
+    for i in range(len(ds)):                   # generated once, outside the timing
+        ds[i]
+    threads = torch.get_num_threads()
+    out = {}
+    try:
+        for name, n in (("serial_1thread", 1), ("serial_cli_threads", max(os.cpu_count() // 4, 1))):
+            torch.set_num_threads(n)
+            rng = np.random.default_rng(0)
+            t = time.perf_counter()
+            for i in range(8):
+                prepare_sample(ds[i], cfg.data, augment=True, image_only=False, rng=rng)
+            out[name] = (time.perf_counter() - t) / 8 * 1e3
+        t = time.perf_counter()
+        for _ in batch_iterator(ds, cfg.data, 8, seed=0, steps=8):
+            pass
+        out["iterator_4_workers"] = (time.perf_counter() - t) / 64 * 1e3
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def phase_train_cli(np, torch, gn, gauss) -> dict:
+    """[9]: the training CLI at full width, resumed once, then cli.test on
+    its best checkpoint."""
+    from kgtpu_torch.cli import test as test_cli
+    from kgtpu_torch.cli import train as train_cli
+    from kgtpu_torch.config import Config, config_to_json
+    from kgtpu_torch.data.png import read_png, write_png
+    from kgtpu_torch.data.registry import build_dataset
+    t_phase = time.perf_counter()
+    base = Config()
+    base = base.replace(train=dataclasses.replace(base.train, lr_warmup_steps=50))
+    flags = ["--dataset", "synthetic", "--synthetic_n", "64", "--aug_rotate", "15",
+             "--ema_decay", "0.99", "--lr", "1e-3", "--steps_per_epoch", str(CLI_STEPS),
+             "--save_every", "3", "--keep_last", str(CLI_KEEP),
+             "--eval_every", str(CLI_EPOCHS)]
+    threads = torch.get_num_threads()      # the CLI pins the host's threads
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path, save = os.path.join(tmp, "config.json"), os.path.join(tmp, "run")
+        with open(cfg_path, "w") as f:
+            f.write(config_to_json(base))
+        flags += ["--config", cfg_path, "--save_dir", save]
+        gn.launches = gauss.launches = 0                  # the training CLI's run
+        t = time.perf_counter()
+        first = train_cli.run(flags + ["--num_epochs", str(CLI_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        gauss_1, gn_1 = gauss.launches, gn.launches
+        torch.set_num_threads(threads)
+        steps = CLI_EPOCHS * CLI_STEPS
+        ev = first["eval"]
+        m = ev["metrics"]
+        eval_batches = 2 * -(-16 // 8)                    # raw and EMA, chunks of 8
+        log(f"  {CLI_EPOCHS} epochs of {CLI_STEPS} steps in {wall:.1f} s; launches: Gaussian "
+            f"{gauss_1} ({steps} steps), GroupNorm {gn_1} ({eval_batches} eval batches of 8)")
+        log("  epochs: " + ", ".join(f"{e['train_s']:.2f} s (wait {e['wait_s']:.2f})"
+                                      for e in first["epochs"]))
+        log(f"  epoch {ev['epoch']} held-out eval: {m}")
+        require(gauss_1 >= steps, f"the Gaussian kernel ran {gauss_1} times in {steps} steps")
+        require(gn_1 >= GN_PER_FORWARD * eval_batches, f"GroupNorm launched {gn_1} times "
+                f"in {eval_batches} eval batches, want >= {GN_PER_FORWARD} each")
+        require(m["val_mAP_dsb_ema"] > CLI_MAP_FLOOR and m["val_AP50_ema"] > CLI_AP50_FLOOR,
+                f"val mAP_dsb2018 {m['val_mAP_dsb_ema']} / AP50 {m['val_AP50_ema']} (EMA) "
+                f"not above the floors {CLI_MAP_FLOOR} / {CLI_AP50_FLOOR}")
+
+        gn.launches = gauss.launches = 0                  # the resumed run
+        second = train_cli.run(flags + ["--num_epochs", str(CLI_EPOCHS + 1), "--resume"])
+        torch.cuda.synchronize()
+        torch.set_num_threads(threads)
+        log(f"  resumed at epoch {second['start_epoch']} step {second['start_step']}, ended at "
+            f"step {second['end_step']}; launches: Gaussian {gauss.launches}, GroupNorm "
+            f"{gn.launches}")
+        require(second["start_epoch"] == CLI_EPOCHS and second["start_step"] == first["end_step"]
+                == steps and second["end_step"] == steps + CLI_STEPS,
+                "the resumed run did not continue from the saved epoch and step")
+        require(gauss.launches >= CLI_STEPS and gn.launches == 0,
+                "the resumed epoch's launches are off")
+        with open(os.path.join(save, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(os.path.join(save, "best.json")) as f:
+            best = json.load(f)
+        dirs = sorted(d for d in os.listdir(save) if d.startswith("model_"))
+        log(f"  run dir: {sorted(os.listdir(save))}; best {best}")
+        require([r["epoch"] for r in rows] == list(range(CLI_EPOCHS + 1)),
+                "metrics.jsonl does not hold one line per epoch")
+        require(len(dirs) == CLI_KEEP, f"{dirs} left, want --keep_last {CLI_KEEP}")
+        require(os.path.isdir(os.path.join(save, f"model_{best['epoch']}")),
+                "best.json names a checkpoint that is not there")
+
+        # cli.test on the best checkpoint over the same 16 val images
+        val = build_dataset(base.data, split="val")       # synthetic, 512x512
+        folder = os.path.join(tmp, "val")
+        os.makedirs(folder)
+        for i in range(len(val)):
+            write_png(os.path.join(folder, f"val_{i:02d}.png"), val[i]["image"])
+        gn.launches = 0
+        rc = test_cli.main(["--dataset", "folder", "--data_dir", folder, "--weights",
+                            os.path.join(save, "best"), "--use_ema", "--batch_size", "8",
+                            "--save_dir", os.path.join(tmp, "served")])
+        served = np.stack([read_png(os.path.join(tmp, "served", f"val_{i:02d}_label.png"),
+                                    "unchanged") for i in range(len(val))]).astype(np.int32)
+        want = ev["label_maps"]["ema"]
+        off = int((served != want).sum())
+        log(f"  cli.test on {best}: label maps vs the in-training eval's: {off} pixels off; "
+            f"GroupNorm launches {gn.launches}")
+        require(rc == 0 and gn.launches > 0 and off == 0,
+                "cli.test on the best checkpoint does not serve the in-training eval's maps")
+
+    steady = first["epochs"][1:]
+    img_s = 8 * sum(e["steps"] for e in steady) / sum(e["train_s"] for e in steady)
+    wait_ms = sum(e["wait_s"] for e in steady) / sum(e["steps"] for e in steady) * 1e3
+    step_ms = sum(e["train_s"] for e in steady) / sum(e["steps"] for e in steady) * 1e3
+    host = host_sample_ms(np, torch, base)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  steady state (epochs 1-{CLI_EPOCHS - 1}): {img_s:.2f} img/s, {step_ms:.1f} ms per "
+        f"step, of which {wait_ms:.1f} ms waiting for the batch; host ms per augmented 512x512 "
+        f"sample: {', '.join(f'{k} {v:.1f}' for k, v in host.items())}")
+    log(f"  phase [9]: {phase_s:.1f} s (budget {CLI_PHASE_S} s)")
+    require(phase_s <= CLI_PHASE_S, f"phase [9] took {phase_s:.0f} s")
+    return {"train_cli_img_per_s": img_s, "train_cli_step_ms": step_ms,
+            "train_cli_wait_ms_per_step": wait_ms, "train_cli_first_wall_s": wall,
+            "train_cli_val": m, "train_cli_steps": steps + CLI_STEPS,
+            "train_cli_gauss_launches": gauss_1, "train_cli_gn_launches": gn_1,
+            "train_cli_eval_batches": eval_batches, "host_ms_per_sample": host,
+            "train_cli_phase_s": phase_s, "train_cli_map_floor": CLI_MAP_FLOOR,
+            "train_cli_ap50_floor": CLI_AP50_FLOOR}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -847,7 +1004,7 @@ def main() -> int:
     with torch.no_grad():
         served = infer.build_infer_fn(trained, tcfg)(tbatch["image"])
     torch.cuda.synchronize()
-    require(gn.launches >= 58 and gauss.launches == 0, f"serving the trained model "
+    require(gn.launches >= GN_PER_FORWARD and gauss.launches == 0, f"serving the trained model "
             f"launched the GroupNorm kernel {gn.launches} and the Gaussian kernel "
             f"{gauss.launches} times")
     check_infer_output(torch, served, tcfg.train.batch_size, tcfg, 512, 512)
@@ -860,6 +1017,12 @@ def main() -> int:
     del trained, state, tbatch, served
     torch.cuda.empty_cache()
     fstats = phase_flagship(np, torch, gn, gauss)
+
+    # 9. the training CLI
+    log(f"[9] training from the CLI (python -m kgtpu_torch.cli.train, in-process; default "
+        f"Config, batch 8, 512x512, synthetic) for {CLI_EPOCHS} epochs, then --resume")
+    torch.cuda.empty_cache()
+    cstats = phase_train_cli(np, torch, gn, gauss)
 
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
@@ -877,7 +1040,7 @@ def main() -> int:
                "gn_per_shape_b32": gn_rows,
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
-               **tstats, **fstats, "card": smi}
+               **tstats, **fstats, **cstats, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     kernel = {"name": "group_norm_relu", "route": "cuda",
@@ -887,7 +1050,8 @@ def main() -> int:
               "launches_by_phase": {"serve [3]": main_launches,
                                     "train [6]": tstats["gn_launches_train"],
                                     "flagship bf16 [8]": fstats["flagship_gn_launches_bf16"],
-                                    "flagship f32 [8]": fstats["flagship_gn_launches_f32"]},
+                                    "flagship f32 [8]": fstats["flagship_gn_launches_f32"],
+                                    "train CLI [9]": cstats["train_cli_gn_launches"]},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],
@@ -896,7 +1060,10 @@ def main() -> int:
     gkernel = {"name": "render_heatmaps", "route": "cuda",
                "source": "kgtpu_torch/csrc/gaussian.cu",
                "replaces": "kgtpu/ops/pallas/gaussian.py:74",
-               "launches": tstats["gauss_launches"], "max_abs_err": gstats["max_abs_err"],
+               "launches": tstats["gauss_launches"],
+               "launches_by_phase": {"train [6]": tstats["gauss_launches"],
+                                     "train CLI [9]": cstats["train_cli_gauss_launches"]},
+               "max_abs_err": gstats["max_abs_err"],
                "ms": gstats["ms"], "device_ms": gstats["device_ms"],
                "plain_ms": gstats["plain_ms"],
                "bound_ms": gstats["bound_ms"], "bound_by": gstats["bound_by"],

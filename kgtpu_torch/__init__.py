@@ -7,21 +7,25 @@ Ported so far: single-scale two-stage inference with hourglass backbones
 through a hand-written CUDA kernel (`ops/groupnorm.py`, `csrc/groupnorm.cu`),
 the train step (`train_lib`), whose Gaussian heatmap targets render through
 a second one (`ops/gaussian.py`, `csrc/gaussian.cu`), checkpoints in the
-port's own format, and the test, eval and bench CLIs (`cli/`).
+port's own format, the cv2-free host data path (synthetic datasets,
+augmentation, batch iterator), and the train, test, eval and bench CLIs
+(`cli/`).
 
 Layout mirrors kgtpu/:
-  config     — the config dataclasses, their JSON, the test/eval flags
+  config     — the config dataclasses, their JSON, the train/test/eval flags
   models/    — hourglass backbone, heads, mask head, KGNet
   ops/       — preprocess, decode, group, nms, roi, targets, groupnorm and
                gaussian (kernel wrappers), _cuda (nvcc build + ctypes load)
   losses     — focal, offset, wh and mask losses
   train_lib  — optimizer, train state, loss_fn, train step
-  data/      — PNG codec, dataset readers, eval resize, sample prep
+  data/      — PNG codec, dataset readers, the synthetic generator and its
+               cv2-exact drawing ops (draw), warps and augmentation
+               (transforms), sample prep and the batch iterator (loader)
   infer      — batched two-stage inference
   predictor  — serving API (image in, instances out), from_checkpoint
   checkpoint — model_<epoch> save / restore / resolve / prune
   evaluate   — DSB mAP, COCO AP, AJI, PQ; coco_export — COCO results JSON
-  cli/       — test, eval and bench entry points
+  cli/       — train, test, eval and bench entry points
   convert    — flax param tree (numpy) -> state_dict
 """
 

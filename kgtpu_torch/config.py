@@ -1,5 +1,5 @@
 """Configuration of the PyTorch port: the dataclasses, their JSON form and
-the argparse shim of the test and eval CLIs.
+the argparse shim of the train, test and eval CLIs.
 
 A copy of the parts of `kgtpu/config.py` that the port runs, with the same
 field names and defaults, so a `Config` written for one package means the same
@@ -45,9 +45,8 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Datasets, augmentation, fixed-shape batching.  The augmentation fields
-    are held so a stored training config reads back whole; the augmenting
-    loader is not ported yet (`data/loader.py` raises)."""
+    """Datasets, augmentation (`data/loader.prepare_sample`), fixed-shape
+    batching."""
 
     dataset: str = "synthetic"         # see data/registry.py
     data_dir: str = ""
@@ -91,7 +90,8 @@ class GroupConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The settings the train step reads (`train_lib`).
+    """The settings the train step (`train_lib`) and the training CLI
+    (`cli/train.py`) read.
 
     kgtpu's `target_renderer` is left out: it chooses between two XLA
     implementations of one function.  Here the targets render through the
@@ -120,6 +120,15 @@ class TrainConfig:
     roi_jitter: float = 0.1            # train-time box jitter, fraction of box size
     focal_alpha: float = 2.0           # CornerNet penalty-reduced focal exponents
     focal_beta: float = 4.0
+    # the training CLI's checkpoints and held-out evaluation
+    save_dir: str = "weights"
+    save_every_epochs: int = 1
+    keep_last: int = 0                 # keep the N newest model_<epoch> dirs
+                                       # (+ the best.json epoch); 0 = all
+    eval_every_epochs: int = 0         # held-out AP every N epochs (0 = off)
+    resume: str = ""                   # "latest", a path, or "" (fresh start)
+    init_from: str = ""                # load only the weights from this
+                                       # checkpoint (fresh optimizer, epoch 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,14 +188,12 @@ def required_divisor(cfg: ModelConfig) -> int:
 _SECTIONS = {"model": ModelConfig, "data": DataConfig, "group": GroupConfig,
              "train": TrainConfig, "infer": InferConfig}
 
-# kgtpu fields that choose how a run is computed or where it writes, not what
-# it computes (a run gives the same parameters and outputs whatever their
-# value): checkpoint paths and cadence, the RSS watchdog, the device count
-# and dispatch grouping of data parallelism, the target renderer and the
-# fused norm (one function, two implementations), rematerialisation.
+# kgtpu fields that choose how a run is computed, not what it computes (a run
+# gives the same parameters and outputs whatever their value): the RSS
+# watchdog, the device count and dispatch grouping of data parallelism, the
+# target renderer and the fused norm (one function, two implementations),
+# rematerialisation.
 NO_EFFECT_FIELDS = frozenset({
-    ("train", "save_dir"), ("train", "save_every_epochs"), ("train", "keep_last"),
-    ("train", "eval_every_epochs"), ("train", "resume"), ("train", "init_from"),
     ("train", "rss_limit_gb"), ("train", "num_devices"),
     ("train", "steps_per_dispatch"), ("train", "target_renderer"),
     ("model", "remat"), ("infer", "fused_norm"),
@@ -319,6 +326,65 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="not ported (ROADMAP item 10)")
 
 
+def build_train_parser() -> argparse.ArgumentParser:
+    """kgtpu's train.py flags, plus --device and --config.  Flags of paths
+    the port does not run parse, and `cli/train.py` exits naming their
+    ROADMAP item."""
+    p = argparse.ArgumentParser("python -m kgtpu_torch.cli.train",
+                                description="Train the KG model (PyTorch port)")
+    _add_common(p)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--aug_scale", default="0.8,1.2",
+                   help="random scale-jitter range LO,HI of the joint affine "
+                        "augmentation")
+    p.add_argument("--aug_elastic", default="0",
+                   help="elastic deformation: ALPHA (max displacement px) or "
+                        "ALPHA,SIGMA (noise-grid spacing px); 0 = off")
+    p.add_argument("--aug_rotate", type=float, default=0.0,
+                   help="random rotation range in +/- degrees")
+    p.add_argument("--ema_decay", type=float, default=0.0)
+    p.add_argument("--remat", action="store_true", help="not ported (ROADMAP item 8)")
+    p.add_argument("--lr", type=float, default=2.5e-4)
+    p.add_argument("--lr_schedule", default="constant", choices=["constant", "cosine"])
+    p.add_argument("--num_epochs", type=int, default=100)
+    p.add_argument("--steps_per_epoch", type=int, default=0,
+                   help="0 = the train split's size // batch_size")
+    p.add_argument("--save_dir", default="weights")
+    p.add_argument("--save_every", type=int, default=1,
+                   help="checkpoint every N epochs (the final epoch always saves)")
+    p.add_argument("--keep_last", type=int, default=0,
+                   help="keep only the N newest checkpoints (+ the best-val "
+                        "epoch); 0 = keep all")
+    p.add_argument("--eval_every", type=int, default=0,
+                   help="held-out AP every N epochs (0 = off); rows land in "
+                        "metrics.jsonl, the best epoch in best.json")
+    p.add_argument("--resume", default="", nargs="?", const="latest",
+                   help="checkpoint path, or the bare flag to resume the latest")
+    p.add_argument("--init_from", default="",
+                   help="fine-tune: initialise only the network weights from "
+                        "this checkpoint (fresh optimizer, epoch 0)")
+    p.add_argument("--rss_limit_gb", type=float, default=-1.0,
+                   help="kgtpu's host-RSS watchdog; the port has none (values "
+                        "> 0: ROADMAP item 10)")
+    p.add_argument("--ngpus", "--num_devices", dest="num_devices", type=int,
+                   default=0, help="more than 1 is not ported (ROADMAP item 9)")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="more than 1 is not ported (ROADMAP item 9)")
+    p.add_argument("--target_renderer", default="scan", choices=["scan", "pallas"],
+                   help="kgtpu's renderer switch; in the port the Gaussian "
+                        "kernel renders every CUDA batch either way")
+    p.add_argument("--coordinator", default="", help="not ported (ROADMAP item 9)")
+    p.add_argument("--num_hosts", type=int, default=1)
+    p.add_argument("--host_id", type=int, default=0)
+    p.add_argument("--profile_dir", default="", help="not ported (ROADMAP item 10)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--config", default="",
+                   help="a JSON config (as a checkpoint's config_json) for the "
+                        "settings that have no flag, such as the widths; every "
+                        "setting that has a flag takes the flag's value")
+    return p
+
+
 def build_test_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("python -m kgtpu_torch.cli.test",
                                 description="Run KG inference (PyTorch port)")
@@ -374,16 +440,9 @@ def build_eval_parser() -> argparse.ArgumentParser:
     return p
 
 
-def config_from_test_args(a: argparse.Namespace) -> Config:
-    c = Config()
-    scales = tuple(float(s) for s in str(a.test_scales).split(",") if s)
-    if not scales:
-        raise SystemExit("--test_scales must list at least one scale")
-    if 1.0 not in scales:
-        raise SystemExit(
-            f"--test_scales {a.test_scales!r} must include 1.0 (the base "
-            "scale that the mask stage and the TTA merge are anchored to)")
-    return Config(
+def _common_sections(c: Config, a: argparse.Namespace) -> Config:
+    """`c` with the model, data and group fields of `_add_common`'s flags."""
+    return c.replace(
         model=dataclasses.replace(c.model, backbone=a.backbone,
                                   num_stacks=a.num_stacks, norm=a.norm,
                                   use_wh_head=(bool(a.wh_head)
@@ -400,12 +459,56 @@ def config_from_test_args(a: argparse.Namespace) -> Config:
                                   max_box_size=(a.max_box_size / c.data.stride
                                                 if a.max_box_size > 0 else 1e9),
                                   size_prune=a.size_prune,
-                                  score_thresh=a.conf_thresh, nms_iou=a.nms_iou),
-        train=c.train,
+                                  score_thresh=a.conf_thresh, nms_iou=a.nms_iou))
+
+
+def config_from_train_args(a: argparse.Namespace, base: Config | None = None) -> Config:
+    """kgtpu's `config_from_train_args` over `base` (default: `Config()`):
+    the fields that have a flag take its value, the others keep base's."""
+    c = _common_sections(Config() if base is None else base, a)
+    try:
+        lo, hi = (float(x) for x in str(a.aug_scale).split(","))
+    except ValueError:
+        raise SystemExit(f"--aug_scale {a.aug_scale!r} must be LO,HI")
+    if not (0.0 < lo <= hi):
+        raise SystemExit(f"--aug_scale {a.aug_scale!r} needs 0 < LO <= HI")
+    try:
+        el = [float(x) for x in str(a.aug_elastic).split(",")]
+        e_alpha, e_sigma = (el + [c.data.elastic_sigma])[:2]
+    except ValueError:
+        raise SystemExit(
+            f"--aug_elastic {a.aug_elastic!r} must be ALPHA or ALPHA,SIGMA")
+    if e_alpha < 0 or e_sigma <= 0:
+        raise SystemExit(
+            f"--aug_elastic {a.aug_elastic!r} needs ALPHA >= 0, SIGMA > 0")
+    return c.replace(
+        data=dataclasses.replace(c.data, scale_range=(lo, hi), rotate_deg=a.aug_rotate,
+                                 elastic_alpha=e_alpha, elastic_sigma=e_sigma),
+        train=dataclasses.replace(c.train, batch_size=a.batch_size, lr=a.lr,
+                                  lr_schedule=a.lr_schedule,
+                                  num_epochs=a.num_epochs,
+                                  steps_per_epoch=a.steps_per_epoch,
+                                  save_dir=a.save_dir, resume=a.resume,
+                                  init_from=a.init_from,
+                                  save_every_epochs=max(a.save_every, 1),
+                                  keep_last=max(a.keep_last, 0),
+                                  eval_every_epochs=max(a.eval_every, 0),
+                                  seed=a.seed, ema_decay=a.ema_decay))
+
+
+def config_from_test_args(a: argparse.Namespace) -> Config:
+    scales = tuple(float(s) for s in str(a.test_scales).split(",") if s)
+    if not scales:
+        raise SystemExit("--test_scales must list at least one scale")
+    if 1.0 not in scales:
+        raise SystemExit(
+            f"--test_scales {a.test_scales!r} must include 1.0 (the base "
+            "scale that the mask stage and the TTA merge are anchored to)")
+    c = _common_sections(Config(), a)
+    return c.replace(
         infer=dataclasses.replace(c.infer, weights=a.weights, test_scales=scales,
                                   test_flip=a.test_flip,
                                   mask_chunk=a.mask_chunk,
                                   mask_rescore=a.mask_rescore,
                                   input_size=a.input_size, save_dir=a.save_dir,
-                                  batch_size=a.batch_size),
-    )
+                                  batch_size=a.batch_size))

@@ -261,8 +261,16 @@ def test_dsb2018_matches_kgtpu(tmp_path, split):
                                        ("synthetic_crowded", 4), ("coco", 10),
                                        ("neural_cells", 10)])
 def test_registry_names_the_roadmap_item(name, item):
+    """A dataset that is not ported raises naming its ROADMAP item; item 4
+    (the synthetic generator) is done, so those names build kgtpu's test
+    split (tests/test_torch_synthetic.py holds the images)."""
+    cfg = DataConfig(dataset=name, input_size=64)
+    if item == 4:
+        ds = build_dataset(cfg, split="test")
+        assert (type(ds).__name__, len(ds), ds.seed, ds.size) == ("SyntheticCells", 16, 13, 64)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        build_dataset(DataConfig(dataset=name), split="test")
+        build_dataset(cfg, split="test")
 
 
 def test_registry_builds_the_ported_readers(tmp_path):
@@ -297,5 +305,11 @@ def test_prepare_sample_matches_kgtpu(image_only, h, w):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
         assert got[k].dtype == want[k].dtype, k
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        prepare_sample(raw, DataConfig(input_size=128), augment=True)
+    # the augmenting path (ROADMAP item 4, done): kgtpu's with the same draws
+    got = prepare_sample(raw, DataConfig(input_size=128, max_instances=4), augment=True,
+                         image_only=image_only, rng=np.random.default_rng(1))
+    want = _prepare_sample(raw, JaxDataConfig(input_size=128, max_instances=4),
+                           augment=True, rng=np.random.default_rng(1),
+                           image_only=image_only)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

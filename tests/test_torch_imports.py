@@ -55,7 +55,9 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.checkpoint, kgtpu_torch.evaluate, kgtpu_torch.coco_export\n"
         "import kgtpu_torch.data.png, kgtpu_torch.data.folder, kgtpu_torch.data.dsb2018\n"
         "import kgtpu_torch.data.registry, kgtpu_torch.data.loader\n"
+        "import kgtpu_torch.data.draw, kgtpu_torch.data.synthetic\n"
         "import kgtpu_torch.cli.test, kgtpu_torch.cli.eval, kgtpu_torch.cli.bench\n"
+        "import kgtpu_torch.cli.train\n"
         "import importlib.util as u\n"
         "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "s.loader.exec_module(u.module_from_spec(s))\n"
@@ -101,6 +103,9 @@ def test_cli_and_from_checkpoint_refuse_cpu_fallback(monkeypatch, tmp_path):
                    "--save_dir", str(tmp_path / "o")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.main([])
+    from kgtpu_torch.cli import train
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--dataset", "synthetic", "--save_dir", str(tmp_path / "t")])
 
 
 def test_create_train_state_refuses_cpu_fallback(monkeypatch):
