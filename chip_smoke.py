@@ -5,8 +5,9 @@
 
 [1] Builds both kernels of kgtpu_torch/csrc with nvcc, in parallel.
 [2] Holds the GroupNorm(+ReLU) kernel against its plain PyTorch version at
-    every shape the serving path gives it, at batch 1, 8 and 32, and at odd
-    shapes (an H*W no part size divides, C = 48, C = 100 and a misaligned
+    every shape the serving path gives it, at batch 1, 8 and 32, at the
+    shapes of the 0.75 and 1.25 TTA scales (384x384 and 640x640 inputs), and
+    at odd shapes (an H*W no part size divides, C = 48, C = 100 and a misaligned
     pointer, which take its one-element path); three calls on one input
     must give bitwise-equal outputs, and the profiler must see one launch
     per call.
@@ -55,6 +56,19 @@
     maps of the in-training eval.  Times the CLI's steady img/s (eval and
     saves excluded), its wait for batches per step, and the host's ms per
     augmented 512x512 sample.
+[10] TTA, ensemble and tiling with the flagship, through `cli.test` called
+    in-process, in f32 and in bf16: `--test_scales 0.75,1.0,1.25
+    --test_flip` (mean vote, batch 8) on the 16 committed images;
+    `--ensemble` of the EMA weights (mask member) and the raw weights
+    (assets_torch/flagship_raw) at scale 1.0; `--tiled --input_size 1024`
+    (tiles of 512, overlap 64: 9 a slide) on four 1024x1024 slides, each a
+    2x2 mosaic of four of the images in id order.  Held against kgtpu's
+    committed f32 runs (assets_torch/kgtpu_reference_tta.npz): in f32 every
+    instance count equal, at most 16 label-map pixels off per 512x512 image
+    and 64 per slide, mAP_dsb2018 within 0.01; in bf16 mAP_dsb2018 within
+    0.02.  Every run must launch the GroupNorm kernel.  Times TTA img/s (3
+    scales + flip, batch 8, bf16: median of 5 repeats with min and max) and
+    s per 2048x2048 slide (a 4x4 mosaic of the 16 images, 25 tiles), bf16.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -124,7 +138,22 @@ GN_MORE = ([((1, *lvl), False) for lvl in GN_LEVELS]
            + [((32, *lvl), False) for lvl in GN_LEVELS]
            + [((3, 128, 37, 41), False), ((4, 48, 24, 40), False),
               ((2, 100, 20, 30), False), ((2, 128, 33, 17), True)])
+# the GroupNorm shapes the 0.75 and 1.25 TTA scales add (384x384 and 640x640
+# inputs, B = 8): the backbone's first and second levels and its deepest
+GN_TTA_SHAPES = [(8, 64, 192, 192), (8, 128, 96, 96), (8, 128, 6, 6),
+                 (8, 64, 320, 320), (8, 128, 160, 160), (8, 128, 10, 10)]
 TIMED_SHAPE = (32, 128, 128, 128)
+# phase [10]: TTA, ensemble and tiling with the flagship
+TTA_RUNS = {   # name: (data, test.py's flags beside --weights and the data dir, side)
+    "tta": ("images", ["--use_ema", "--test_scales", "0.75,1.0,1.25", "--test_flip",
+                       "--batch_size", "8"], 512),
+    "ensemble": ("images", ["--use_ema", "--ensemble", os.path.join(ASSETS, "flagship_raw"),
+                            "--test_scales", "1.0", "--batch_size", "8"], 512),
+    "tiled": ("slides", ["--use_ema", "--tiled", "--input_size", "1024"], 1024),
+}
+SLIDE_PIXELS_OFF_TOL = 64   # label-map pixels per 1024x1024 slide, f32 CLI run
+TTA_REPEATS = 5
+TTA_PHASE_S = 180           # phase [10]'s budget
 
 
 def require(cond, msg: str) -> None:
@@ -193,7 +222,7 @@ def phase_kernel_vs_plain(torch, gn) -> dict:
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
-    for shape, misalign in [(s, False) for s in GN_SHAPES] + GN_MORE:
+    for shape, misalign in [(s, False) for s in GN_SHAPES + GN_TTA_SHAPES] + GN_MORE:
         c = shape[1]
         groups = gn.num_groups(c)
         w = torch.randn(c, device="cuda", generator=g) * 0.2 + 1.0
@@ -353,6 +382,8 @@ def profile_e2e(torch, fn, top: int = 20) -> None:
         f"the unprofiled one")
     for e in rows[:top]:
         log(f"    {dev(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"wall_ms": bare_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / bare_us}
 
 
 def check_infer_output(torch, out, b, cfg, h, w):
@@ -853,6 +884,232 @@ def phase_train_cli(np, torch, gn, gauss) -> dict:
             "train_cli_ap50_floor": CLI_AP50_FLOOR}
 
 
+def mosaic(np, tiles: list, rows: int):
+    """rows x rows mosaic of equal [H, W, ...] arrays, row-major."""
+    return np.concatenate([np.concatenate(tiles[r * rows:(r + 1) * rows], axis=1)
+                           for r in range(rows)], axis=0)
+
+
+def load_flagship(torch, tta: bool):
+    """(cfg, model) of the committed EMA weights in their stored bf16, on the
+    card, with cfg.infer set for 3-scale + flip TTA when `tta`."""
+    from kgtpu_torch import checkpoint
+    from kgtpu_torch.config import Config
+    from kgtpu_torch.models import KGNet
+    state_dict, extra = checkpoint.restore_bundle(os.path.join(ASSETS, "flagship_ema"),
+                                                  use_ema=True)
+    cfg = Config(model=checkpoint.decode_config(extra).model)
+    if tta:
+        cfg = cfg.replace(infer=dataclasses.replace(cfg.infer, test_scales=(0.75, 1.0, 1.25),
+                                                    test_flip=True))
+    model = KGNet(cfg.model)
+    model.load_state_dict(state_dict)
+    return cfg, model
+
+
+def timed_repeats(torch, call, repeats: int) -> list:
+    """Wall seconds of `repeats` calls, each ended by a synchronize, after
+    one warm-up call."""
+    call()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def recorded_call(module, name: str, call):
+    """(result of `call`, the arguments of the first call it made to
+    module.<name>)."""
+    seen, wrapped = [], getattr(module, name)
+
+    def recording(*args, **kwargs):
+        if not seen:
+            seen.append((args, kwargs))
+        return wrapped(*args, **kwargs)
+
+    setattr(module, name, recording)
+    try:
+        out = call()
+    finally:
+        setattr(module, name, wrapped)
+    return out, seen[0]
+
+
+def tta_stage_times(torch, model, cfg, fn, stacks) -> dict:
+    """ms per TTA batch (CUDA events, host gaps included): the whole call,
+    the backbone passes (normalize, every scale and its flip), the
+    cross-variant merge and the mask stage; decode+group+NMS of the six
+    variants is what remains."""
+    from kgtpu_torch import infer
+    from kgtpu_torch.ops.preprocess import normalize_images
+    with torch.inference_mode():
+        _, merge_args = recorded_call(infer, "merge_scales", lambda: fn(stacks))
+        _, mask_args = recorded_call(infer, "mask_batch", lambda: fn(stacks))
+
+        def backbones():
+            for v in stacks.values():
+                x = normalize_images(v, cfg.data.mean, cfg.data.std)
+                model(x, last_stack_only=True)
+                model(torch.flip(x, dims=[2]), last_stack_only=True)
+
+        t = {"call": cuda_time_ms(lambda: fn(stacks), iters=3, warmup=1),
+             "backbone_x6": cuda_time_ms(backbones, iters=3, warmup=1),
+             "merge": cuda_time_ms(lambda: infer.merge_scales(*merge_args[0], **merge_args[1]),
+                                   iters=3, warmup=1),
+             "mask_stage": cuda_time_ms(lambda: infer.mask_batch(*mask_args[0], **mask_args[1]),
+                                        iters=3, warmup=1)}
+    t["decode_group_nms_x6"] = t["call"] - t["backbone_x6"] - t["merge"] - t["mask_stage"]
+    return t
+
+
+def phase_tta(np, torch, gn, smi: str) -> dict:
+    """[10]: the three configurations through cli.test in f32 and bf16, held
+    against kgtpu's committed f32 runs, then the TTA and whole-slide
+    timings."""
+    from kgtpu_torch.cli import test as test_cli
+    from kgtpu_torch.cli.eval import metrics as eval_metrics
+    from kgtpu_torch.cli.eval import records
+    from kgtpu_torch.config import required_divisor
+    from kgtpu_torch.data.loader import prepare_sample
+    from kgtpu_torch.data.png import read_png, write_png
+    from kgtpu_torch.infer import build_multiscale_fn, build_tiled_infer_fn
+    t_phase = time.perf_counter()
+    ref = np.load(os.path.join(ASSETS, "kgtpu_reference_tta.npz"))
+    ref_metrics = json.loads(str(ref["metrics_json"]))
+    images = os.path.join(ASSETS, "synthetic_hard", "images")
+    ids = [str(i) for i in ref["ids_tta"]]
+    pixels = [read_png(os.path.join(images, f"{i}.png"), "color") for i in ids]
+    gt = {i: read_png(os.path.join(ASSETS, "synthetic_hard", "labels", f"{i}.png"),
+                      "unchanged").astype(np.int32) for i in ids}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {"images": images, "slides": os.path.join(tmp, "slides")}
+        os.makedirs(dirs["slides"])
+        gts = {"images": gt, "slides": {}}
+        for k in range(len(ids) // 4):
+            quad = ids[4 * k:4 * k + 4]
+            write_png(os.path.join(dirs["slides"], f"slide_{k}.png"),
+                      mosaic(np, pixels[4 * k:4 * k + 4], 2))
+            labs, off = [], 0
+            for i in quad:
+                labs.append(np.where(gt[i] > 0, gt[i] + off, 0))
+                off += int(gt[i].max())
+            gts["slides"][f"slide_{k}"] = mosaic(np, labs, 2)
+        for dtype in ("float32", "bfloat16"):
+            short = "f32" if dtype == "float32" else "bf16"
+            for name, (data, flags, side) in TTA_RUNS.items():
+                save = os.path.join(tmp, f"{name}_{dtype}")
+                gn.launches = 0                           # this path's run
+                t = time.perf_counter()
+                rc = test_cli.main(["--dataset", "folder", "--data_dir", dirs[data],
+                                    "--weights", os.path.join(ASSETS, "flagship_ema"),
+                                    "--compute_dtype", dtype, "--save_dir", save] + flags)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches = gn.launches
+                with open(os.path.join(save, "detections.json")) as f:
+                    det = json.load(f)
+                run_ids = [str(i) for i in ref[f"ids_{name}"]]
+                got = {r["id"]: r for r in det["images"]}
+                require(rc == 0 and sorted(got) == sorted(run_ids),
+                        f"cli.test {name} {dtype} served {sorted(got)}")
+                require(det["ensemble"] == (flags[flags.index("--ensemble") + 1:][:1]
+                                            if "--ensemble" in flags else []),
+                        f"{name} {dtype}: detections.json's ensemble is {det['ensemble']}")
+                m = eval_metrics(records(save, gts[data], side))
+                want = ref_metrics[name]
+                counts = np.array([got[i]["num_instances"] for i in run_ids])
+                dcount = counts - ref[f"counts_{name}"]
+                off = [int((read_png(os.path.join(save, f"{i}_label.png"), "unchanged")
+                            != ref[f"labels_{name}"][k]).sum()) for k, i in enumerate(run_ids)]
+                dmap = m["mAP_dsb2018"] - want["mAP_dsb2018"]
+                log(f"  {name} {dtype}: mAP_dsb2018 {m['mAP_dsb2018']:.6f} (kgtpu f32 "
+                    f"{want['mAP_dsb2018']:.6f}, diff {dmap:+.6f}, tol {MAP_TOL[dtype]}); "
+                    f"AP_coco {m['AP_coco']:.6f} (kgtpu {want['AP_coco']:.6f}), AJI "
+                    f"{m['AJI']:.6f}, PQ {m['PQ']:.6f}")
+                log(f"    instances {counts.tolist()}, largest count diff "
+                    f"{int(np.abs(dcount).max())}, label-map pixels off kgtpu's f32: max "
+                    f"{max(off)} of {side * side}, equal {off.count(0)}/{len(off)}; GroupNorm "
+                    f"launches {launches}; CLI wall {wall:.2f} s")
+                require(launches > 0, f"{name} {dtype} did not launch the GroupNorm kernel")
+                require(abs(dmap) <= MAP_TOL[dtype], f"{name} {dtype} mAP_dsb2018 "
+                        f"{m['mAP_dsb2018']} is off kgtpu's by {dmap}")
+                if dtype == "float32":
+                    tol = PIXELS_OFF_TOL if side == 512 else SLIDE_PIXELS_OFF_TOL
+                    require(not dcount.any(), f"{name} f32 instance counts off kgtpu's: "
+                            f"{dcount.tolist()}")
+                    require(max(off) <= tol, f"{name} f32 label maps off kgtpu's by {off} "
+                            f"pixels (at most {tol} each)")
+                out.update({f"{name}_mAP_dsb2018_{short}": m["mAP_dsb2018"],
+                            f"{name}_mAP_diff_{short}": dmap,
+                            f"{name}_metrics_{short}": m,
+                            f"{name}_count_diff_max_{short}": int(np.abs(dcount).max()),
+                            f"{name}_pixels_off_max_{short}": max(off),
+                            f"{name}_cli_wall_s_{short}": wall,
+                            f"{name}_gn_launches_{short}": launches})
+
+    # TTA throughput: 3 scales + flip, batch 8, stored bf16, the 16 images
+    cfg, model = load_flagship(torch, tta=True)
+    fn = build_multiscale_fn(model, cfg)
+    div = required_divisor(cfg.model)
+    batches = []
+    for start in range(0, len(ids), 8):
+        stacks = {}
+        for sc in cfg.infer.test_scales:
+            dcfg = dataclasses.replace(cfg.data, input_size=round(512 * sc / div) * div)
+            stacks[f"{sc:g}"] = torch.from_numpy(np.stack(
+                [prepare_sample({"image": im, "label_map": gt[i]}, dcfg)["image"]
+                 for im, i in zip(pixels[start:start + 8], ids[start:start + 8])])).cuda()
+        batches.append(stacks)
+    gn.launches = 0
+    fn(batches[0])
+    torch.cuda.synchronize()
+    tta_launches = gn.launches
+    walls = timed_repeats(torch, lambda: [fn(b) for b in batches], TTA_REPEATS)
+    rates = sorted(len(ids) / w for w in walls)
+    stages = tta_stage_times(torch, model, cfg, fn, batches[0])
+    log("  TTA stages, ms per batch of 8: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    prof = profile_e2e(torch, lambda: fn(batches[0]), top=8)
+    # whole slide: 2048x2048 (4x4 mosaic of the 16 images), 25 tiles of 512
+    slide = torch.from_numpy(mosaic(np, pixels, 4)).cuda()
+    tiled = build_tiled_infer_fn(model, cfg, (2048, 2048))
+    gn.launches = 0
+    found = tiled(slide)
+    torch.cuda.synchronize()
+    slide_launches = gn.launches
+    n_found = int(found["valid"].sum())
+    slide_s = sorted(timed_repeats(torch, lambda: tiled(slide), TTA_REPEATS))
+    from kgtpu_torch import infer
+    _, stitch_args = recorded_call(infer, "stitch_tiles", lambda: tiled(slide))
+    stitch_ms = cuda_time_ms(lambda: infer.stitch_tiles(*stitch_args[0], **stitch_args[1]),
+                             iters=3, warmup=1)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  TTA (3 scales + flip, batch 8, bf16): {rates[len(rates) // 2]:.2f} img/s, median of "
+        f"{TTA_REPEATS} repeats over the 16 images (min {rates[0]:.2f}, max {rates[-1]:.2f}); "
+        f"GroupNorm launches per batch {tta_launches}; {smi}")
+    mid = slide_s[len(slide_s) // 2]
+    log(f"  whole slide 2048x2048 (25 tiles of 512, overlap 64, bf16): {mid:.4f} s (min "
+        f"{slide_s[0]:.4f}, max {slide_s[-1]:.4f}), {25 / mid:.2f} tiles/s; stitch "
+        f"{stitch_ms:.2f} ms; {n_found} instances; GroupNorm launches {slide_launches}; {smi}")
+    log(f"  phase [10]: {phase_s:.1f} s (budget {TTA_PHASE_S} s)")
+    require(tta_launches > 0 and slide_launches > 0 and n_found > 0,
+            "the timed TTA or slide call did not run through the kernel")
+    require(phase_s <= TTA_PHASE_S, f"phase [10] took {phase_s:.0f} s")
+    return {**out, "tta_img_per_s": rates[len(rates) // 2], "tta_img_per_s_min": rates[0],
+            "tta_img_per_s_max": rates[-1], "tta_repeats": TTA_REPEATS,
+            "tta_gn_launches_per_batch": tta_launches, "tta_stage_ms_b8": stages,
+            "tta_profile_b8": prof, "slide_2048_stitch_ms": stitch_ms,
+            "slide_2048_s": slide_s[len(slide_s) // 2], "slide_2048_s_min": slide_s[0],
+            "slide_2048_s_max": slide_s[-1],
+            "slide_2048_tiles_per_s": 25 / slide_s[len(slide_s) // 2],
+            "slide_2048_instances": n_found, "slide_2048_gn_launches": slide_launches,
+            "tta_phase_s": phase_s}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1024,6 +1281,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     cstats = phase_train_cli(np, torch, gn, gauss)
 
+    # 10. TTA, ensemble and tiling with the flagship
+    log("[10] TTA (3 scales + flip), ensemble (EMA + raw) and whole-slide tiling with the "
+        "flagship through kgtpu_torch.cli.test, f32 and bf16, against kgtpu's reference")
+    torch.cuda.empty_cache()
+    ttastats = phase_tta(np, torch, gn, smi)
+
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
                "e2e_img_per_s_all": e2e["img_per_s_all"], "e2e_batch": E2E_BATCH,
@@ -1040,7 +1303,7 @@ def main() -> int:
                "gn_per_shape_b32": gn_rows,
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
-               **tstats, **fstats, **cstats, "card": smi}
+               **tstats, **fstats, **cstats, **ttastats, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     kernel = {"name": "group_norm_relu", "route": "cuda",
@@ -1051,7 +1314,11 @@ def main() -> int:
                                     "train [6]": tstats["gn_launches_train"],
                                     "flagship bf16 [8]": fstats["flagship_gn_launches_bf16"],
                                     "flagship f32 [8]": fstats["flagship_gn_launches_f32"],
-                                    "train CLI [9]": cstats["train_cli_gn_launches"]},
+                                    "train CLI [9]": cstats["train_cli_gn_launches"],
+                                    **{f"{name} {short} [10]": ttastats[f"{name}_gn_launches_{short}"]
+                                       for short in ("f32", "bf16") for name in TTA_RUNS},
+                                    "TTA timed batch [10]": ttastats["tta_gn_launches_per_batch"],
+                                    "2048 slide [10]": ttastats["slide_2048_gn_launches"]},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],

@@ -133,17 +133,27 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class InferConfig:
-    """Inference settings.  The port runs single-scale inference; the CLI
-    refuses other test_scales and test_flip (ROADMAP item 6)."""
+    """Inference settings: single-scale, multi-scale and flip TTA (merged
+    by `ops/nms.merge_scales`), and whole-slide tiling."""
 
     weights: str = ""                  # checkpoint to load
     test_scales: tuple[float, ...] = (1.0,)
-    test_flip: bool = False
-    input_size: int = 512              # inference canvas (square)
+    test_flip: bool = False            # add horizontal-flip TTA variants
+    tta_vote: str = "mean"             # cross-variant merge: "max" keeps each
+                                       # survivor's own score, "mean" rescores
+                                       # it by agreement across variants
+    tta_vote_iou: float = 0.5          # IoU for a variant box to support a
+                                       # merged box
+    tta_vote_thresh: float = 0.15      # mean vote: drop merged boxes whose
+                                       # voted score is below this
+    input_size: int = 512              # inference canvas (square); with
+                                       # tiling, the slide's side
     mask_chunk: int = 32               # detection slots per mask-head chunk;
                                        # chunks with no valid slot are skipped
     mask_rescore: float = 0.0          # w > 0: score *= maskness ** w
     batch_size: int = 1
+    tile_size: int = 512               # whole-slide tiling: tile side
+    tile_overlap: int = 64             # and the overlap of adjacent tiles
     save_dir: str = "results"
 
 
@@ -199,15 +209,6 @@ NO_EFFECT_FIELDS = frozenset({
     ("model", "remat"), ("infer", "fused_norm"),
 })
 
-# kgtpu fields the port does not hold, with kgtpu's defaults: a stored config
-# may carry them only at these values (TTA voting and tiling, ROADMAP items 6
-# and 7)
-ABSENT_DEFAULTS = {
-    ("infer", "tta_vote"): "mean", ("infer", "tta_vote_iou"): 0.5,
-    ("infer", "tta_vote_thresh"): 0.15, ("infer", "tile_size"): 512,
-    ("infer", "tile_overlap"): 64,
-}
-
 
 def config_to_json(cfg: Config) -> str:
     """The whole config tree as JSON (stored in every checkpoint)."""
@@ -218,9 +219,8 @@ def config_from_json(s: str) -> Config:
     """Inverse of `config_to_json`, and reader of the JSON that kgtpu's
     `config_to_json` writes.  Missing keys keep the defaults; lists become
     the tuples the dataclasses declare.  A key the port does not hold is
-    dropped when it is in NO_EFFECT_FIELDS or holds kgtpu's default
-    (ABSENT_DEFAULTS); any other raises ValueError naming it, since dropping
-    it would change the result."""
+    dropped when it is in NO_EFFECT_FIELDS; any other raises ValueError
+    naming it, since dropping it would change the result."""
     raw = json.loads(s)
     unknown = sorted(set(raw) - set(_SECTIONS))
     if unknown:
@@ -236,11 +236,6 @@ def config_from_json(s: str) -> Config:
                 kwargs[k] = v
             elif (name, k) in NO_EFFECT_FIELDS:
                 continue
-            elif (name, k) in ABSENT_DEFAULTS:
-                if v != ABSENT_DEFAULTS[name, k]:
-                    raise ValueError(
-                        f"config field {name}.{k} = {v!r} is not ported (only "
-                        f"its default {ABSENT_DEFAULTS[name, k]!r} is)")
             else:
                 raise ValueError(f"config field {name}.{k} = {v!r} is not known to "
                                  "the port")
@@ -390,20 +385,27 @@ def build_test_parser() -> argparse.ArgumentParser:
                                 description="Run KG inference (PyTorch port)")
     _add_common(p)
     p.add_argument("--weights", default="", help="checkpoint dir to load")
-    p.add_argument("--ensemble", default="", help="not ported (ROADMAP item 6)")
+    p.add_argument("--ensemble", default="",
+                   help="comma-separated extra checkpoint dirs, each with its "
+                        "stored config, whose detections merge with --weights' "
+                        "through the TTA vote (--weights runs the mask stage); "
+                        "composes with --test_scales/--test_flip; exclusive "
+                        "with --tiled")
     p.add_argument("--use_ema", action="store_true",
-                   help="load EMA params from the checkpoint when present")
+                   help="load EMA params from the checkpoint when present "
+                        "(applies to --ensemble members too)")
     p.add_argument("--batch_size", type=int, default=8,
                    help="inference batch (the last chunk is padded)")
     p.add_argument("--save_vis", action="store_true",
                    help="not ported (ROADMAP item 10)")
     p.add_argument("--tiled", action="store_true",
-                   help="not ported (ROADMAP item 7)")
+                   help="whole-slide mode: --input_size is the slide's side, "
+                        "served as tiles of --tile_size with --tile_overlap "
+                        "and stitched")
     p.add_argument("--test_scales", default="1.0",
-                   help="comma-separated TTA scales; the port runs 1.0 only "
-                        "(ROADMAP item 6)")
+                   help="comma-separated TTA scales, e.g. 0.75,1.0,1.25")
     p.add_argument("--test_flip", action="store_true",
-                   help="not ported (ROADMAP item 6)")
+                   help="add horizontal-flip TTA")
     p.add_argument("--tta_vote", default="mean", choices=["max", "mean"])
     p.add_argument("--mask_chunk", type=int, default=32,
                    help="mask-stage detection-slot chunk size (0 = dense)")
@@ -510,5 +512,9 @@ def config_from_test_args(a: argparse.Namespace) -> Config:
                                   test_flip=a.test_flip,
                                   mask_chunk=a.mask_chunk,
                                   mask_rescore=a.mask_rescore,
+                                  tta_vote=a.tta_vote,
+                                  tta_vote_thresh=a.tta_vote_thresh,
                                   input_size=a.input_size, save_dir=a.save_dir,
+                                  tile_size=a.tile_size,
+                                  tile_overlap=a.tile_overlap,
                                   batch_size=a.batch_size))

@@ -1,5 +1,6 @@
-"""Single-scale two-stage inference: counterpart of `kgtpu/infer.py`
-(`build_infer_fn` and the stages under it).
+"""Two-stage inference: counterpart of `kgtpu/infer.py` (`build_infer_fn`,
+`build_detect_fn`, `build_ensemble_fn`, `build_multiscale_fn`,
+`build_tiled_infer_fn` and the stages under them).
 
   images [B, H, W, 3] raw pixels
     -> normalize -> KGNet backbone + heads          (detect_batch)
@@ -8,6 +9,14 @@
        mask_chunk detection slots, skipping chunks with no valid slot
     -> paste_masks_batch -> per-image instance label maps   (mask_batch)
 
+Multi-scale and flip TTA, and checkpoint ensembles, run the detector once
+per (member, scale, flip) variant, map every variant's boxes to the base
+scale's stride grid, merge them per image (`ops/nms.merge_scales`), and run
+the mask stage once on the mask member's base-scale features.  Whole-slide
+inference runs the detector over fixed tiles, keeps each tile's owned
+detections, pastes per tile with globally unique ids and stitches
+(`ops/tiling.py`).
+
 JAX's jit and vmap have no counterpart here: PyTorch runs eagerly, and every
 op carries the batch axis.  A skipped chunk is found by one host-side count
 of valid slots per batch, where JAX used lax.cond per chunk.
@@ -15,6 +24,7 @@ of valid slots per batch, where JAX used lax.cond per chunk.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -24,9 +34,11 @@ from kgtpu_torch.device import resolve_device
 from kgtpu_torch.models import KGNet
 from kgtpu_torch.ops.decode import decode_peaks, gather_at
 from kgtpu_torch.ops.group import Boxes, group_keypoints
-from kgtpu_torch.ops.nms import box_nms
+from kgtpu_torch.ops.nms import box_nms, merge_scales
 from kgtpu_torch.ops.preprocess import normalize_images
 from kgtpu_torch.ops.roi import crop_and_resize, paste_masks_batch
+from kgtpu_torch.ops.tiling import (extract_tiles, ownership_mask, ownership_rects,
+                                    stitch_tiles, tile_grid)
 
 
 def _check_cfg(cfg: Config) -> None:
@@ -78,25 +90,29 @@ def mask_probs(model: KGNet, cfg: Config, feats: torch.Tensor,
 
 
 def rescore_by_maskness(cfg: Config, probs: torch.Tensor, scores: torch.Tensor,
-                        valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                        valid: torch.Tensor, gate: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """score *= maskness ** w (w = infer.mask_rescore; 0 is off), then the
-    score gate re-applies.  maskness = mean mask prob over the head's own
-    foreground."""
+    score gate re-applies at `gate` (None: group.score_thresh).  maskness =
+    mean mask prob over the head's own foreground."""
     w = cfg.infer.mask_rescore
     if w <= 0:
         return scores, valid
     fg = (probs > cfg.group.mask_thresh).to(probs.dtype)
     maskness = (probs * fg).sum((-2, -1)) / torch.clamp(fg.sum((-2, -1)), min=1.0)
     scores = scores * torch.where(valid, maskness, torch.ones_like(maskness)) ** w
-    return scores, valid & (scores >= cfg.group.score_thresh)
+    if gate is None:
+        gate = cfg.group.score_thresh
+    return scores, valid & (scores >= gate)
 
 
 def mask_batch(model: KGNet, cfg: Config, feats: torch.Tensor, dets: Boxes,
-               height: int, width: int) -> dict:
-    """Stage 2: masks for the detection slots, pasted into label maps.
-    Boxes come back in image pixels."""
+               height: int, width: int, gate: float | None = None) -> dict:
+    """Stage 2: masks for the detection slots, pasted into label maps, with
+    the rescore gate at `gate` (see rescore_by_maskness).  Boxes come back
+    in image pixels."""
     probs = mask_probs(model, cfg, feats, dets)
-    scores, valid = rescore_by_maskness(cfg, probs, dets.scores, dets.valid)
+    scores, valid = rescore_by_maskness(cfg, probs, dets.scores, dets.valid, gate)
     boxes = dets.boxes
     if cfg.infer.mask_rescore > 0:
         # restore kept-first order: valid slots first, by rescored score
@@ -116,6 +132,13 @@ def mask_batch(model: KGNet, cfg: Config, feats: torch.Tensor, dets: Boxes,
             "masks": probs, "label_map": label, "score_map": score_map}
 
 
+def _serving(model: KGNet, device) -> torch.device:
+    """Move `model` to the device in channels-last layout, in eval mode."""
+    dev = resolve_device(device)
+    model.to(device=dev, memory_format=torch.channels_last).eval()
+    return dev
+
+
 def build_infer_fn(model: KGNet, cfg: Config,
                    device: str | torch.device = "cuda") -> Callable:
     """(images [B, H, W, 3] raw pixels, uint8 or float 0-255) -> dict of
@@ -126,8 +149,7 @@ def build_infer_fn(model: KGNet, cfg: Config,
     puts it in eval mode.  Inputs are moved to that device.
     """
     _check_cfg(cfg)
-    dev = resolve_device(device)
-    model.to(device=dev, memory_format=torch.channels_last).eval()
+    dev = _serving(model, device)
 
     @torch.inference_mode()
     def infer(images) -> dict:
@@ -138,3 +160,158 @@ def build_infer_fn(model: KGNet, cfg: Config,
                           images.shape[2])
 
     return infer
+
+
+def build_detect_fn(model: KGNet, cfg: Config,
+                    device: str | torch.device = "cuda") -> Callable:
+    """The detector alone, as one TTA variant runs it: (images [B, H, W, 3]
+    raw pixels) -> Boxes [B, D] in that scale's stride coords."""
+    _check_cfg(cfg)
+    dev = _serving(model, device)
+
+    @torch.inference_mode()
+    def detect(images) -> Boxes:
+        x = normalize_images(torch.as_tensor(images).to(dev), cfg.data.mean, cfg.data.std)
+        return detect_batch(model, cfg, x)[0]
+
+    return detect
+
+
+def _cfg_at(cfg: Config, side: int) -> Config:
+    """cfg for a TTA scale of side `side`: the grouper's size cap (base
+    canvas stride units) follows that scale's stride grid."""
+    base = cfg.infer.input_size
+    if cfg.group.max_box_size <= 0 or side == base:
+        return cfg
+    return dataclasses.replace(cfg, group=dataclasses.replace(
+        cfg.group, max_box_size=cfg.group.max_box_size * side / base))
+
+
+def build_ensemble_fn(models: list[KGNet], cfg: Config, mask_member: int = 0,
+                      device: str | torch.device = "cuda") -> Callable:
+    """Checkpoint ensemble with multi-scale and flip TTA: every (member,
+    scale, flip) variant's detections, in base-scale stride coords, go
+    through one `merge_scales` per image (cfg.infer's tta_vote, tta_vote_iou
+    and tta_vote_thresh); the mask stage runs once on
+    `models[mask_member]`'s scale-1.0 features.
+
+    Returns fn({f"{scale:g}": images [B, side, side, 3] raw pixels}) with
+    one stack per cfg.infer.test_scales (or [side, side, 3] stacks for one
+    image), and the outputs of `build_infer_fn` with label maps at
+    cfg.infer.input_size.  Members may differ in architecture; cfg.model is
+    the mask member's (the stage-2 crop geometry), and every side must be
+    divisible by every member's required divisor.  Each member moves to the
+    device in channels-last layout and eval mode."""
+    _check_cfg(cfg)
+    dev = [_serving(m, device) for m in models][0]
+    scales = cfg.infer.test_scales
+    base = cfg.infer.input_size
+    stride = cfg.data.stride
+    if 1.0 not in scales:
+        raise ValueError("test_scales must include 1.0")
+    # the mean vote keeps boxes whose voted score lies in [tta_vote_thresh,
+    # score_thresh): the rescore gate must not drop them again
+    gate = (min(cfg.group.score_thresh, cfg.infer.tta_vote_thresh)
+            if cfg.infer.tta_vote == "mean" else None)
+
+    @torch.inference_mode()
+    def infer_ens(images_by_scale: dict) -> dict:
+        stacks = {k: torch.as_tensor(v).to(dev) for k, v in images_by_scale.items()}
+        single = next(iter(stacks.values())).ndim == 3
+        if single:
+            stacks = {k: v[None] for k, v in stacks.items()}
+        variants, base_feat = [], None
+        for sc in scales:
+            x = normalize_images(stacks[f"{sc:g}"], cfg.data.mean, cfg.data.std)
+            cfg_sc = _cfg_at(cfg, x.shape[1])
+            factor = base / float(x.shape[1])    # this scale's grid -> base grid
+            ws = x.shape[2] / stride
+            flipped = torch.flip(x, dims=[2]) if cfg.infer.test_flip else None
+            for mi, member in enumerate(models):
+                dets, feat = detect_batch(member, cfg_sc, x)
+                if sc == 1.0 and mi == mask_member:
+                    base_feat = feat
+                variants.append(Boxes(boxes=dets.boxes * factor, scores=dets.scores,
+                                      valid=dets.valid))
+                if flipped is not None:
+                    # detect on the mirrored batch, un-mirror: x' = W - x, swapped
+                    fd, _ = detect_batch(member, cfg_sc, flipped)
+                    fb = fd.boxes
+                    unflipped = torch.stack([ws - fb[..., 2], fb[..., 1], ws - fb[..., 0],
+                                             fb[..., 3]], dim=-1)
+                    variants.append(Boxes(boxes=unflipped * factor, scores=fd.scores,
+                                          valid=fd.valid))
+        merged = merge_scales(variants, cfg.group.nms_iou, cfg.group.max_detections,
+                              vote=cfg.infer.tta_vote, vote_iou=cfg.infer.tta_vote_iou,
+                              vote_thresh=cfg.infer.tta_vote_thresh)
+        out = mask_batch(models[mask_member], cfg, base_feat, merged, base, base, gate)
+        if single:
+            out = {k: v[0] for k, v in out.items()}
+        return out
+
+    return infer_ens
+
+
+def build_multiscale_fn(model: KGNet, cfg: Config,
+                        device: str | torch.device = "cuda") -> Callable:
+    """Multi-scale and flip TTA: the one-member `build_ensemble_fn`.
+    fn({f"{scale:g}": images [B, side, side, 3]}) with side =
+    round(scale * input_size) to the model's divisor."""
+    return build_ensemble_fn([model], cfg, mask_member=0, device=device)
+
+
+def build_tiled_infer_fn(model: KGNet, cfg: Config, image_hw: tuple[int, int],
+                         device: str | torch.device = "cuda",
+                         tile_batch: int = 8) -> Callable:
+    """Whole-slide inference.  Returns fn(image [H, W, 3] raw pixels) ->
+    {"label_map" [H, W] int32, "score_map" [H, W], "boxes" [T * D, 4]
+    (slide pixels), "scores" [T * D], "valid" [T * D]}: slot d of tile t
+    is label id t * D + d + 1, and `valid` holds the owned detections after
+    rescoring.
+
+    The fixed tile grid (cfg.infer.tile_size, tile_overlap) runs through
+    the detector `tile_batch` tiles at a time (the last chunk may be
+    short); each tile keeps the detections centered in its owned region,
+    the mask stage and paste run over the chunk's tiles as a batch (slot
+    chunks with no owned detection skip), and the tile canvases stitch by
+    score."""
+    _check_cfg(cfg)
+    dev = _serving(model, device)
+    h, w = image_hw
+    ts = cfg.infer.tile_size
+    s = cfg.data.stride
+    d = cfg.group.max_detections
+    origins_np = tile_grid(h, w, ts, cfg.infer.tile_overlap)
+    n_tiles = len(origins_np)
+    origins = torch.from_numpy(origins_np).to(dev)
+    rects = torch.from_numpy(ownership_rects(origins_np, ts)).to(dev)
+    ch = cfg.infer.mask_chunk
+    box_chunk = ch if 0 < ch < d else 32
+
+    @torch.inference_mode()
+    def infer_tiled(image) -> dict:
+        x = normalize_images(torch.as_tensor(image).to(dev), cfg.data.mean, cfg.data.std)
+        parts = []
+        for start in range(0, n_tiles, tile_batch):
+            sl = slice(start, min(start + tile_batch, n_tiles))
+            org = origins[sl]
+            dets, feats = detect_batch(model, cfg, extract_tiles(x, origins_np[sl], ts))
+            boxes_px = dets.boxes * s
+            own = ownership_mask(Boxes(boxes=boxes_px, scores=dets.scores, valid=dets.valid),
+                                 org, rects[sl])
+            gboxes = boxes_px + org[:, None, [1, 0, 1, 0]].to(torch.float32)
+            probs = mask_probs(model, cfg, feats, Boxes(dets.boxes, dets.scores, own))
+            scores, own = rescore_by_maskness(cfg, probs, dets.scores, own)
+            tid = torch.arange(sl.start, sl.stop, dtype=torch.int32, device=dev)
+            label, score = paste_masks_batch(probs, boxes_px, scores, own, ts, ts,
+                                             thresh=cfg.group.mask_thresh,
+                                             box_chunk=box_chunk, id_base=tid * d)
+            parts.append((label, score, gboxes, scores, own))
+        label, score, gboxes, scores, own = (torch.cat(p) for p in zip(*parts))
+        g_label, g_score = stitch_tiles(label, score, origins_np, h, w)
+        return {"label_map": g_label, "score_map": g_score,
+                "boxes": gboxes.reshape(n_tiles * d, 4),
+                "scores": scores.reshape(n_tiles * d),
+                "valid": own.reshape(n_tiles * d)}
+
+    return infer_tiled

@@ -71,10 +71,17 @@ def decode_peaks(hm: torch.Tensor, reg: torch.Tensor | None, k: int,
     """hm [B, H, W, C] logits (or probabilities), reg [B, H, W, 2] offsets
     (dx, dy) or None -> Peaks with k peaks per class."""
     b, h, w, c = hm.shape
-    if h % 2 or w % 2 or k > (h * w) // 4:
-        raise ValueError("decode needs even sides and k <= H*W/4")
-    prob = torch.sigmoid(hm) if apply_sigmoid else hm
-    scores, idx = blocked_topk(maxpool_nms(prob.float()), k)
+    if k > h * w:
+        raise ValueError(f"decode needs k <= H*W, got k={k} for a {h}x{w} map")
+    prob = maxpool_nms((torch.sigmoid(hm) if apply_sigmoid else hm).float())
+    if h % 2 == 0 and w % 2 == 0 and k <= (h * w) // 4:
+        scores, idx = blocked_topk(prob, k)
+    else:
+        # odd sides or a map too small for the blocked top-k: every pixel,
+        # ordered (score desc, index asc) as lax.top_k orders them
+        flat = prob.reshape(b, h * w, c).transpose(1, 2)
+        scores, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+        scores, idx = scores[..., :k], idx[..., :k]
     ys = torch.div(idx, w, rounding_mode="floor").float()
     xs = (idx % w).float()
     if reg is not None:

@@ -1,5 +1,6 @@
-"""Greedy box NMS: counterpart of `kgtpu/ops/nms.py::box_nms` (and
-`batched_box_iou`), batched over a leading axis.
+"""Greedy box NMS and the cross-variant TTA merge: counterparts of
+`kgtpu/ops/nms.py::box_nms`, `batched_box_iou` and `merge_scales`, batched
+over a leading axis.
 
 Candidates are sorted score-descending (stable, so ties keep index order).
 Greedy suppression runs as parallel rounds: each round keeps every live box
@@ -67,3 +68,42 @@ def box_nms(dets: Boxes, iou_thresh: float, max_out: int | None = None) -> Boxes
         scores=torch.where(kept, out_scores, torch.zeros_like(out_scores)),
         valid=kept,
     )
+
+
+def merge_scales(per_variant: list[Boxes], iou_thresh: float, max_out: int,
+                 vote: str = "max", vote_iou: float = 0.5,
+                 vote_thresh: float = 0.0) -> Boxes:
+    """Cross-variant TTA merge: the union of every variant's detections
+    (each Boxes [B, Dv], already in the common frame) -> one NMS pass -> the
+    top `max_out` rows [B, max_out].
+
+    vote="max" keeps each survivor's own score.  vote="mean" rescores each
+    survivor with the mean over variants of that variant's best-matching
+    valid candidate score (IoU > vote_iou; 0 where a variant has none),
+    drops survivors whose voted score is below `vote_thresh`, and restores
+    the kept-first, score-descending order (stable on ties)."""
+    cat = Boxes(boxes=torch.cat([d.boxes for d in per_variant], dim=1),
+                scores=torch.cat([d.scores for d in per_variant], dim=1),
+                valid=torch.cat([d.valid for d in per_variant], dim=1))
+    merged = box_nms(cat, iou_thresh, max_out=max_out)
+    if vote == "max":
+        return merged
+    if vote != "mean":
+        raise ValueError(f"unknown vote {vote!r}")
+    b, d = merged.scores.shape
+    iou = batched_box_iou(merged.boxes, cat.boxes)          # [B, D, V * Dv]
+    m = (iou > vote_iou) & cat.valid[:, None, :]
+    per_var = torch.where(m, cat.scores[:, None, :], torch.zeros_like(iou))
+    best = per_var.reshape(b, d, len(per_variant), -1).amax(dim=-1)   # [B, D, V]
+    total = best[..., 0]
+    for v in range(1, best.shape[-1]):      # summed in order, as XLA does
+        total = total + best[..., v]
+    voted = total / len(per_variant)
+    valid = merged.valid & (voted >= vote_thresh)
+    key = torch.where(valid, voted, torch.full_like(voted, -1.0))
+    _, order = torch.sort(-key, dim=1, stable=True)
+    voted, valid = torch.gather(voted, 1, order), torch.gather(valid, 1, order)
+    return Boxes(
+        boxes=torch.gather(merged.boxes, 1, order[..., None].expand(-1, -1, 4)),
+        scores=torch.where(valid, voted, torch.zeros_like(voted)),
+        valid=valid)

@@ -1,6 +1,6 @@
 """ROI crop and mask paste as separable-matmul resampling.  Counterpart of
-`kgtpu/ops/roi.py::crop_and_resize` (bilinear and nearest) and
-`paste_masks_batch`.
+`kgtpu/ops/roi.py::crop_and_resize` (bilinear and nearest),
+`paste_masks_batch` and `paste_masks`.
 
 Bilinear resampling is separable, so a crop or a paste is two matrix
 products with banded tent-weight matrices:
@@ -86,17 +86,19 @@ def crop_and_resize(img: torch.Tensor, boxes: torch.Tensor,
 def paste_masks_batch(masks: torch.Tensor, boxes: torch.Tensor,
                       scores: torch.Tensor, valid: torch.Tensor, height: int,
                       width: int, thresh: float = 0.5,
-                      box_chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+                      box_chunk: int = 32, id_base: int | torch.Tensor = 0
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Paste per-box mask probabilities into per-image instance maps.
 
     masks [B, D, r, r], boxes [B, D, 4] (image pixel coords), scores and
     valid [B, D].  Each pixel goes to the highest-scoring valid instance
     whose mask exceeds `thresh` there (ties: the lowest slot).  Slots run in
     chunks of `box_chunk`; a chunk with no valid slot in any image is
-    skipped (one host-side check for the whole batch).
+    skipped (one host-side check for the whole batch).  `id_base` is an int
+    or a per-image [B] int tensor (the tiled path passes tile index x D).
 
-    Returns (label_map [B, H, W] int32, 0 = background, d + 1 = slot d;
-    score_map [B, H, W] float32).
+    Returns (label_map [B, H, W] int32, 0 = background, id_base[i] + d + 1
+    = slot d of image i; score_map [B, H, W] float32).
     """
     b, d, r, _ = masks.shape
     dev = masks.device
@@ -108,6 +110,8 @@ def paste_masks_batch(masks: torch.Tensor, boxes: torch.Tensor,
         valid = torch.nn.functional.pad(valid, (0, pad))
     n_chunks = masks.shape[1] // box_chunk
     live_chunks = valid.reshape(b, n_chunks, box_chunk).any(dim=2).any(dim=0)
+    base = torch.as_tensor(id_base, dtype=torch.int32, device=dev).expand(b)
+    base = base[:, None, None] + 1
     label = torch.zeros((b, height, width), dtype=torch.int32, device=dev)
     best = torch.zeros((b, height, width), dtype=torch.float32, device=dev)
     for ci in torch.nonzero(live_chunks).flatten().tolist():
@@ -121,8 +125,31 @@ def paste_masks_batch(masks: torch.Tensor, boxes: torch.Tensor,
         cand = torch.where(fg, scores[:, sl, None, None].float(),
                            torch.full_like(vals, -1.0))
         win_score, winner = cand.max(dim=1)               # first occurrence
-        win_id = (ci * box_chunk + winner + 1).to(torch.int32)
+        win_id = (ci * box_chunk + winner).to(torch.int32) + base
         better = (win_score > 0) & (win_score > best)
         label = torch.where(better, win_id, label)
         best = torch.where(better, win_score, best)
     return label, best
+
+
+def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, scores: torch.Tensor,
+                valid: torch.Tensor, height: int, width: int, thresh: float = 0.5,
+                box_chunk: int = 8, id_base: int | torch.Tensor = 0,
+                init: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One image: masks [D, r, r], boxes [D, 4], scores and valid [D] ->
+    (label_map [H, W] int32, score_map [H, W] float32), instance d written
+    as id_base + d + 1.  With `init` = (label_map, score_map), pasting starts
+    from that carry: a pixel takes a new instance only where the instance's
+    score is above 0 and above the carried score (ties keep the carry)."""
+    label, best = paste_masks_batch(masks[None], boxes[None], scores[None],
+                                    valid[None], height, width, thresh,
+                                    box_chunk, id_base)
+    label, best = label[0], best[0]
+    if init is None:
+        return label, best
+    init_label, init_best = init
+    init_best = init_best.to(torch.float32)
+    better = (best > 0) & (best > init_best)
+    return (torch.where(better, label, init_label.to(torch.int32)),
+            torch.where(better, best, init_best))

@@ -57,7 +57,8 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.data.registry, kgtpu_torch.data.loader\n"
         "import kgtpu_torch.data.draw, kgtpu_torch.data.synthetic\n"
         "import kgtpu_torch.cli.test, kgtpu_torch.cli.eval, kgtpu_torch.cli.bench\n"
-        "import kgtpu_torch.cli.train\n"
+        "import kgtpu_torch.cli.train, kgtpu_torch.ops.tiling, kgtpu_torch.ops.nms\n"
+        "import kgtpu_torch.ops, kgtpu_torch.ops.roi, kgtpu_torch.ops.decode\n"
         "import importlib.util as u\n"
         "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "s.loader.exec_module(u.module_from_spec(s))\n"
@@ -69,7 +70,8 @@ def test_port_imports_with_jax_and_cv2_blocked():
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from kgtpu_torch.config import tiny_test_config
-    from kgtpu_torch.infer import build_infer_fn
+    from kgtpu_torch.infer import (build_detect_fn, build_ensemble_fn, build_infer_fn,
+                                   build_multiscale_fn, build_tiled_infer_fn)
     from kgtpu_torch.models import build_model
     from kgtpu_torch.predictor import Predictor
 
@@ -78,6 +80,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     model = build_model(cfg.model, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_infer_fn(model, cfg)
+    for build in (build_detect_fn, build_multiscale_fn):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build(model, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_ensemble_fn([model], cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_tiled_infer_fn(model, cfg, (256, 256))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor(cfg, model.state_dict())
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -62,6 +62,22 @@ def test_decode_peaks_exact(plateaus):
         np.testing.assert_allclose(got.coords[i].numpy(), c, atol=1e-5)
 
 
+
+@pytest.mark.parametrize("h,w,k", [(16, 16, 128), (15, 18, 24), (8, 8, 64)])
+def test_decode_peaks_full_topk_exact(h, w, k):
+    """Maps with an odd side or fewer than 4k pixels (a small TTA scale's
+    heatmap) take kgtpu's top_k over every pixel; plateaus tie at k."""
+    hm, reg = _heatmaps(7, h=h, w=w, plateaus=True)
+    got = decode.decode_peaks(_t(hm), _t(reg), k)
+    want = jax.vmap(lambda h_, r: jdecode.decode_peaks(h_, r, k))(
+        jnp.asarray(hm), jnp.asarray(reg))
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
+    np.testing.assert_allclose(got.coords.numpy(), np.asarray(want.coords),
+                               rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="k <= H\\*W"):
+        decode.decode_peaks(_t(hm), _t(reg), h * w + 1)
+
 def _box_peaks(seed, b=2, n=10, k=16):
     """Per-class peaks of random boxes with keypoint noise, tied scores and
     stray peaks; plus a random wh map at the peaks."""

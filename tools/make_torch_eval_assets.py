@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Make the evaluation assets of the PyTorch port under assets_torch/.
 
-    python tools/make_torch_eval_assets.py [--out assets_torch]
+    python tools/make_torch_eval_assets.py [--out assets_torch] [--only tta]
 
 Runs on the CPU where jax, orbax, cv2 and kgtpu are installed, and writes
 what the port needs to serve and score the trained flagship where none of
@@ -25,6 +25,28 @@ them is:
                              metrics of each run (mAP_dsb2018, COCO AP, AJI,
                              PQ) against the ground truth, with kgtpu's
                              NumPy IoU (its compiled IoU op is switched off).
+  flagship_raw/model_99/     the flagship's raw (non-EMA) parameters, f32,
+                             params only (tools/orbax_to_torch.py
+                             --params_only): the second ensemble member
+  kgtpu_reference_tta.npz    kgtpu's own f32 runs on the CPU of three
+                             configurations, with test.py's loops and flags
+                             (TTA_FLAGS): "tta" (--test_scales 0.75,1.0,1.25
+                             --test_flip --use_ema, mean vote, batch 8, the
+                             16 images), "ensemble" (the EMA weights as the
+                             mask member plus the raw weights, --test_scales
+                             1.0, mean vote, batch 8) and "tiled" (--tiled
+                             --input_size 1024, tiles of 512 with overlap 64,
+                             on four 1024x1024 slides: 2x2 mosaics of the
+                             images in id order, `mosaic`).  Per
+                             configuration: `labels_<c>` uint16 label maps,
+                             `counts_<c>` valid instances, `ids_<c>`, and
+                             `metrics_json` with each run's metrics against
+                             the ground truth (for a slide: the mosaic of
+                             its images' label maps, ids offset per quadrant)
+                             and its flags.
+
+--only tta writes the last two alone, from the committed images and labels,
+and leaves the rest as it is.
 """
 
 from __future__ import annotations
@@ -39,12 +61,33 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 FLAGSHIP = os.path.join(ROOT, "runs", "kg_hard1024", "model_99")
 BATCH = 4
+# test.py's flags of each configuration of kgtpu_reference_tta.npz (the
+# data dir and weights come first)
+TTA_FLAGS = {
+    "tta": ["--use_ema", "--test_scales", "0.75,1.0,1.25", "--test_flip",
+            "--batch_size", "8"],
+    "ensemble": ["--use_ema", "--ensemble", "assets_torch/flagship_raw", "--test_scales",
+                 "1.0", "--batch_size", "8"],
+    "tiled": ["--use_ema", "--tiled", "--input_size", "1024"],
+}
+
+
+def mosaic(tiles: list, rows: int):
+    """rows x rows mosaic of equal [H, W, ...] arrays, row-major."""
+    import numpy as np
+    return np.concatenate([np.concatenate(tiles[r * rows:(r + 1) * rows], axis=1)
+                           for r in range(rows)], axis=0)
 
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
-    out = p.parse_args(argv).out
+    p.add_argument("--only", default="", choices=["", "tta"],
+                   help="tta: write flagship_raw and kgtpu_reference_tta.npz alone")
+    a = p.parse_args(argv)
+    out = a.out
+    if a.only == "tta":
+        return make_tta_reference(out)
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -121,6 +164,132 @@ def main(argv: list[str] | None = None) -> int:
         print(dtype, counts, json.dumps(m))
     result["metrics_json"] = np.array(json.dumps(metrics))
     np.savez_compressed(os.path.join(out, "kgtpu_reference.npz"), **result)
+    return make_tta_reference(out)
+
+
+def _score(evaluate, recs: list) -> dict:
+    return {"mAP_dsb2018": evaluate.evaluate_dsb2018(recs)["mAP_dsb2018"],
+            **evaluate.evaluate_coco(recs),
+            "AJI": evaluate.evaluate_aji(recs)["AJI"],
+            **{k: v for k, v in evaluate.evaluate_pq(recs).items()
+               if k in ("PQ", "SQ", "RQ")}}
+
+
+def make_tta_reference(out: str) -> int:
+    """flagship_raw and kgtpu_reference_tta.npz (module docstring)."""
+    import tempfile
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import cv2
+    import jax.numpy as jnp
+    import numpy as np
+
+    from kgtpu import checkpoint, evaluate, native
+    from kgtpu.config import build_test_parser, config_from_test_args
+    from kgtpu.data.folder import ImageFolder
+    from kgtpu.data.loader import _prepare_sample
+    from kgtpu.infer import build_ensemble_fn, build_multiscale_fn, build_tiled_infer_fn
+    from kgtpu.models import KGNet, required_divisor
+    from tools.orbax_to_torch import convert
+
+    print(convert(FLAGSHIP, os.path.join(out, "flagship_raw"), params_only=True))
+    native.label_map_iou = lambda pred, gt: None          # kgtpu's NumPy IoU
+    img_dir = os.path.join(out, "synthetic_hard", "images")
+    lab_dir = os.path.join(out, "synthetic_hard", "labels")
+    images = ImageFolder(img_dir)
+    ids = [images[i]["id"] for i in range(len(images))]
+    gt = {i: cv2.imread(os.path.join(lab_dir, f"{i}.png"), cv2.IMREAD_UNCHANGED)
+          .astype(np.int32) for i in ids}
+    ema, extra = checkpoint.restore_bundle(FLAGSHIP, use_ema=True)
+    raw, _ = checkpoint.restore_bundle(FLAGSHIP, use_ema=False)
+    stored = checkpoint.decode_config(extra)
+    model_cfg = dataclasses.replace(stored.model, compute_dtype="float32")
+    result, metrics = {}, {"source": "tools/make_torch_eval_assets.py --only tta",
+                           "jax": jax.__version__, "cv2": cv2.__version__,
+                           "weights": "runs/kg_hard1024/model_99 (EMA; ensemble: + raw)",
+                           "compute_dtype": "float32"}
+    with tempfile.TemporaryDirectory() as tmp:
+        slide_dir = os.path.join(tmp, "slides")
+        os.makedirs(slide_dir)
+        slide_gt = {}
+        for k in range(len(ids) // 4):
+            quad = ids[4 * k:4 * k + 4]
+            pixels = [cv2.imread(os.path.join(img_dir, f"{i}.png"), cv2.IMREAD_COLOR)
+                      for i in quad]
+            cv2.imwrite(os.path.join(slide_dir, f"slide_{k}.png"), mosaic(pixels, 2))
+            labs, off = [], 0
+            for i in quad:
+                labs.append(np.where(gt[i] > 0, gt[i] + off, 0))
+                off += int(gt[i].max())
+            slide_gt[f"slide_{k}"] = mosaic(labs, 2)
+
+        for name, flags in TTA_FLAGS.items():
+            data_dir = slide_dir if name == "tiled" else img_dir
+            argv = ["--dataset", "folder", "--data_dir", data_dir, "--weights", FLAGSHIP]
+            cfg = config_from_test_args(build_test_parser().parse_args(argv + flags))
+            cfg = dataclasses.replace(cfg, model=model_cfg)
+            model = KGNet(cfg=model_cfg)
+            ds = ImageFolder(data_dir)
+            base = cfg.infer.input_size
+            divisor = required_divisor(model_cfg)
+            rng = np.random.default_rng(0)
+            labels, counts, recs, names = [], [], [], []
+            if name == "tiled":
+                infer = build_tiled_infer_fn(model, cfg, (base, base))
+                for i in range(len(ds)):
+                    r = ds[i]
+                    o = infer(ema, _prepare_sample(r, cfg.data, augment=False, rng=rng,
+                                                   image_only=True)["image"])
+                    lab = np.asarray(o["label_map"])
+                    u = np.unique(lab)
+                    u = u[u > 0].astype(np.int32)
+                    relab = np.zeros_like(lab)          # test.py's NumPy renumbering
+                    for n, oid in enumerate(u):
+                        relab[lab == oid] = n + 1
+                    scores = np.asarray(o["scores"])[u - 1]
+                    labels.append(relab.astype(np.uint16))
+                    counts.append(len(u))
+                    names.append(r["id"])
+                    recs.append({"pred_label": relab.astype(np.int32),
+                                 "scores": np.concatenate([scores, np.zeros(1, np.float32)]),
+                                 "gt_label": slide_gt[r["id"]]})
+            else:
+                if name == "ensemble":
+                    ens = build_ensemble_fn([model, KGNet(cfg=model_cfg)], cfg, mask_member=0)
+                    infer = lambda imgs: ens([ema, raw], imgs)  # noqa: E731
+                else:
+                    ms = build_multiscale_fn(model, cfg)
+                    infer = lambda imgs: ms(ema, imgs)  # noqa: E731
+                bs = cfg.infer.batch_size
+                for start in range(0, len(ds), bs):
+                    raws = [ds[i] for i in range(start, min(start + bs, len(ds)))]
+                    stacks = {}
+                    for sc in cfg.infer.test_scales:
+                        dcfg = dataclasses.replace(
+                            cfg.data, input_size=max(round(base * sc / divisor), 1) * divisor)
+                        st = [_prepare_sample(r, dcfg, augment=False, rng=rng,
+                                              image_only=True)["image"] for r in raws]
+                        stacks[f"{sc:g}"] = jnp.asarray(np.stack(st + [st[-1]] * (bs - len(st))))
+                    o = infer(stacks)
+                    for k, r in enumerate(raws):
+                        lab = np.asarray(o["label_map"][k]).astype(np.uint16)
+                        valid = np.asarray(o["valid"][k])
+                        kept = np.asarray(o["scores"][k])[valid]
+                        labels.append(lab)
+                        counts.append(int(valid.sum()))
+                        names.append(r["id"])
+                        scores = np.zeros(max(int(lab.max()), len(kept), 1), np.float32)
+                        scores[:len(kept)] = kept
+                        recs.append({"pred_label": lab.astype(np.int32), "scores": scores,
+                                     "gt_label": gt[r["id"]]})
+            metrics[name] = {**_score(evaluate, recs), "flags": flags}
+            result[f"labels_{name}"] = np.stack(labels)
+            result[f"counts_{name}"] = np.array(counts, np.int32)
+            result[f"ids_{name}"] = np.array(names)
+            print(name, counts, json.dumps(metrics[name]), flush=True)
+    result["metrics_json"] = np.array(json.dumps(metrics))
+    np.savez_compressed(os.path.join(out, "kgtpu_reference_tta.npz"), **result)
     return 0
 
 
