@@ -6,11 +6,13 @@
 [1] Builds both kernels of kgtpu_torch/csrc with nvcc, in parallel.
 [2] Holds the GroupNorm(+ReLU) kernel against its plain PyTorch version at
     every shape the serving path gives it, at batch 1, 8 and 32, at the
-    shapes of the 0.75 and 1.25 TTA scales (384x384 and 640x640 inputs), and
+    unet's and resnet_fpn's shapes (C = 256 and 512 at batch 1, 8 and 32),
+    at the shapes of the 0.75 and 1.25 TTA scales (384x384 and 640x640
+    inputs, the hourglass's and the unet's), and
     at odd shapes (an H*W no part size divides, C = 48, C = 100 and a misaligned
     pointer, which take its one-element path); three calls on one input
-    must give bitwise-equal outputs, and the profiler must see one launch
-    per call.
+    must give bitwise-equal outputs and count three launches, and the
+    profiler must see one launch per call.
 [3] Serves the default Config at full width (2-stack hourglass, 128
     channels, 512x512, seeded random weights) through `build_infer_fn` and
     `Predictor`, and checks that the kernel served the backbone and the mask
@@ -69,6 +71,23 @@
     0.02.  Every run must launch the GroupNorm kernel.  Times TTA img/s (3
     scales + flip, batch 8, bf16: median of 5 repeats with min and max) and
     s per 2048x2048 slide (a 4x4 mosaic of the 16 images, 25 tiles), bf16.
+[11] The other backbones, norms and decoders.  (a) The unet quality flagship
+    (assets_torch/unet_ema: 128 channels, hg_depth 4, GroupNorm) through
+    `cli.test` on the 16 images in f32 and bf16, and (b) the heterogeneous
+    ensemble (--weights the unet, --ensemble the hourglass flagship, mean
+    vote) likewise, held against kgtpu's committed runs
+    (assets_torch/kgtpu_reference_unet.npz) with [8]'s gates.  (c) The
+    unet's batch-32 512x512 e2e call with random weights: label maps against
+    the plain GroupNorm (>= 0.98 of pixels equal), img/s as the median of 5
+    repeats with min and max, and the GroupNorm kernel at every shape of the
+    call (C up to 512).  (d) resnet_fpn, hourglass_fast, inter_inject,
+    norm=batch and --decode centernet at full width, batch 8, 512x512, random
+    weights: served with the kernel and with the plain GroupNorm (>= 0.98 of
+    label pixels equal; norm=batch runs no GroupNorm and is served twice,
+    bitwise equal), then 5 train steps with a finite loss that falls.  (e)
+    remat on the default hourglass: 3 steps with and without it give the
+    same losses (rtol 1e-5) at a lower peak memory, and with norm=batch the
+    same running stats.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -142,6 +161,15 @@ GN_MORE = ([((1, *lvl), False) for lvl in GN_LEVELS]
 # inputs, B = 8): the backbone's first and second levels and its deepest
 GN_TTA_SHAPES = [(8, 64, 192, 192), (8, 128, 96, 96), (8, 128, 6, 6),
                  (8, 64, 320, 320), (8, 128, 160, 160), (8, 128, 10, 10)]
+# the unet's levels at 512x512 beyond the hourglass's (C = 256 at 64x64, 512
+# at 32, 16 and 8), resnet_fpn's stride-2 Residual at 128x128, and the unet's
+# levels at the 0.75 and 1.25 TTA scales
+GN_UNET_LEVELS = [(256, 64, 64), (512, 32, 32), (512, 16, 16), (512, 8, 8)]
+GN_BACKBONE_SHAPES = ([(b, *lvl) for b in (1, 8, 32) for lvl in GN_UNET_LEVELS]
+                      + [(8, 64, 128, 128)]
+                      + [(8, 256, 48, 48), (8, 512, 24, 24), (8, 512, 12, 12), (8, 512, 6, 6),
+                         (8, 256, 80, 80), (8, 512, 40, 40), (8, 512, 20, 20),
+                         (8, 512, 10, 10)])
 TIMED_SHAPE = (32, 128, 128, 128)
 # phase [10]: TTA, ensemble and tiling with the flagship
 TTA_RUNS = {   # name: (data, test.py's flags beside --weights and the data dir, side)
@@ -154,6 +182,22 @@ TTA_RUNS = {   # name: (data, test.py's flags beside --weights and the data dir,
 SLIDE_PIXELS_OFF_TOL = 64   # label-map pixels per 1024x1024 slide, f32 CLI run
 TTA_REPEATS = 5
 TTA_PHASE_S = 180           # phase [10]'s budget
+# phase [11]: the other backbones, norms and decoders
+UNET_RUNS = {   # name: test.py's flags beside --weights unet_ema and the data dir
+    "unet": ["--use_ema", "--batch_size", "8"],
+    "ensemble": ["--use_ema", "--ensemble", os.path.join(ASSETS, "flagship_ema"),
+                 "--tta_vote", "mean", "--test_scales", "1.0", "--batch_size", "8"],
+}
+VARIANTS = {    # name: (ModelConfig fields, GroupConfig fields)
+    "resnet_fpn": ({"backbone": "resnet_fpn"}, {}),
+    "hourglass_fast": ({"backbone": "hourglass_fast"}, {}),
+    "inter_inject": ({"inter_inject": True}, {}),
+    "norm_batch": ({"norm": "batch"}, {}),
+    "centernet": ({}, {"method": "centernet"}),
+}
+VARIANT_STEPS = 5
+REMAT_STEPS = 3
+BACKBONES_PHASE_S = 150     # phase [11]'s budget
 
 
 def require(cond, msg: str) -> None:
@@ -179,28 +223,41 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(torch, fn, names, launches_per_call: int, iters: int = 20) -> float:
+def kernel_device_ms(torch, fn, names, launches_per_call: int, launched,
+                     iters: int = 20) -> float:
     """Device time per call of `fn` spent in the kernels whose names hold
-    one of `names`, from torch.profiler over `iters` calls; fails unless
-    each call launched them `launches_per_call` times.  The profiler has
-    been seen to drop a kernel record now and then, so a count that differs
-    is measured once more before it fails."""
+    one of `names`, from torch.profiler over `iters` calls.  In every
+    window the wrapper's own count (`launched()`) must rise by
+    `launches_per_call` a call, or this fails at once: a kernel that skips
+    a launch is never measured again.  The profiler then has to see as many
+    kernel records.  It has been seen to keep too few (2 of 20 missing in
+    two windows in a row; after [10]'s profiled call, the first window of
+    each later measurement keeps 0 or 4 device records of any kind) while
+    the wrapper's count was whole, so a shortfall that is the profiler's
+    alone is measured up to four more times before it fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(2):
+    want, attempts = iters * launches_per_call, 5
+    for attempt in range(attempts):
+        before = launched()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type != torch.autograd.DeviceType.CPU
-                and any(n in e.key for n in names)]
+        made = launched() - before
+        require(made == want, f"the wrapper launched {names} {made} times in {iters} calls, "
+                f"want {want}")
+        device = [e for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CPU]
+        rows = [e for e in device if any(n in e.key for n in names)]
         count = sum(e.count for e in rows)
-        if count == iters * launches_per_call:
+        if count == want:
             return sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / iters / 1e3
-        log(f"  profiler saw {count} launches of {names} in {iters} calls, want "
-            f"{iters * launches_per_call}" + ("; measuring again" if attempt == 0 else ""))
+        log(f"  profiler saw {count} launches of {names} in {iters} calls, want {want}; "
+            f"the wrapper launched all {made}; device records of any kind in the window: "
+            f"{sum(e.count for e in device)}"
+            + ("; measuring again" if attempt < attempts - 1 else ""))
     require(False, f"profiler saw {count} launches of {names} in {iters} calls")
 
 
@@ -222,7 +279,8 @@ def phase_kernel_vs_plain(torch, gn) -> dict:
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
-    for shape, misalign in [(s, False) for s in GN_SHAPES + GN_TTA_SHAPES] + GN_MORE:
+    for shape, misalign in ([(s, False) for s in GN_SHAPES + GN_TTA_SHAPES + GN_BACKBONE_SHAPES]
+                            + GN_MORE):
         c = shape[1]
         groups = gn.num_groups(c)
         w = torch.randn(c, device="cuda", generator=g) * 0.2 + 1.0
@@ -235,9 +293,12 @@ def phase_kernel_vs_plain(torch, gn) -> dict:
                     and (x.data_ptr() % 16 != 0) == misalign, "test input layout")
             errs = []
             for relu in (False, True):
+                before = gn.launches
                 runs = [gn.group_norm_relu(x, w, b, groups, relu) for _ in range(3)]
                 want = gn.group_norm_relu_reference(x, w, b, groups, relu)
                 torch.cuda.synchronize()
+                require(gn.launches == before + 3, f"{gn.launches - before} launches in 3 "
+                        f"calls at {shape} {dtype}")
                 got = runs[0]
                 require(got.dtype == x.dtype and got.shape == x.shape, "kernel output dtype/shape")
                 require(got.is_contiguous(memory_format=torch.channels_last),
@@ -266,7 +327,7 @@ def phase_kernel_vs_plain(torch, gn) -> dict:
     wl, bl = w.to(torch.bfloat16), b.to(torch.bfloat16)
     ms = cuda_time_ms(lambda: gn.group_norm_relu(x, w, b, 32, True))
     device_ms = kernel_device_ms(torch, lambda: gn.group_norm_relu(x, w, b, 32, True),
-                                 ("group_norm_kernel",), launches_per_call=1)
+                                 ("group_norm_kernel",), 1, lambda: gn.launches)
     plain_ms = cuda_time_ms(lambda: gn.group_norm_relu_reference(x, w, b, 32, True))
     lib_ms = cuda_time_ms(lambda: torch.relu(F.group_norm(x, 32, wl, bl, eps=gn.EPS)))
     bound_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
@@ -309,7 +370,7 @@ def gn_per_shape(torch, gn, counts: dict) -> list:
         w, b = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
         call = lambda: gn.group_norm_relu(x, w, b, gn.num_groups(c), True)
         ms = cuda_time_ms(call)
-        dev = kernel_device_ms(torch, call, ("group_norm_kernel",), launches_per_call=1)
+        dev = kernel_device_ms(torch, call, ("group_norm_kernel",), 1, lambda: gn.launches)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(50):
@@ -486,7 +547,7 @@ def phase_gaussian(np, torch, gauss) -> dict:
     kpts, sizes, valid = gaussian_scene(np, torch, 8, 128, 128, 128, [40] * 8, seed=20)
     call = lambda: gauss.render_heatmaps(kpts, sizes, valid, 128, 128)
     ms = cuda_time_ms(call, iters=50)
-    device_ms = kernel_device_ms(torch, call, ("render_kernel",), launches_per_call=1)
+    device_ms = kernel_device_ms(torch, call, ("render_kernel",), 1, lambda: gauss.launches)
     plain_ms = cuda_time_ms(lambda: render_heatmaps_batch(kpts, sizes, valid, 128, 128))
     bound_ms, bound_by, exps = gaussian_bound_ms(torch, kpts, sizes, valid, 128, 128)
     log(f"  timed [8,128,128,5], N=128, 40 valid/img: wrapper {ms:.4f} ms, kernel device "
@@ -1110,6 +1171,228 @@ def phase_tta(np, torch, gn, smi: str) -> dict:
             "tta_phase_s": phase_s}
 
 
+def unet_cli_runs(np, torch, gn) -> dict:
+    """[11] (a) and (b): the unet flagship alone and in the heterogeneous
+    ensemble through cli.test, f32 and bf16, against kgtpu's committed runs."""
+    from kgtpu_torch.cli import test as test_cli
+    from kgtpu_torch.cli.eval import metrics as eval_metrics
+    from kgtpu_torch.cli.eval import records
+    from kgtpu_torch.data.png import read_png
+    ref = np.load(os.path.join(ASSETS, "kgtpu_reference_unet.npz"))
+    ref_metrics = json.loads(str(ref["metrics_json"]))
+    ids = [str(i) for i in ref["ids"]]
+    images = os.path.join(ASSETS, "synthetic_hard", "images")
+    gt = {i: read_png(os.path.join(ASSETS, "synthetic_hard", "labels", f"{i}.png"),
+                      "unchanged").astype(np.int32) for i in ids}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags in UNET_RUNS.items():
+            for dtype in ("float32", "bfloat16"):
+                short = "f32" if dtype == "float32" else "bf16"
+                save = os.path.join(tmp, f"{name}_{dtype}")
+                gn.launches = 0                           # this path's run
+                t = time.perf_counter()
+                rc = test_cli.main(["--dataset", "folder", "--data_dir", images, "--weights",
+                                    os.path.join(ASSETS, "unet_ema"), "--compute_dtype", dtype,
+                                    "--save_dir", save] + flags)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches = gn.launches
+                with open(os.path.join(save, "detections.json")) as f:
+                    det = {r["id"]: r for r in json.load(f)["images"]}
+                require(rc == 0 and sorted(det) == sorted(ids), f"cli.test {name} {dtype} failed")
+                m = eval_metrics(records(save, gt, 512))
+                want = ref_metrics[f"{name}_{dtype}"]
+                counts = np.array([det[i]["num_instances"] for i in ids])
+                dcount = counts - ref[f"counts_{name}_{dtype}"]
+                off = [int((read_png(os.path.join(save, f"{i}_label.png"), "unchanged")
+                            != ref[f"labels_{name}_{dtype}"][k]).sum()) for k, i in enumerate(ids)]
+                dmap = m["mAP_dsb2018"] - want["mAP_dsb2018"]
+                log(f"  {name} {dtype}: mAP_dsb2018 {m['mAP_dsb2018']:.6f} (kgtpu "
+                    f"{want['mAP_dsb2018']:.6f}, diff {dmap:+.6f}, tol {MAP_TOL[dtype]}); AP_coco "
+                    f"{m['AP_coco']:.6f} (kgtpu {want['AP_coco']:.6f}), AJI {m['AJI']:.6f}, PQ "
+                    f"{m['PQ']:.6f}")
+                log(f"    instances {counts.tolist()}, largest count diff "
+                    f"{int(np.abs(dcount).max())}, label-map pixels off kgtpu's: max {max(off)} "
+                    f"of {512 * 512}, equal {off.count(0)}/16; GroupNorm launches {launches}; "
+                    f"CLI wall {wall:.2f} s")
+                require(launches > 0, f"{name} {dtype} did not launch the GroupNorm kernel")
+                require(abs(dmap) <= MAP_TOL[dtype], f"{name} {dtype} mAP_dsb2018 "
+                        f"{m['mAP_dsb2018']} is off kgtpu's by {dmap}")
+                if dtype == "float32":
+                    require(not dcount.any(), f"{name} f32 instance counts off kgtpu's: "
+                            f"{dcount.tolist()}")
+                    require(max(off) <= PIXELS_OFF_TOL, f"{name} f32 label maps off kgtpu's "
+                            f"by {off} pixels (at most {PIXELS_OFF_TOL} each)")
+                out.update({f"{name}_mAP_dsb2018_{short}": m["mAP_dsb2018"],
+                            f"{name}_mAP_diff_{short}": dmap, f"{name}_metrics_{short}": m,
+                            f"{name}_count_diff_max_{short}": int(np.abs(dcount).max()),
+                            f"{name}_pixels_off_max_{short}": max(off),
+                            f"{name}_cli_wall_s_{short}": wall,
+                            f"{name}_gn_launches_{short}": launches})
+    return out
+
+
+def unet_e2e(np, torch, gn) -> dict:
+    """[11] (c): the unet flagship's architecture with seeded random weights
+    on the bench's pinned batch-32 512x512 call: kernel vs plain GroupNorm,
+    e2e img/s, and the kernel at every shape of the call."""
+    from kgtpu_torch import checkpoint
+    from kgtpu_torch.cli.bench import e2e_bench, pinned_call, seeded_dets
+    from kgtpu_torch.config import Config
+    from kgtpu_torch.models import build_model
+    stored = checkpoint.decode_config(checkpoint.restore_extra(os.path.join(ASSETS, "unet_ema")))
+    cfg = Config(model=stored.model)
+    model = build_model(cfg.model, seed=0, device="cuda")
+    rng = np.random.default_rng(11)
+    imgs = torch.from_numpy(rng.integers(0, 256, (E2E_BATCH, 512, 512, 3), dtype=np.uint8)).cuda()
+    dets = seeded_dets(cfg, E2E_BATCH, seed=12)
+    gn.launches = 0                                    # the unet's e2e call
+    found, out = pinned_call(model, cfg, imgs, dets)
+    torch.cuda.synchronize()
+    launches = gn.launches
+    model.use_plain_norm(True)
+    found_p, plain = pinned_call(model, cfg, imgs, dets)
+    model.use_plain_norm(False)
+    require(gn.launches == launches, "the plain run launched the kernel")
+    check_infer_output(torch, out, E2E_BATCH, cfg, 512, 512)
+    same = float((plain["label_map"] == out["label_map"]).float().mean())
+    log(f"  unet ({sum(p.numel() for p in model.parameters())} params, {cfg.model.compute_dtype}) "
+        f"batch {E2E_BATCH}: GroupNorm launches {launches}; label-map pixels equal to the plain "
+        f"GroupNorm run {same:.5f} (floor {LABEL_AGREEMENT_FLOOR}); same detector valid slots "
+        f"{bool(torch.equal(found.valid, found_p.valid))}")
+    require(launches >= 23 and same >= LABEL_AGREEMENT_FLOOR,
+            "the unet's e2e call disagrees with the plain GroupNorm or skipped the kernel")
+    e2e = e2e_bench(model, cfg, batch=E2E_BATCH, ndets=PINNED_DETS)
+    log(f"  unet e2e {e2e['img_per_s']:.2f} img/s, median of {len(e2e['img_per_s_all'])} repeats "
+        f"(min {e2e['img_per_s_min']:.2f}, max {e2e['img_per_s_max']:.2f}), "
+        f"{e2e['flops_per_img'] / 1e9:.2f} GFLOP/img")
+    log("  GroupNorm kernel at the shapes of one unet e2e call (bf16, ReLU):")
+    rows = gn_per_shape(torch, gn, gn_shape_counts(lambda: pinned_call(model, cfg, imgs, dets)))
+    return {"unet_e2e_img_s": e2e["img_per_s"], "unet_e2e_img_s_min": e2e["img_per_s_min"],
+            "unet_e2e_img_s_max": e2e["img_per_s_max"], "unet_e2e_img_s_all": e2e["img_per_s_all"],
+            "unet_gflops_per_img": e2e["flops_per_img"] / 1e9,
+            "unet_label_agreement_vs_plain": same, "unet_e2e_gn_launches": launches,
+            "gn_per_shape_unet_b32": rows}
+
+
+def variant_runs(np, torch, gn, gauss) -> dict:
+    """[11] (d): each variant at full width served with the kernel and with
+    the plain GroupNorm on a pinned batch of 8, then VARIANT_STEPS train
+    steps on one batch."""
+    from kgtpu_torch import infer, train_lib
+    from kgtpu_torch.cli.bench import pinned_call, seeded_dets
+    from kgtpu_torch.config import Config
+    from kgtpu_torch.models import build_model
+    base = Config()
+    host = train_batch(np, base, 8, seed=21)
+    batch = train_lib.batch_to_device(host, "cuda")
+    out = {}
+    for name, (mfields, gfields) in VARIANTS.items():
+        cfg = base.replace(model=dataclasses.replace(base.model, **mfields),
+                           group=dataclasses.replace(base.group, **gfields),
+                           train=dataclasses.replace(base.train, lr_warmup_steps=1))
+        model = build_model(cfg.model, seed=0, device="cuda")
+        dets = seeded_dets(cfg, 8, seed=22)
+        gn.launches = gauss.launches = 0                  # this variant's serving
+        served = infer.build_infer_fn(model, cfg)(batch["image"])
+        found, pinned = pinned_call(model, cfg, batch["image"], dets)
+        torch.cuda.synchronize()
+        launches = gn.launches
+        check_infer_output(torch, served, 8, cfg, 512, 512)
+        check_infer_output(torch, pinned, 8, cfg, 512, 512)
+        if cfg.model.norm == "batch":
+            found2, again = pinned_call(model, cfg, batch["image"], dets)
+            agree = float((again["label_map"] == pinned["label_map"]).float().mean())
+            require(launches == 0 and torch.equal(again["label_map"], pinned["label_map"])
+                    and torch.equal(found2.valid, found.valid),
+                    f"{name}: two serving runs differ, or a GroupNorm ran")
+        else:
+            model.use_plain_norm(True)
+            _, plain = pinned_call(model, cfg, batch["image"], dets)
+            model.use_plain_norm(False)
+            agree = float((plain["label_map"] == pinned["label_map"]).float().mean())
+            require(launches > 0 and agree >= LABEL_AGREEMENT_FLOOR,
+                    f"{name}: kernel vs plain label maps {agree} or no launch ({launches})")
+        del model
+        state = train_lib.create_train_state(cfg, seed=0)
+        step = train_lib.make_train_step(cfg)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        gn.launches = gauss.launches = 0                  # this variant's training
+        losses = [float(step(state, batch, g)["loss"]) for _ in range(VARIANT_STEPS)]
+        torch.cuda.synchronize()
+        log(f"  {name}: served (GroupNorm launches {launches}, label pixels equal to the "
+            f"{'second run' if cfg.model.norm == 'batch' else 'plain GroupNorm'} {agree:.5f}, "
+            f"detections {int(served['valid'].sum())}); {VARIANT_STEPS} train steps, loss "
+            + " ".join(f"{v:.4f}" for v in losses)
+            + f"; Gaussian launches {gauss.launches}, GroupNorm {gn.launches}")
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"{name}: the loss did not fall: {losses}")
+        require(gauss.launches == VARIANT_STEPS and gn.launches == 0,
+                f"{name}: training launched Gaussian {gauss.launches}, GroupNorm {gn.launches}")
+        out[name] = {"gn_launches_serving": launches, "label_agreement": agree,
+                     "losses": losses, "gauss_launches_train": gauss.launches}
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def remat_runs(np, torch) -> dict:
+    """[11] (e): REMAT_STEPS steps of the default hourglass (batch 8) with and
+    without remat from one init, with GroupNorm and with BatchNorm."""
+    from kgtpu_torch import train_lib
+    from kgtpu_torch.config import Config
+    base = Config()
+    base = base.replace(train=dataclasses.replace(base.train, lr_warmup_steps=1))
+    batch = train_lib.batch_to_device(train_batch(np, base, 8, seed=23), "cuda")
+    out = {}
+    for norm in ("group", "batch"):
+        runs = {}
+        for remat in (False, True):
+            cfg = base.replace(model=dataclasses.replace(base.model, norm=norm, remat=remat))
+            state = train_lib.create_train_state(cfg, seed=0)
+            step = train_lib.make_train_step(cfg)
+            g = torch.Generator(device="cuda").manual_seed(2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = [float(step(state, batch, g)["loss"]) for _ in range(REMAT_STEPS)]
+            torch.cuda.synchronize()
+            runs[remat] = (losses, torch.cuda.max_memory_allocated() / 1e9,
+                           [b.clone() for b in state.model.buffers()])
+            del state
+            torch.cuda.empty_cache()
+        (l0, p0, s0), (l1, p1, s1) = runs[False], runs[True]
+        stats_err = max([float((a - b).abs().max()) for a, b in zip(s0, s1)] or [0.0])
+        log(f"  remat, norm={norm}: losses {[round(v, 6) for v in l1]} vs without "
+            f"{[round(v, 6) for v in l0]}; peak {p1:.3f} GB vs {p0:.3f} GB; running stats "
+            f"{len(s0)} buffers, max diff {stats_err:.3g}")
+        require(np.allclose(l1, l0, rtol=TRAIN_LOSS_RTOL, atol=0),
+                f"remat ({norm}) changed the losses: {l1} vs {l0}")
+        require(p1 < p0, f"remat ({norm}) did not lower the peak memory: {p1} vs {p0} GB")
+        require(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in zip(s0, s1)),
+                f"remat ({norm}) moved the running stats differently")
+        require((norm == "batch") == bool(s0), "BatchNorm buffers missing or unexpected")
+        out[norm] = {"losses": l1, "losses_no_remat": l0, "peak_gb": p1,
+                     "peak_gb_no_remat": p0, "stats_max_diff": stats_err}
+    return out
+
+
+def phase_backbones(np, torch, gn, gauss) -> dict:
+    """[11]: (a)-(e) of the module docstring."""
+    t_phase = time.perf_counter()
+    out = unet_cli_runs(np, torch, gn)
+    torch.cuda.empty_cache()
+    out.update(unet_e2e(np, torch, gn))
+    torch.cuda.empty_cache()
+    out["variants"] = variant_runs(np, torch, gn, gauss)
+    out["remat"] = remat_runs(np, torch)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase [11]: {phase_s:.1f} s (budget {BACKBONES_PHASE_S} s)")
+    require(phase_s <= BACKBONES_PHASE_S, f"phase [11] took {phase_s:.0f} s")
+    out["backbones_phase_s"] = phase_s
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1287,6 +1570,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     ttastats = phase_tta(np, torch, gn, smi)
 
+    # 11. the other backbones, norms and decoders
+    log("[11] the unet flagship and the heterogeneous ensemble through cli.test (f32, bf16) "
+        "against kgtpu's reference; the unet's batch-32 e2e call; resnet_fpn, hourglass_fast, "
+        "inter_inject, norm=batch and centernet served and trained at full width; remat")
+    torch.cuda.empty_cache()
+    bstats = phase_backbones(np, torch, gn, gauss)
+
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
                "e2e_img_per_s_all": e2e["img_per_s_all"], "e2e_batch": E2E_BATCH,
@@ -1303,7 +1593,7 @@ def main() -> int:
                "gn_per_shape_b32": gn_rows,
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
-               **tstats, **fstats, **cstats, **ttastats, "card": smi}
+               **tstats, **fstats, **cstats, **ttastats, **bstats, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     kernel = {"name": "group_norm_relu", "route": "cuda",
@@ -1318,7 +1608,12 @@ def main() -> int:
                                     **{f"{name} {short} [10]": ttastats[f"{name}_gn_launches_{short}"]
                                        for short in ("f32", "bf16") for name in TTA_RUNS},
                                     "TTA timed batch [10]": ttastats["tta_gn_launches_per_batch"],
-                                    "2048 slide [10]": ttastats["slide_2048_gn_launches"]},
+                                    "2048 slide [10]": ttastats["slide_2048_gn_launches"],
+                                    **{f"{name} {short} [11]": bstats[f"{name}_gn_launches_{short}"]
+                                       for short in ("f32", "bf16") for name in UNET_RUNS},
+                                    "unet e2e b32 [11]": bstats["unet_e2e_gn_launches"],
+                                    **{f"{name} serve [11]": v["gn_launches_serving"]
+                                       for name, v in bstats["variants"].items()}},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],
@@ -1329,7 +1624,9 @@ def main() -> int:
                "replaces": "kgtpu/ops/pallas/gaussian.py:74",
                "launches": tstats["gauss_launches"],
                "launches_by_phase": {"train [6]": tstats["gauss_launches"],
-                                     "train CLI [9]": cstats["train_cli_gauss_launches"]},
+                                     "train CLI [9]": cstats["train_cli_gauss_launches"],
+                                     **{f"{name} train [11]": v["gauss_launches_train"]
+                                        for name, v in bstats["variants"].items()}},
                "max_abs_err": gstats["max_abs_err"],
                "ms": gstats["ms"], "device_ms": gstats["device_ms"],
                "plain_ms": gstats["plain_ms"],

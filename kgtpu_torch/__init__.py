@@ -2,7 +2,9 @@
 segmentation), for NVIDIA Hopper GPUs.
 
 The JAX package `kgtpu` is the reference; this package imports nothing of it.
-Ported so far: two-stage inference with hourglass backbones, single-scale
+Ported so far: two-stage inference with every backbone (the hourglass
+family, unet, resnet_fpn), norm (GroupNorm, BatchNorm) and decoder
+(keypoint graph, centernet) of kgtpu, single-scale
 (`infer.build_infer_fn`, `predictor.Predictor`), with multi-scale and flip
 TTA and checkpoint ensembles (`build_multiscale_fn`, `build_ensemble_fn`)
 and over whole slides (`build_tiled_infer_fn`), whose GroupNorm(+ReLU) runs
@@ -15,7 +17,8 @@ augmentation, batch iterator), and the train, test, eval and bench CLIs
 
 Layout mirrors kgtpu/:
   config     — the config dataclasses, their JSON, the train/test/eval flags
-  models/    — hourglass backbone, heads, mask head, KGNet
+  models/    — hourglass, unet and resnet_fpn backbones, norms, heads,
+               mask head, KGNet
   ops/       — preprocess, decode, group, nms (and the TTA merge), roi,
                tiling, targets, groupnorm and gaussian (kernel wrappers),
                _cuda (nvcc build + ctypes load)

@@ -5,7 +5,10 @@ A checkpoint is a directory `<save_dir>/model_<epoch>` holding
   tensors.pt  a `torch.save` of tensors only, read back with
               `torch.load(weights_only=True)`:
                 {"params": {name: tensor},          the model's state_dict
-                 "ema":    {name: tensor},          when the run keeps an EMA
+                                                    (BatchNorm running stats
+                                                    included)
+                 "ema":    {name: tensor},          the parameters' EMA, when
+                                                    the run keeps one
                  "opt":    {"mu": {name: tensor}, "nu": {name: tensor},
                             "count": 0-d int64},    the `Optimizer`'s state
                  "step": 0-d int64, "epoch": 0-d int64}
@@ -258,10 +261,14 @@ def restore(path_or_dir: str, state=None) -> dict:
 
 def restore_bundle(path_or_dir: str, use_ema: bool = False) -> tuple[dict, dict]:
     """(state_dict, extra) for inference: the EMA parameters when use_ema and
-    the checkpoint has them, else the parameters."""
+    the checkpoint has them, else the parameters.  The EMA covers parameters
+    only: a BatchNorm model's running stats come from the raw state_dict
+    either way, as kgtpu pairs its EMA params with the live batch_stats."""
     payload, extra = _read(resolve(path_or_dir))
-    params = payload.get("ema") if use_ema else None
-    return (params if params is not None else payload["params"]), extra
+    ema = payload.get("ema") if use_ema else None
+    if ema is None:
+        return payload["params"], extra
+    return {**payload["params"], **ema}, extra
 
 
 def restore_extra(path_or_dir: str) -> dict:

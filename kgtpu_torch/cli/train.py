@@ -28,10 +28,12 @@ checkpoints and the best one.  --resume [latest|path] restores parameters,
 optimizer, step and EMA and continues after the saved epoch; --init_from
 loads the weights only.
 
-Paths that are not ported exit naming their ROADMAP item: --steps_per_dispatch
-> 1, --ngpus > 1 and --coordinator (9); --remat, other backbones, BatchNorm,
---inter_inject and --decode centernet (8); --profile_dir, --debug_nans and
---rss_limit_gb > 0 (10).  kgtpu's RSS watchdog (default -1, "auto") is off:
+Every backbone (--backbone), norm (--norm batch keeps running stats, which
+checkpoints carry and evaluation uses beside the raw or EMA weights),
+--inter_inject, --remat and --decode centernet train.  Paths that are not
+ported exit naming their ROADMAP item: --steps_per_dispatch > 1, --ngpus > 1
+and --coordinator (9); --profile_dir, --debug_nans and --rss_limit_gb > 0
+(10).  kgtpu's RSS watchdog (default -1, "auto") is off:
 the port has none.
 """
 
@@ -59,19 +61,12 @@ LOG_EVERY = 20              # steps
 LOADER_WORKERS = 4          # `batch_iterator`'s default pool
 
 
-def _refuse_unported(args, cfg: Config) -> None:
-    from kgtpu_torch.models.kgnet import HOURGLASS_BACKBONES
+def _refuse_unported(args) -> None:
     unported = [
         (args.steps_per_dispatch > 1,
          "--steps_per_dispatch > 1 (multi-step dispatch) is ROADMAP item 9"),
         (args.num_devices > 1, "--ngpus > 1 (data-parallel training) is ROADMAP item 9"),
         (bool(args.coordinator), "--coordinator (multi-host training) is ROADMAP item 9"),
-        (args.remat, "--remat is ROADMAP item 8"),
-        (cfg.model.backbone not in HOURGLASS_BACKBONES,
-         f"--backbone {cfg.model.backbone} is ROADMAP item 8"),
-        (cfg.model.norm != "group", f"--norm {cfg.model.norm} is ROADMAP item 8"),
-        (cfg.model.inter_inject, "--inter_inject is ROADMAP item 8"),
-        (cfg.group.method != "kg", f"--decode {cfg.group.method} is ROADMAP item 8"),
         (bool(args.profile_dir), "--profile_dir is ROADMAP item 10"),
         (args.debug_nans, "--debug_nans is ROADMAP item 10"),
         (args.rss_limit_gb > 0, "--rss_limit_gb > 0 (the host-RSS watchdog) is "
@@ -136,12 +131,16 @@ class HeldOutEval:
         self.model = build_model(cfg.model, seed=None, device=device)
         self.infer = build_infer_fn(self.model, cfg, device=device)
 
-    def __call__(self, weights: list[torch.Tensor]) -> tuple[dict, np.ndarray]:
+    def __call__(self, weights: list[torch.Tensor], buffers: list[torch.Tensor]
+                 ) -> tuple[dict, np.ndarray]:
         """(metrics, label maps [n, S, S]) of `weights` (in the model's
-        parameter order)."""
+        parameter order) with `buffers` (BatchNorm's running stats, in the
+        model's buffer order; none for GroupNorm)."""
         from kgtpu_torch import evaluate
         with torch.no_grad():
             for dst, src in zip(self.model.parameters(), weights):
+                dst.copy_(src)
+            for dst, src in zip(self.model.buffers(), buffers):
                 dst.copy_(src)
         labs, scs = [], []
         n = len(self.images)
@@ -174,7 +173,7 @@ def run(argv: list[str] | None = None) -> dict:
         with open(args.config) as f:
             base = config_from_json(f.read())
     cfg = config_from_train_args(args, base)
-    _refuse_unported(args, cfg)
+    _refuse_unported(args)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
 
@@ -270,10 +269,13 @@ def run(argv: list[str] | None = None) -> dict:
             t_ev = time.time()
             if held_out is None:
                 held_out = HeldOutEval(cfg, device)
-            val, labs = held_out(params)
+            # the EMA weights are scored with the live running stats, as
+            # kgtpu pairs its EMA params with the state's batch_stats
+            stats = list(state.model.buffers())
+            val, labs = held_out(params, stats)
             labels = {"raw": labs}
             if state.ema is not None:
-                ema_val, labels["ema"] = held_out(state.ema)
+                ema_val, labels["ema"] = held_out(state.ema, stats)
                 val.update({k + "_ema": v for k, v in ema_val.items()})
             summary["eval"] = {"epoch": epoch, "metrics": val, "label_maps": labels}
             log.info("epoch %d held-out eval (%.0fs): %s", epoch, time.time() - t_ev, val)

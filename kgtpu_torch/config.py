@@ -26,21 +26,27 @@ NUM_KP_CLASSES = 5
 class ModelConfig:
     """Backbone + heads."""
 
-    backbone: str = "hourglass"        # the port runs "hourglass" and
-                                       # "hourglass_lite" (same architecture)
+    backbone: str = "hourglass"        # "hourglass" | "hourglass_lite" (the
+                                       # same architecture) | "hourglass_fast"
+                                       # (identity skip at the top level) |
+                                       # "resnet_fpn" | "unet"
     num_stacks: int = 2
     base_channels: int = 128
     hg_depth: int = 4
     head_channels: int = 128
     num_kp_classes: int = NUM_KP_CLASSES
     use_wh_head: bool = True
-    norm: str = "group"                # the port runs "group" only
-    inter_inject: bool = False         # the port runs False only
+    norm: str = "group"                # "group" | "batch" (running stats)
+    inter_inject: bool = False         # prediction feedback between hourglass
+                                       # stacks (needs num_stacks > 1)
     roi_size: int = 32
     mask_size: int = 64
     mask_channels: int = 64
     compute_dtype: str = "bfloat16"    # activations; params stay float32
     param_dtype: str = "float32"
+    remat: bool = False                # recompute each hourglass in backward
+                                       # (torch.utils.checkpoint): less
+                                       # activation memory, more compute
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +74,8 @@ class DataConfig:
 class GroupConfig:
     """Keypoint-graph grouping + NMS thresholds (see kgtpu_torch.ops.group)."""
 
-    method: str = "kg"                 # the port runs "kg" only
+    method: str = "kg"                 # "kg" (keypoint graph) | "centernet"
+                                       # (center + wh head, needs use_wh_head)
     max_peaks_per_class: int = 128
     max_detections: int = 128
     kp_score_thresh: float = 0.1
@@ -187,7 +194,9 @@ def tiny_test_config() -> Config:
 
 def required_divisor(cfg: ModelConfig) -> int:
     """Input sides must be divisible by this: the stride-4 stem times the
-    hourglass's pool/upsample pairs."""
+    backbone's pool/upsample pairs (resnet_fpn: three stride-2 stages)."""
+    if cfg.backbone == "resnet_fpn":
+        return 32
     return 4 * (2 ** cfg.hg_depth)
 
 
@@ -201,12 +210,11 @@ _SECTIONS = {"model": ModelConfig, "data": DataConfig, "group": GroupConfig,
 # kgtpu fields that choose how a run is computed, not what it computes (a run
 # gives the same parameters and outputs whatever their value): the RSS
 # watchdog, the device count and dispatch grouping of data parallelism, the
-# target renderer and the fused norm (one function, two implementations),
-# rematerialisation.
+# target renderer and the fused norm (one function, two implementations).
 NO_EFFECT_FIELDS = frozenset({
     ("train", "rss_limit_gb"), ("train", "num_devices"),
     ("train", "steps_per_dispatch"), ("train", "target_renderer"),
-    ("model", "remat"), ("infer", "fused_norm"),
+    ("infer", "fused_norm"),
 })
 
 
@@ -338,7 +346,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--aug_rotate", type=float, default=0.0,
                    help="random rotation range in +/- degrees")
     p.add_argument("--ema_decay", type=float, default=0.0)
-    p.add_argument("--remat", action="store_true", help="not ported (ROADMAP item 8)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each hourglass's activations in backward "
+                        "(less memory, more compute)")
     p.add_argument("--lr", type=float, default=2.5e-4)
     p.add_argument("--lr_schedule", default="constant", choices=["constant", "cosine"])
     p.add_argument("--num_epochs", type=int, default=100)
@@ -495,7 +505,8 @@ def config_from_train_args(a: argparse.Namespace, base: Config | None = None) ->
                                   save_every_epochs=max(a.save_every, 1),
                                   keep_last=max(a.keep_last, 0),
                                   eval_every_epochs=max(a.eval_every, 0),
-                                  seed=a.seed, ema_decay=a.ema_decay))
+                                  seed=a.seed, ema_decay=a.ema_decay),
+        model=dataclasses.replace(c.model, remat=a.remat))
 
 
 def config_from_test_args(a: argparse.Namespace) -> Config:

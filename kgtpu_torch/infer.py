@@ -4,7 +4,8 @@
 
   images [B, H, W, 3] raw pixels
     -> normalize -> KGNet backbone + heads          (detect_batch)
-    -> decode_peaks -> group_keypoints -> box_nms   (stride coords)
+    -> decode_peaks -> group_keypoints -> box_nms   (stride coords; with
+       group.method "centernet": decode_center_wh -> box_nms)
     -> crop_and_resize(features, boxes) -> mask head, in chunks of
        mask_chunk detection slots, skipping chunks with no valid slot
     -> paste_masks_batch -> per-image instance label maps   (mask_batch)
@@ -32,7 +33,7 @@ import torch
 from kgtpu_torch.config import Config
 from kgtpu_torch.device import resolve_device
 from kgtpu_torch.models import KGNet
-from kgtpu_torch.ops.decode import decode_peaks, gather_at
+from kgtpu_torch.ops.decode import decode_center_wh, decode_peaks, gather_at
 from kgtpu_torch.ops.group import Boxes, group_keypoints
 from kgtpu_torch.ops.nms import box_nms, merge_scales
 from kgtpu_torch.ops.preprocess import normalize_images
@@ -42,13 +43,20 @@ from kgtpu_torch.ops.tiling import (extract_tiles, ownership_mask, ownership_rec
 
 
 def _check_cfg(cfg: Config) -> None:
-    if cfg.group.method != "kg":
-        raise NotImplementedError(
-            f"group.method {cfg.group.method!r} is not ported (kg only)")
+    if cfg.group.method not in ("kg", "centernet"):
+        raise ValueError(f"unknown group.method {cfg.group.method!r}")
+    if cfg.group.method == "centernet" and not cfg.model.use_wh_head:
+        raise ValueError('group.method="centernet" needs model.use_wh_head=True')
 
 
 def decode_batch(cfg: Config, stack: dict) -> Boxes:
     """Last-stack head maps (NHWC f32) -> NMS'd Boxes [B, D] (stride coords)."""
+    if cfg.group.method == "centernet":
+        if "wh" not in stack:
+            raise ValueError('group.method="centernet" needs model.use_wh_head=True')
+        cand = decode_center_wh(stack["hm"], stack["reg"], stack["wh"],
+                                cfg.group.max_detections, cfg.group.score_thresh)
+        return box_nms(cand, cfg.group.nms_iou)
     peaks = decode_peaks(stack["hm"], stack["reg"], cfg.group.max_peaks_per_class)
     kp_wh = None
     if cfg.group.size_prune > 0 and "wh" in stack:

@@ -13,6 +13,9 @@ instead, which is what the JAX train step runs (flax `nn.GroupNorm` under
 XLA; `Norm("group_fused")` is inference-only there too).  The choice follows
 `nn.Module.training` alone, and the kernel's wrapper raises if autograd
 would record a call.
+
+BatchNorm (`norm="batch"`) is written out on tensors with flax's semantics
+(see `BatchNorm`); it runs no kernel, on any device.
 """
 
 from __future__ import annotations
@@ -82,13 +85,68 @@ class GroupNorm(nn.Module):
                                self.relu)
 
 
-class ConvBlock(nn.Module):
-    """conv -> GroupNorm -> ReLU."""
+class BatchNorm(nn.Module):
+    """flax 0.12's nn.BatchNorm as `kgtpu/models/blocks.py::Norm("batch")`
+    builds it, with an optional fused ReLU: momentum 0.99, eps 1e-5,
+    statistics over (N, H, W), output in the input dtype.
 
-    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
+    Training mode normalises with the batch's mean and its biased variance
+    E[x^2] - E[x]^2 (clamped at 0), and moves the running buffers towards
+    them: r = 0.99 r + 0.01 stat (torch's BatchNorm2d counts its momentum
+    the other way and keeps the unbiased variance, hence this module).  Eval
+    mode normalises with the running buffers.  Statistics and the
+    normalisation are computed in at least f32 (flax's
+    force_float32_reductions).  `update_stats` off (set for
+    the recomputation of a rematerialised forward) normalises with the
+    batch's statistics without moving the buffers."""
+
+    momentum = 0.99
+    eps = 1e-5
+
+    def __init__(self, channels: int, relu: bool = False):
+        super().__init__()
+        self.relu = relu
+        self.update_stats = True
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                    self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        if self.relu:
+            y = torch.relu(y)
+        return y.to(x.dtype)
+
+
+def make_norm(kind: str, channels: int, relu: bool = False) -> nn.Module:
+    """The norm of `kind` ("group" or "batch") over `channels`."""
+    if kind == "group":
+        return GroupNorm(channels, relu)
+    if kind == "batch":
+        return BatchNorm(channels, relu)
+    raise ValueError(f"unknown norm kind: {kind}")
+
+
+class ConvBlock(nn.Module):
+    """conv -> norm -> ReLU."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 norm: str = "group"):
         super().__init__()
         self.conv = Conv(cin, cout, kernel, stride)
-        self.norm = GroupNorm(cout, relu=True)
+        self.norm = make_norm(norm, cout, relu=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.conv(x))
@@ -98,15 +156,15 @@ class Residual(nn.Module):
     """conv3-conv3 residual block with a projection skip when the shape
     changes."""
 
-    def __init__(self, cin: int, cout: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, stride: int = 1, norm: str = "group"):
         super().__init__()
-        self.conv_block = ConvBlock(cin, cout, 3, stride)
+        self.conv_block = ConvBlock(cin, cout, 3, stride, norm)
         self.conv = Conv(cout, cout, 3)
-        self.norm = GroupNorm(cout)
+        self.norm = make_norm(norm, cout)
         self.project = cin != cout or stride != 1
         if self.project:
             self.skip_conv = Conv(cin, cout, 1, stride)
-            self.skip_norm = GroupNorm(cout)
+            self.skip_norm = make_norm(norm, cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.norm(self.conv(self.conv_block(x)))

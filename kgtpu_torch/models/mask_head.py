@@ -14,10 +14,11 @@ from kgtpu_torch.models.blocks import Conv, ConvBlock
 
 
 class MaskHead(nn.Module):
-    def __init__(self, cin: int, channels: int = 64, num_convs: int = 3):
+    def __init__(self, cin: int, channels: int = 64, num_convs: int = 3,
+                 norm: str = "group"):
         super().__init__()
         self.convs = nn.Sequential(*(
-            ConvBlock(cin if i == 0 else channels, channels, 3)
+            ConvBlock(cin if i == 0 else channels, channels, 3, norm=norm)
             for i in range(num_convs)))
         # conv_transpose2d layout [in, out, kh, kw]
         self.up_weight = nn.Parameter(torch.zeros(channels, channels, 2, 2))

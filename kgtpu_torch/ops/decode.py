@@ -1,6 +1,7 @@
 """Peak decoder: heatmaps -> sub-pixel keypoint peaks.  Counterpart of
 `kgtpu/ops/decode.py::decode_peaks` (default path: plateau dedup + blocked
-top-k), batched over a leading axis.
+top-k) and `decode_center_wh` (the centernet decode), batched over a leading
+axis.
 
   1. 3x3 max-pool NMS keeps pixels equal to their window max; among equal
      survivors in one window only the lowest row-major index stays, so each
@@ -93,6 +94,27 @@ def decode_peaks(hm: torch.Tensor, reg: torch.Tensor | None, k: int,
     ys = ys.clamp(0.0, h - 1.0)
     return Peaks(scores=scores, coords=torch.stack([xs, ys], dim=-1),
                  indices=idx)
+
+
+def decode_center_wh(hm: torch.Tensor, reg: torch.Tensor | None, wh: torch.Tensor,
+                     k: int, score_thresh: float = 0.0):
+    """CenterNet decode: each center peak becomes a box of the size the wh
+    head predicts there.  hm [B, H, W, C] logits (the last channel is the
+    center class, the others are ignored), reg [B, H, W, 2] offsets or
+    None, wh [B, H, W, 2] sizes (w, h) in stride units -> Boxes [B, k]
+    (stride coords), scores zeroed and valid false at or below
+    `score_thresh`."""
+    from kgtpu_torch.ops.group import Boxes   # ops.group imports this module
+    c = hm.shape[-1]
+    peaks = decode_peaks(hm[..., c - 1:c], reg, k)
+    sc = peaks.scores[:, 0]                               # [B, K]
+    xy = peaks.coords[:, 0]                               # [B, K, 2]
+    half = torch.clamp(gather_at(wh, peaks.indices)[:, 0], min=0.0) * 0.5
+    boxes = torch.stack([xy[..., 0] - half[..., 0], xy[..., 1] - half[..., 1],
+                         xy[..., 0] + half[..., 0], xy[..., 1] + half[..., 1]], dim=-1)
+    valid = sc > score_thresh
+    return Boxes(boxes=boxes, scores=torch.where(valid, sc, torch.zeros_like(sc)),
+                 valid=valid)
 
 
 def gather_at(maps: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

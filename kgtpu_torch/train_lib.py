@@ -2,7 +2,8 @@
 
   batch (host arrays)  -> `batch_to_device`
   -> normalize + colour jitter -> Gaussian targets (kernel, no gradient)
-  -> KGNet forward in training mode (all stacks' heads)
+  -> KGNet forward in training mode (all stacks' heads; BatchNorm moves its
+     running stats here, and the mask head's in its own forward below)
   -> focal / offset / wh losses averaged over the stacks
   -> r random valid ROIs per image, jittered -> bilinear feature crops
      -> one mask-head call; nearest GT crops of the label map -> mask loss

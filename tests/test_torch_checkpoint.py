@@ -273,8 +273,7 @@ def test_orbax_converter_matches_flax_to_state_dict(tmp_path):
     assert payload["extra"]["max_gt_box_side_px"] == 40.0
     assert payload["extra"]["train_input_size"] == 128.0
     cfg = checkpoint.decode_config(payload["extra"])
-    assert dataclasses.asdict(cfg.model) == {
-        k: v for k, v in dataclasses.asdict(jcfg.model).items() if k != "remat"}
+    assert dataclasses.asdict(cfg.model) == dataclasses.asdict(jcfg.model)
     assert cfg.train.ema_decay == 0.9
 
     port = train_lib.create_train_state(cfg, device="cpu")

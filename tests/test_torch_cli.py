@@ -88,14 +88,12 @@ def test_test_flags_reach_config_like_kgtpu(argv):
     assert dests == jconfig.explicit_cli_dests(jconfig.build_test_parser(), argv)
     stored = jconfig.ModelConfig(backbone="hourglass_lite", num_stacks=1, base_channels=48,
                                  hg_depth=3, roi_size=8, mask_size=16, use_wh_head=False)
-    port_stored = tconfig.ModelConfig(**{k: v for k, v in dataclasses.asdict(stored).items()
-                                         if k != "remat"})
+    port_stored = tconfig.ModelConfig(**dataclasses.asdict(stored))
     merged = tconfig.apply_model_overrides(
         port_stored, tconfig.build_test_parser().parse_args(argv), dests)
     jmerged = jconfig.apply_model_overrides(
         stored, jconfig.build_test_parser().parse_args(argv), dests)
-    assert dataclasses.asdict(merged) == {k: v for k, v in dataclasses.asdict(jmerged).items()
-                                          if k != "remat"}
+    assert dataclasses.asdict(merged) == dataclasses.asdict(jmerged)
 
 
 def test_parsers_take_kgtpu_flags():

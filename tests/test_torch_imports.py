@@ -59,6 +59,8 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.cli.test, kgtpu_torch.cli.eval, kgtpu_torch.cli.bench\n"
         "import kgtpu_torch.cli.train, kgtpu_torch.ops.tiling, kgtpu_torch.ops.nms\n"
         "import kgtpu_torch.ops, kgtpu_torch.ops.roi, kgtpu_torch.ops.decode\n"
+        "import kgtpu_torch.models.unet, kgtpu_torch.models.resnet\n"
+        "import kgtpu_torch.models.hourglass, kgtpu_torch.models.blocks\n"
         "import importlib.util as u\n"
         "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "s.loader.exec_module(u.module_from_spec(s))\n"

@@ -154,8 +154,10 @@ def test_converter_is_strict():
     extra = dict(params, stray={"kernel": np.zeros(3, np.float32)})
     with pytest.raises(ValueError, match="stray"):
         flax_to_state_dict(extra, mcfg)
-    with pytest.raises(NotImplementedError):
-        flax_to_state_dict({"params": params, "batch_stats": {}}, mcfg)
+    # batch stats of a norm the GroupNorm model does not have are not consumed
+    stats = {"mask_head": {"Norm_9": {"BatchNorm_0": {"mean": np.zeros(3, np.float32)}}}}
+    with pytest.raises(ValueError, match="Norm_9"):
+        flax_to_state_dict({"params": params, "batch_stats": stats}, mcfg)
 
 
 def test_random_init_and_plain_switch():
@@ -172,5 +174,5 @@ def test_random_init_and_plain_switch():
         y1 = a.use_plain_norm(True)(x)["feat"]
     # on the CPU the kernel path is the plain version: identical
     assert torch.equal(y0, y1)
-    with pytest.raises(NotImplementedError):
-        KGNet(dataclasses.replace(cfg.model, backbone="unet"))
+    with pytest.raises(ValueError, match="unknown backbone"):
+        KGNet(dataclasses.replace(cfg.model, backbone="vgg"))

@@ -11,6 +11,11 @@ Tolerances, each with its reason:
   * gradients: rtol 1e-3 with atol 1e-6 * max|g| over the whole gradient
     tree (the backward pass sums in yet other orders, and small entries
     cancel: a tensor's own small entries differ by up to ~7e-6 of its max);
+  * the other backbones, norms, prediction feedback and remat (unet,
+    resnet_fpn, hourglass_fast with remat, inter_inject, BatchNorm):
+    loss_fn's metrics and every gradient of one step, at the same
+    tolerances, both packages in f64; the unet also in f32, each gradient
+    at 1e-4 of its own max (see the test);
   * optimizer: params within 1e-6 after 5 steps on identical gradients
     (f32 rounding of the same arithmetic);
   * schedule values: rel 1e-6 (both compute in f32);
@@ -346,3 +351,97 @@ def test_grads_finite_with_empty_image():
     assert all(np.isfinite(float(v)) for v in metrics.values())
     for name, p in pstate.model.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+
+
+# --------------------------------------------------------------------------
+# the other backbones, norms and prediction feedback
+# --------------------------------------------------------------------------
+
+# each variant once in f64 (remat rides on hourglass_fast), and the unet
+# once more in f32: name -> (kgtpu ModelConfig fields, compute dtype)
+VARIANT_MODELS = {
+    "unet": (dict(backbone="unet"), "float64"),
+    "resnet_fpn": (dict(backbone="resnet_fpn"), "float64"),
+    "hourglass_fast_remat": (dict(backbone="hourglass_fast", num_stacks=2, remat=True),
+                             "float64"),
+    "inter_inject": (dict(backbone="hourglass", num_stacks=2, inter_inject=True), "float64"),
+    "batchnorm": (dict(backbone="hourglass", num_stacks=2, norm="batch"), "float64"),
+    "unet_f32": (dict(backbone="unet"), "float32"),
+}
+# f32 gradients, held per tensor at this share of the tensor's own largest
+# entry (rtol 1e-3 as everywhere): at these draws the port's f32 unet
+# gradient strays from its f64 one by up to 1.4e-5 of that max, so the two
+# packages may differ by about twice that (3.9e-6 is seen)
+F32_GRAD_ATOL = 1e-4
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one thread: its OpenMP pool beside XLA's CPU threads has
+    crashed this test's process (a segfault in either package's code)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANT_MODELS))
+def test_loss_and_gradients_match_kgtpu_per_variant(variant, one_torch_thread):
+    """loss_fn's metrics (rtol 1e-4) and every gradient of one step on the
+    same params (numpy draws, as in test_torch_backbones.py) and draws.
+    The f64 cases run kgtpu under jax.enable_x64 with compute_dtype float64
+    and the port with f64 parameters and activations (its norms compute in
+    f32 as always): the gradients at the tolerance of
+    test_gradients_match_kgtpu.  In f32 the convolutions' weight gradients
+    are long cancelling sums that stray from f64 in both packages alike
+    (at kgtpu's own init, with its zero biases and heatmap prior, by up to
+    3.3e-4 of a tensor's largest entry), beyond that tree-wide tolerance:
+    the f32 case holds each tensor at F32_GRAD_ATOL of its own max."""
+    from test_torch_backbones import SIDE, draw_variables
+    fields, dtype = VARIANT_MODELS[variant]
+    f64 = dtype == "float64"
+    base = jax_tiny_config()
+    jcfg = base.replace(
+        model=dataclasses.replace(base.model, base_channels=16, head_channels=16, hg_depth=2,
+                                  **fields),
+        data=dataclasses.replace(base.data, input_size=SIDE),
+        train=dataclasses.replace(base.train, lr_warmup_steps=1))
+    v = draw_variables(jcfg.model, seed=1)
+    batch = make_batch(build_dataset(jcfg.data), [0, 1], jcfg.data, augment=False,
+                       rng=np.random.default_rng(0))
+    rng = jax.random.PRNGKey(13)
+    with jax.enable_x64(f64):
+        jd = dataclasses.replace(jcfg, model=dataclasses.replace(jcfg.model,
+                                                                 compute_dtype=dtype))
+        vd = jax.tree.map(lambda a: np.asarray(a, dtype), v)
+        jmodel = JaxKGNet(cfg=jd.model)
+        # XLA's CPU work runs asynchronously: it finishes before torch's
+        # threads start (the two thread pools running side by side can crash)
+        (_, (want, _)), jgrads = jax.block_until_ready(jax.jit(jax.value_and_grad(
+            lambda p: jtrain.loss_fn(p, batch, rng, jmodel, jd, vd.get("batch_stats")),
+            has_aux=True))(vd["params"]))
+        sel_u, jit_u = _draws(rng, jcfg, batch)
+        want = {k: float(x) for k, x in want.items()}
+        jgrads = jax.tree.map(lambda a: np.asarray(a, np.float32), jgrads)
+    cfg = port_config(jcfg)
+    model = build_model(cfg.model, seed=None, device="cpu")
+    model = load_flax_params(model, v).train()
+    if f64:
+        model = model.double()
+        model.compute_dtype = torch.float64
+    total, got = train_lib.loss_fn(model, train_lib.batch_to_device(batch, "cpu"),
+                                   sel_u, jit_u, cfg)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), want[k], rtol=1e-4, err_msg=k)
+    total.backward()
+    wgrads = flax_to_state_dict(jgrads, cfg.model)
+    named = dict(model.named_parameters())
+    assert set(named) == set(wgrads)
+    gmax = max(float(w.abs().max()) for w in wgrads.values())
+    for name, p in named.items():
+        assert p.grad is not None, name
+        w = wgrads[name].numpy()
+        atol = 1e-6 * gmax if f64 else F32_GRAD_ATOL * float(np.abs(w).max())
+        np.testing.assert_allclose(p.grad.float().numpy(), w, rtol=1e-3, atol=atol,
+                                   err_msg=name)

@@ -91,7 +91,9 @@ def test_train_parser_takes_kgtpu_flags():
      "--seed", "5", "--roi_size", "16", "--K", "64", "--conf_thresh", "0.3",
      "--max_box_size", "80", "--size_prune", "2", "--wh_head", "0"],
     ["--init_from", "/w", "--aug_elastic", "6", "--input_size", "256", "--resume", "/r"],
-], ids=["defaults", "flagship", "init"])
+    ["--backbone", "unet", "--norm", "batch", "--remat", "--inter_inject", "--decode",
+     "centernet", "--wh_head", "0"],
+], ids=["defaults", "flagship", "init", "backbones"])
 def test_config_from_train_args_matches_kgtpu(argv):
     got = tconfig.config_from_train_args(tconfig.build_train_parser().parse_args(argv))
     want = jconfig.config_from_train_args(jconfig.build_train_parser().parse_args(argv))
@@ -111,15 +113,55 @@ def test_config_base_keeps_what_has_no_flag():
 
 @pytest.mark.parametrize("extra,item", [
     (["--steps_per_dispatch", "2"], 9), (["--ngpus", "2"], 9),
-    (["--coordinator", "localhost:1234"], 9), (["--remat"], 8),
-    (["--backbone", "unet"], 8), (["--backbone", "hourglass_fast"], 8),
-    (["--norm", "batch"], 8), (["--inter_inject"], 8), (["--decode", "centernet"], 8),
+    (["--coordinator", "localhost:1234"], 9),
     (["--profile_dir", "/p"], 10), (["--debug_nans"], 10), (["--rss_limit_gb", "8"], 10),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else str(v))
 def test_unported_flags_exit_naming_their_item(tiny_json, tmp_path, extra, item):
     with pytest.raises(SystemExit, match=f"ROADMAP item {item}"):
         train.run(_argv(tiny_json, tmp_path / "w") + extra)
     assert not os.path.exists(tmp_path / "w")
+
+
+@pytest.mark.parametrize("extra", [
+    ["--backbone", "unet"], ["--backbone", "resnet_fpn"], ["--backbone", "hourglass_fast"],
+    ["--norm", "batch"], ["--inter_inject", "--num_stacks", "2"],
+    ["--remat", "--norm", "batch"], ["--decode", "centernet"],
+], ids=lambda v: "_".join(a.lstrip("-") for a in v))
+def test_other_backbones_norms_and_decoders_train_and_serve(tiny_json, tmp_path, extra):
+    """Each configuration trains through the CLI (finite losses, a
+    checkpoint whose stored config and tensors rebuild it, BatchNorm running
+    stats moved by training) and serves its checkpoint through cli.test."""
+    from kgtpu_torch.cli import test as test_cli
+    from kgtpu_torch.data.png import write_png
+    save = tmp_path / "w"
+    summary = train.run(_argv(tiny_json, save, "--num_epochs", "1") + extra)
+    assert summary["end_step"] == 2
+    with open(save / "metrics.jsonl") as f:
+        row = json.loads(f.readline())
+    assert all(np.isfinite(row[k]) for k in ("loss", "loss_hm", "loss_mask")), row
+    payload = checkpoint.restore(str(save))
+    cfg = checkpoint.decode_config(payload["extra"])
+    want = tconfig.config_from_train_args(tconfig.build_train_parser().parse_args(
+        _argv(tiny_json, save) + extra), cfg)
+    assert cfg.model == want.model and cfg.group.method == want.group.method
+    model = KGNet(cfg.model)
+    model.load_state_dict(payload["params"], strict=True)
+    stats = [k for k in payload["params"] if k.endswith("running_var")]
+    assert bool(stats) == (cfg.model.norm == "batch")
+    assert all(not torch.equal(payload["params"][k], torch.ones_like(payload["params"][k]))
+               for k in stats)
+    images = tmp_path / "images"
+    images.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        write_png(str(images / f"im{i}.png"), rng.integers(0, 256, (64, 64, 3), np.uint8))
+    rc = test_cli.main(["--dataset", "folder", "--data_dir", str(images), "--weights",
+                        str(save), "--input_size", "64", "--batch_size", "2",
+                        "--device", "cpu", "--save_dir", str(tmp_path / "out")] +
+                       (["--decode", "centernet"] if "centernet" in extra else []))
+    assert rc == 0
+    with open(tmp_path / "out" / "detections.json") as f:
+        assert sorted(r["id"] for r in json.load(f)["images"]) == ["im0", "im1"]
 
 
 def test_folder_dataset_is_refused(tiny_json, tmp_path):

@@ -45,8 +45,25 @@ them is:
                              its images' label maps, ids offset per quadrant)
                              and its flags.
 
---only tta writes the last two alone, from the committed images and labels,
-and leaves the rest as it is.
+  unet_ema/model_99/         runs/kg_unet1024/model_99's EMA parameters (the
+                             unet quality flagship), f32, params only
+                             (tools/orbax_to_torch.py --use_ema --params_only)
+  kgtpu_reference_unet.npz   kgtpu's own runs on the CPU of two
+                             configurations on the 16 images, each in
+                             float32 and bfloat16 (every member at that
+                             compute dtype), with test.py's loops and flags
+                             (UNET_FLAGS): "unet" (the unet flagship,
+                             --use_ema, single-scale, batch 4) and
+                             "ensemble" (--weights the unet, --ensemble the
+                             hourglass flagship, --use_ema, mean vote,
+                             batch 8).  Per configuration c and dtype d:
+                             `labels_<c>_<d>`, `counts_<c>_<d>`, and
+                             `metrics_json` (the metrics against the ground
+                             truth, with kgtpu's NumPy IoU) with `ids`.
+
+--only tta writes flagship_raw and kgtpu_reference_tta.npz alone, --only
+unet writes unet_ema and kgtpu_reference_unet.npz alone, each from the
+committed images and labels, and leave the rest as it is.
 """
 
 from __future__ import annotations
@@ -60,6 +77,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 FLAGSHIP = os.path.join(ROOT, "runs", "kg_hard1024", "model_99")
+UNET = os.path.join(ROOT, "runs", "kg_unet1024", "model_99")
 BATCH = 4
 # test.py's flags of each configuration of kgtpu_reference_tta.npz (the
 # data dir and weights come first)
@@ -69,6 +87,15 @@ TTA_FLAGS = {
     "ensemble": ["--use_ema", "--ensemble", "assets_torch/flagship_raw", "--test_scales",
                  "1.0", "--batch_size", "8"],
     "tiled": ["--use_ema", "--tiled", "--input_size", "1024"],
+}
+
+
+# test.py's flags of each configuration of kgtpu_reference_unet.npz (the
+# data dir and --weights UNET come first)
+UNET_FLAGS = {
+    "unet": ["--use_ema", "--batch_size", str(BATCH)],
+    "ensemble": ["--use_ema", "--ensemble", "assets_torch/flagship_ema", "--tta_vote", "mean",
+                 "--test_scales", "1.0", "--batch_size", "8"],
 }
 
 
@@ -82,12 +109,15 @@ def mosaic(tiles: list, rows: int):
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
-    p.add_argument("--only", default="", choices=["", "tta"],
-                   help="tta: write flagship_raw and kgtpu_reference_tta.npz alone")
+    p.add_argument("--only", default="", choices=["", "tta", "unet"],
+                   help="tta: write flagship_raw and kgtpu_reference_tta.npz alone; "
+                        "unet: unet_ema and kgtpu_reference_unet.npz alone")
     a = p.parse_args(argv)
     out = a.out
     if a.only == "tta":
         return make_tta_reference(out)
+    if a.only == "unet":
+        return make_unet_reference(out)
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -290,6 +320,80 @@ def make_tta_reference(out: str) -> int:
             print(name, counts, json.dumps(metrics[name]), flush=True)
     result["metrics_json"] = np.array(json.dumps(metrics))
     np.savez_compressed(os.path.join(out, "kgtpu_reference_tta.npz"), **result)
+    return make_unet_reference(out)
+
+
+def make_unet_reference(out: str) -> int:
+    """unet_ema and kgtpu_reference_unet.npz (module docstring)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import cv2
+    import jax.numpy as jnp
+    import numpy as np
+
+    from kgtpu import checkpoint, evaluate, native
+    from kgtpu.config import build_test_parser, config_from_test_args
+    from kgtpu.data.folder import ImageFolder
+    from kgtpu.data.loader import _prepare_sample
+    from kgtpu.infer import build_ensemble_fn, build_infer_fn
+    from kgtpu.models import KGNet
+    from tools.orbax_to_torch import convert
+
+    print(convert(UNET, os.path.join(out, "unet_ema"), use_ema=True, params_only=True))
+    native.label_map_iou = lambda pred, gt: None          # kgtpu's NumPy IoU
+    img_dir = os.path.join(out, "synthetic_hard", "images")
+    lab_dir = os.path.join(out, "synthetic_hard", "labels")
+    images = ImageFolder(img_dir)
+    ids = [images[i]["id"] for i in range(len(images))]
+    gt = {i: cv2.imread(os.path.join(lab_dir, f"{i}.png"), cv2.IMREAD_UNCHANGED)
+          .astype(np.int32) for i in ids}
+    unet, extra = checkpoint.restore_bundle(UNET, use_ema=True)
+    hourglass, hg_extra = checkpoint.restore_bundle(FLAGSHIP, use_ema=True)
+    unet_model = checkpoint.decode_config(extra).model
+    hg_model = checkpoint.decode_config(hg_extra).model
+    result = {"ids": np.array(ids)}
+    metrics = {"source": "tools/make_torch_eval_assets.py --only unet",
+               "jax": jax.__version__, "cv2": cv2.__version__,
+               "weights": "runs/kg_unet1024/model_99 (EMA); ensemble: + "
+                          "runs/kg_hard1024/model_99 (EMA)"}
+    for name, flags in UNET_FLAGS.items():
+        argv = ["--dataset", "folder", "--data_dir", img_dir, "--weights", UNET]
+        base_cfg = config_from_test_args(build_test_parser().parse_args(argv + flags))
+        for dtype in ("float32", "bfloat16"):
+            mcfg = dataclasses.replace(unet_model, compute_dtype=dtype)
+            cfg = dataclasses.replace(base_cfg, model=mcfg)
+            if name == "ensemble":
+                hcfg = dataclasses.replace(hg_model, compute_dtype=dtype)
+                ens = build_ensemble_fn([KGNet(cfg=mcfg), KGNet(cfg=hcfg)], cfg,
+                                        mask_member=0)
+                infer = lambda imgs: ens([unet, hourglass], {"1": imgs})  # noqa: E731
+            else:
+                single = build_infer_fn(KGNet(cfg=mcfg), cfg)
+                infer = lambda imgs: single(unet, imgs)  # noqa: E731
+            bs = cfg.infer.batch_size
+            rng = np.random.default_rng(0)
+            labels, counts, recs = [], [], []
+            for start in range(0, len(images), bs):
+                raws = [images[i] for i in range(start, min(start + bs, len(images)))]
+                st = [_prepare_sample(r, cfg.data, augment=False, rng=rng,
+                                      image_only=True)["image"] for r in raws]
+                o = infer(jnp.asarray(np.stack(st + [st[-1]] * (bs - len(st)))))
+                for k, r in enumerate(raws):
+                    lab = np.asarray(o["label_map"][k]).astype(np.uint16)
+                    valid = np.asarray(o["valid"][k])
+                    kept = np.asarray(o["scores"][k])[valid]
+                    labels.append(lab)
+                    counts.append(int(valid.sum()))
+                    scores = np.zeros(max(int(lab.max()), len(kept), 1), np.float32)
+                    scores[:len(kept)] = kept
+                    recs.append({"pred_label": lab.astype(np.int32), "scores": scores,
+                                 "gt_label": gt[r["id"]]})
+            metrics[f"{name}_{dtype}"] = {**_score(evaluate, recs), "flags": flags}
+            result[f"labels_{name}_{dtype}"] = np.stack(labels)
+            result[f"counts_{name}_{dtype}"] = np.array(counts, np.int32)
+            print(name, dtype, counts, json.dumps(metrics[f"{name}_{dtype}"]), flush=True)
+    result["metrics_json"] = np.array(json.dumps(metrics))
+    np.savez_compressed(os.path.join(out, "kgtpu_reference_unet.npz"), **result)
     return 0
 
 

@@ -14,8 +14,10 @@ out_dir/model_<epoch>, at the source's epoch:
   * --params_only: the parameters alone, f32, for serving; with --use_ema
     they are the source's EMA parameters.
 
-Every flax leaf maps onto a port parameter (`kgtpu_torch.convert`); the
-moments map like the parameters they belong to.  The stored config is read
+Every flax leaf maps onto a port parameter (`kgtpu_torch.convert`), for
+every backbone and norm; a BatchNorm model's batch_stats become the
+running-stat buffers of the parameters (raw or EMA, as kgtpu serves them);
+the moments map like the parameters they belong to.  The stored config is read
 with the port's `config_from_json` (which refuses a setting the port would
 drop) and stored again in the port's form, with the dataset stats extras.
 """
@@ -60,7 +62,10 @@ def convert(src: str, dst_dir: str, use_ema: bool = False, params_only: bool = F
         if payload.get("ema_params") is None:
             raise SystemExit(f"{src} has no EMA parameters")
         params = payload["ema_params"]
-    out = {"params": sd(params)}
+    # a BatchNorm model's running stats go with the parameters, raw or EMA
+    stats = payload.get("batch_stats")
+    out = {"params": sd(params if stats is None
+                        else {"params": params, "batch_stats": stats})}
     if not params_only:
         adam = payload["opt_state"][1][0]
         out["opt"] = {"mu": sd(adam["mu"]), "nu": sd(adam["nu"]),
