@@ -89,6 +89,29 @@
     same losses (rtol 1e-5) at a lower peak memory, and with norm=batch the
     same running stats.
 
+[12] Users' own files.  (a) Decodes every fixture of assets_torch/formats
+    (baseline JPEG at 512x512; progressive JPEG, tiled deflate+predictor
+    TIFF, LZW strip TIFF, 16-bit RGB TIFF and 24-bit BMP at 256x256; the
+    neural-cells tree's TIFF images and PNG/BMP/TIFF masks) in every mode
+    with the port's readers and requires the sha256, shape and dtype of
+    cv2's decode (assets_torch/kgtpu_reference_formats.npz); times each
+    format (median of 3 reads, ms per image and per 512x512 of pixels,
+    beside the committed PNGs); prints whether cv2 or PIL is importable
+    here, for the record (the port uses neither).  (b) `cli.test --dataset
+    folder` over the 16 baseline JPEGs with the flagship in f32 and bf16,
+    held against kgtpu's committed run on those JPEGs with [8]'s gates, the
+    GroupNorm kernel launched; the CLI's img/s beside [8]'s PNG folder; one
+    more `cli.test` over the mixed folder, which must serve every file (the
+    16-bit and the tiled TIFFs too).  (c) `cli.train` at the default Config
+    (full width, 512x512, batch 8) for 10 steps on `--dataset coco` and 5 on
+    `--dataset neural_cells`, the datasets built in a temporary directory
+    from the fixtures: every sample's image and label map equal to kgtpu's
+    readers' (by sha256), a finite loss, one Gaussian launch per step.  (d)
+    The host-RSS watchdog in a subprocess (`os.execv` would replace this
+    script): `python -m kgtpu_torch.cli.train` at a small size for 2 epochs
+    with --rss_limit_gb 0.001 re-execs exactly once, resumes at epoch 1,
+    writes two metrics.jsonl lines and exits 0.  Budget FORMATS_PHASE_S.
+
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
 `decode_group_ms_per_img` is the decode+group+NMS stage of the batch-32 e2e
@@ -198,6 +221,23 @@ VARIANTS = {    # name: (ModelConfig fields, GroupConfig fields)
 VARIANT_STEPS = 5
 REMAT_STEPS = 3
 BACKBONES_PHASE_S = 150     # phase [11]'s budget
+# phase [12]: users' own files
+FORMATS = os.path.join(ASSETS, "formats")
+FORMAT_KINDS = {   # timed kind: (folder, file-name suffix)
+    "baseline JPEG": (os.path.join(FORMATS, "jpeg"), ".jpg"),
+    "progressive JPEG": (os.path.join(FORMATS, "mixed"), "_progressive.jpg"),
+    "tiled deflate+predictor TIFF": (os.path.join(FORMATS, "mixed"), "_tiled.tif"),
+    "LZW strip TIFF": (os.path.join(FORMATS, "mixed"), "_lzw.tif"),
+    "16-bit RGB TIFF": (os.path.join(FORMATS, "mixed"), "_rgb16.tif"),
+    "24-bit BMP": (os.path.join(FORMATS, "mixed"), ".bmp"),
+    "PNG (committed synthetic_hard)": (os.path.join(ASSETS, "synthetic_hard", "images"), ".png")}
+TRAIN_FORMAT_STEPS = {"coco": 10, "neural_cells": 5}
+WATCHDOG_FLAGS = ["--dataset", "synthetic", "--synthetic_n", "8", "--input_size", "64",
+                  "--batch_size", "2", "--steps_per_epoch", "2", "--num_epochs", "2",
+                  "--backbone", "hourglass_lite", "--num_stacks", "1", "--roi_size", "8",
+                  "--mask_size", "16", "--K", "32", "--max_detections", "32",
+                  "--rss_limit_gb", "0.001"]
+FORMATS_PHASE_S = 150       # phase [12]'s budget
 
 
 def require(cond, msg: str) -> None:
@@ -801,6 +841,7 @@ def phase_flagship(np, torch, gn, gauss) -> dict:
                 require(launches > 0, "the bf16 flagship run did not launch the GroupNorm "
                         "kernel")
             out.update({f"flagship_mAP_dsb2018_{dtype}": m["mAP_dsb2018"],
+                        f"flagship_cli_wall_s_{dtype}": wall,
                         f"flagship_mAP_diff_{dtype}": dmap,
                         f"flagship_metrics_{dtype}": m,
                         f"flagship_count_diff_max_{dtype}": int(np.abs(dcount).max()),
@@ -1393,6 +1434,215 @@ def phase_backbones(np, torch, gn, gauss) -> dict:
     return out
 
 
+def decode_checks(np) -> dict:
+    """[12] (a): every committed fixture in every mode against cv2's hash;
+    the decode time of each format."""
+    import importlib.util
+
+    from kgtpu_torch.data.imread import read_image
+    from tools.make_torch_format_assets import sha
+    ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
+    decodes = json.loads(str(ref["decode_json"]))
+    t = time.perf_counter()
+    bad = []
+    for d in decodes:
+        got = read_image(os.path.join(FORMATS, d["path"]), d["mode"])
+        if (sha(got), list(got.shape), str(got.dtype)) != (d["sha256"], d["shape"], d["dtype"]):
+            bad.append((d["path"], d["mode"], list(got.shape)))
+    check_s = time.perf_counter() - t
+    log(f"  {len(decodes) - len(bad)}/{len(decodes)} decodes equal cv2's (sha256, shape, "
+        f"dtype) in {check_s:.1f} s")
+    require(not bad, f"decodes off cv2's: {bad[:5]}")
+    timed = {}
+    for kind, (folder, suffix) in FORMAT_KINDS.items():
+        files = sorted(f for f in os.listdir(folder) if f.endswith(suffix))[:4]
+        per_file = []
+        for f in files:
+            reads = []
+            for _ in range(3):
+                t = time.perf_counter()
+                img = read_image(os.path.join(folder, f), "color")
+                reads.append((time.perf_counter() - t) * 1e3)
+            per_file.append((sorted(reads)[1], img.shape[0] * img.shape[1]))
+        ms = float(np.median([m for m, _ in per_file]))
+        pixels = per_file[0][1]
+        timed[kind] = {"ms_per_image": ms, "pixels": pixels,
+                       "ms_per_512x512": ms * 512 * 512 / pixels, "files": len(files)}
+        log(f"  decode {kind}: {ms:.1f} ms per {int(pixels ** 0.5)}x{int(pixels ** 0.5)} image "
+            f"(median of {len(files)} files, each the median of 3 reads), "
+            f"{timed[kind]['ms_per_512x512']:.1f} ms per 512x512 of pixels")
+    present = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "PIL")}
+    log(f"  importable on this host (for the record; the port uses neither): {present}")
+    return {"decode_checks": len(decodes), "decode_check_s": check_s, "decode_ms": timed,
+            "host_has": present}
+
+
+def format_serving(np, torch, gn, gauss, fstats: dict) -> dict:
+    """[12] (b): the flagship over the baseline JPEGs (f32, bf16) against
+    kgtpu's run on them, and over the mixed folder."""
+    from kgtpu_torch.cli import test as test_cli
+    from kgtpu_torch.cli.eval import metrics as eval_metrics
+    from kgtpu_torch.cli.eval import records
+    from kgtpu_torch.data.png import read_png
+    weights = os.path.join(ASSETS, "flagship_ema")
+    ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
+    ref_metrics = json.loads(str(ref["metrics_json"]))
+    ids = [str(i) for i in ref["ids"]]
+    gt = {i: read_png(os.path.join(ASSETS, "synthetic_hard", "labels", f"{i}.png"),
+                      "unchanged").astype(np.int32) for i in ids}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("float32", "bfloat16"):
+            short = "f32" if dtype == "float32" else "bf16"
+            save = os.path.join(tmp, dtype)
+            gn.launches = gauss.launches = 0              # this path's run
+            t = time.perf_counter()
+            rc = test_cli.main(["--dataset", "folder", "--data_dir", os.path.join(FORMATS, "jpeg"),
+                                "--weights", weights, "--use_ema", "--input_size", "512",
+                                "--batch_size", "16", "--compute_dtype", dtype,
+                                "--save_dir", save])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = gn.launches
+            with open(os.path.join(save, "detections.json")) as f:
+                det = {r["id"]: r for r in json.load(f)["images"]}
+            require(rc == 0 and sorted(det) == sorted(ids), f"cli.test JPEG {dtype} failed")
+            m = eval_metrics(records(save, gt, 512))
+            counts = np.array([det[i]["num_instances"] for i in ids])
+            dcount = counts - ref[f"counts_{dtype}"]
+            off = [int((read_png(os.path.join(save, f"{i}_label.png"), "unchanged")
+                        != ref[f"labels_{dtype}"][k]).sum()) for k, i in enumerate(ids)]
+            dmap = m["mAP_dsb2018"] - ref_metrics[dtype]["mAP_dsb2018"]
+            png_wall = fstats[f"flagship_cli_wall_s_{dtype}"]
+            log(f"  JPEG folder {dtype}: mAP_dsb2018 {m['mAP_dsb2018']:.6f} (kgtpu "
+                f"{ref_metrics[dtype]['mAP_dsb2018']:.6f}, diff {dmap:+.6f}, tol "
+                f"{MAP_TOL[dtype]}); instances {counts.tolist()}, largest count diff "
+                f"{int(np.abs(dcount).max())}, label-map pixels off kgtpu's: max {max(off)}, "
+                f"equal {off.count(0)}/16; GroupNorm launches {launches}; CLI {16 / wall:.2f} "
+                f"img/s ({wall:.2f} s; the PNG folder of [8]: {16 / png_wall:.2f} img/s)")
+            require(launches > 0, f"the JPEG folder {dtype} did not launch the GroupNorm kernel")
+            require(abs(dmap) <= MAP_TOL[dtype], f"JPEG {dtype} mAP_dsb2018 {m['mAP_dsb2018']} "
+                    f"is off kgtpu's by {dmap}")
+            if dtype == "float32":
+                require(not dcount.any(), f"JPEG f32 instance counts off kgtpu's: "
+                        f"{dcount.tolist()}")
+                require(max(off) <= PIXELS_OFF_TOL, f"JPEG f32 label maps off kgtpu's by {off}")
+            out.update({f"jpeg_mAP_dsb2018_{short}": m["mAP_dsb2018"],
+                        f"jpeg_mAP_diff_{short}": dmap,
+                        f"jpeg_count_diff_max_{short}": int(np.abs(dcount).max()),
+                        f"jpeg_pixels_off_max_{short}": max(off),
+                        f"jpeg_cli_img_per_s_{short}": 16 / wall,
+                        f"png_cli_img_per_s_{short}": 16 / png_wall,
+                        f"jpeg_gn_launches_{short}": launches})
+        save = os.path.join(tmp, "mixed")
+        gn.launches = 0
+        rc = test_cli.main(["--dataset", "folder", "--data_dir", os.path.join(FORMATS, "mixed"),
+                            "--weights", weights, "--use_ema", "--batch_size", "8",
+                            "--save_dir", save])
+        with open(os.path.join(save, "detections.json")) as f:
+            served = sorted(r["id"] for r in json.load(f)["images"])
+        files = sorted(os.path.splitext(f)[0] for f in os.listdir(os.path.join(FORMATS, "mixed")))
+        log(f"  mixed folder: served {len(served)} of {len(files)} files "
+            f"(progressive JPEG, tiled / LZW / 16-bit TIFF, BMP); GroupNorm launches {gn.launches}")
+        require(rc == 0 and served == files and gn.launches > 0
+                and any(i.endswith("_rgb16") for i in served)
+                and any(i.endswith("_tiled") for i in served), "the mixed folder did not serve")
+        out["mixed_gn_launches"] = gn.launches
+    return out
+
+
+def format_training(np, torch, gauss) -> dict:
+    """[12] (c): cli.train on coco and neural_cells built from the fixtures."""
+    from kgtpu_torch.cli import train as train_cli
+    from kgtpu_torch.config import DataConfig
+    from kgtpu_torch.data.registry import build_dataset
+    from tools.make_torch_format_assets import dataset_layout, sha
+    ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
+    want = json.loads(str(ref["datasets_json"]))
+    threads = torch.get_num_threads()      # the CLI pins the host's threads
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, steps in TRAIN_FORMAT_STEPS.items():
+            root = dataset_layout(FORMATS, tmp, name)
+            for split in ("train", "val"):
+                ds = build_dataset(DataConfig(dataset=name, data_dir=root), split)
+                got = [{"id": x["id"], "image": sha(x["image"]),
+                        "label_map": sha(x["label_map"].astype(np.int32)),
+                        "shape": list(x["label_map"].shape)}
+                       for x in (ds[k] for k in range(len(ds)))]
+                require(got == want[f"{name}/{split}"], f"{name} {split}: samples off kgtpu's "
+                        "readers")
+            save = os.path.join(tmp, f"run_{name}")
+            gauss.launches = 0                              # this path's run
+            t = time.perf_counter()
+            summary = train_cli.run(["--dataset", name, "--data_dir", root, "--batch_size", "8",
+                                     "--input_size", "512", "--num_epochs", "1",
+                                     "--steps_per_epoch", str(steps), "--save_dir", save])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            torch.set_num_threads(threads)
+            with open(os.path.join(save, "metrics.jsonl")) as f:
+                row = json.loads(f.readline())
+            losses = {k: v for k, v in row.items() if "loss" in k}
+            n = len(want[f"{name}/train"])
+            log(f"  {name}: {n} train samples equal kgtpu's by hash; {steps} steps in "
+                f"{wall:.1f} s (train {summary['epochs'][0]['train_s']:.1f} s, waiting for "
+                f"batches {summary['epochs'][0]['wait_s']:.1f} s); Gaussian launches "
+                f"{gauss.launches}; last losses {losses}")
+            require(losses and all(np.isfinite(v) for v in losses.values()),
+                    f"{name}: the loss is not finite")
+            require(gauss.launches == steps, f"{name}: {gauss.launches} Gaussian launches in "
+                    f"{steps} steps")
+            out.update({f"train_{name}_gauss_launches": gauss.launches,
+                        f"train_{name}_losses": losses, f"train_{name}_wall_s": wall,
+                        f"train_{name}_samples": n})
+    return out
+
+
+def watchdog_run() -> dict:
+    """[12] (d): a real watchdog restart, in a subprocess."""
+    from kgtpu_torch.config import config_to_json, tiny_test_config
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "tiny.json")
+        with open(cfg, "w") as f:
+            f.write(config_to_json(tiny_test_config()))
+        save = os.path.join(tmp, "run")
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "kgtpu_torch.cli.train", "--config", cfg,
+                            "--save_dir", save] + WATCHDOG_FLAGS,
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=240)
+        wall = time.perf_counter() - t
+        restarts = r.stderr.count("re-exec'ing with --resume")
+        resumed = r.stderr.split("re-exec'ing")[-1] if restarts else ""
+        rows = []
+        if os.path.exists(os.path.join(save, "metrics.jsonl")):
+            with open(os.path.join(save, "metrics.jsonl")) as f:
+                rows = [json.loads(line)["epoch"] for line in f]
+        log(f"  watchdog subprocess: exit {r.returncode}, {restarts} re-exec, resumed at "
+            f"epoch 1: {'at epoch 1' in resumed}, metrics.jsonl epochs {rows}, {wall:.1f} s")
+        require(r.returncode == 0 and restarts == 1 and "at epoch 1" in resumed
+                and rows == [0, 1], "the watchdog did not restart once and resume: "
+                + r.stderr[-2000:])
+    return {"watchdog_restarts": restarts, "watchdog_wall_s": wall}
+
+
+def phase_formats(np, torch, gn, gauss, fstats: dict) -> dict:
+    """[12]: (a)-(d) of the module docstring."""
+    t_phase = time.perf_counter()
+    out = decode_checks(np)
+    out.update(format_serving(np, torch, gn, gauss, fstats))
+    torch.cuda.empty_cache()
+    out.update(format_training(np, torch, gauss))
+    torch.cuda.empty_cache()
+    out.update(watchdog_run())
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase [12]: {phase_s:.1f} s (budget {FORMATS_PHASE_S} s)")
+    require(phase_s <= FORMATS_PHASE_S, f"phase [12] took {phase_s:.0f} s")
+    out["formats_phase_s"] = phase_s
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1577,6 +1827,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     bstats = phase_backbones(np, torch, gn, gauss)
 
+    # 12. users' own files
+    log("[12] users' files: every format decoded as cv2 decodes it, the flagship over JPEG "
+        "and mixed folders, cli.train on coco and neural_cells, the RSS watchdog")
+    torch.cuda.empty_cache()
+    xstats = phase_formats(np, torch, gn, gauss, fstats)
+
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
                "e2e_img_per_s_all": e2e["img_per_s_all"], "e2e_batch": E2E_BATCH,
@@ -1593,7 +1849,7 @@ def main() -> int:
                "gn_per_shape_b32": gn_rows,
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
-               **tstats, **fstats, **cstats, **ttastats, **bstats, "card": smi}
+               **tstats, **fstats, **cstats, **ttastats, **bstats, **xstats, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     kernel = {"name": "group_norm_relu", "route": "cuda",
@@ -1613,7 +1869,10 @@ def main() -> int:
                                        for short in ("f32", "bf16") for name in UNET_RUNS},
                                     "unet e2e b32 [11]": bstats["unet_e2e_gn_launches"],
                                     **{f"{name} serve [11]": v["gn_launches_serving"]
-                                       for name, v in bstats["variants"].items()}},
+                                       for name, v in bstats["variants"].items()},
+                                    "JPEG folder f32 [12]": xstats["jpeg_gn_launches_f32"],
+                                    "JPEG folder bf16 [12]": xstats["jpeg_gn_launches_bf16"],
+                                    "mixed folder [12]": xstats["mixed_gn_launches"]},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],
@@ -1626,7 +1885,9 @@ def main() -> int:
                "launches_by_phase": {"train [6]": tstats["gauss_launches"],
                                      "train CLI [9]": cstats["train_cli_gauss_launches"],
                                      **{f"{name} train [11]": v["gauss_launches_train"]
-                                        for name, v in bstats["variants"].items()}},
+                                        for name, v in bstats["variants"].items()},
+                                     **{f"{name} train [12]": xstats[f"train_{name}_gauss_launches"]
+                                        for name in TRAIN_FORMAT_STEPS}},
                "max_abs_err": gstats["max_abs_err"],
                "ms": gstats["ms"], "device_ms": gstats["device_ms"],
                "plain_ms": gstats["plain_ms"],

@@ -29,8 +29,9 @@ Writes, per image:
 and <save_dir>/detections.json with all of them; --coco_json adds a COCO
 results file.  --profile_dir writes a torch.profiler trace.  Conflicting
 flags exit with test.py's messages; paths that are not ported raise
-SystemExit naming their ROADMAP item: --ngpus > 1 (9), --save_vis and
---debug_nans (10).
+SystemExit naming their ROADMAP item by its title: --ngpus > 1 (data
+parallelism), --save_vis and --debug_nans (debugging, profiling and
+visualisation).
 """
 
 from __future__ import annotations
@@ -65,9 +66,12 @@ def _refuse(args, cfg, ensemble: list[str]) -> None:
     if args.tiled and (cfg.infer.test_scales != (1.0,) or cfg.infer.test_flip):
         raise SystemExit("--tiled and multi-scale --test_scales are exclusive")
     unported = [
-        (args.num_devices > 1, "--ngpus > 1 (data-parallel inference) is ROADMAP item 9"),
-        (args.save_vis, "--save_vis (overlays) is ROADMAP item 10"),
-        (args.debug_nans, "--debug_nans is ROADMAP item 10"),
+        (args.num_devices > 1,
+         "--ngpus > 1 (data-parallel inference) is ROADMAP §1: data parallelism"),
+        (args.save_vis,
+         "--save_vis (overlays) is ROADMAP §1: debugging, profiling and visualisation"),
+        (args.debug_nans,
+         "--debug_nans is ROADMAP §1: debugging, profiling and visualisation"),
     ]
     for bad, msg in unported:
         if bad:

@@ -31,10 +31,15 @@ loads the weights only.
 Every backbone (--backbone), norm (--norm batch keeps running stats, which
 checkpoints carry and evaluation uses beside the raw or EMA weights),
 --inter_inject, --remat and --decode centernet train.  Paths that are not
-ported exit naming their ROADMAP item: --steps_per_dispatch > 1, --ngpus > 1
-and --coordinator (9); --profile_dir, --debug_nans and --rss_limit_gb > 0
-(10).  kgtpu's RSS watchdog (default -1, "auto") is off:
-the port has none.
+ported exit naming their ROADMAP item by its title: --steps_per_dispatch > 1
+(captured dispatch), --ngpus > 1 and --coordinator (data parallelism),
+--profile_dir and --debug_nans (debugging, profiling and visualisation).
+
+The host-RSS watchdog is kgtpu's: --rss_limit_gb -1 (the default) arms it at
+75% of MemTotal, 0 turns it off, a positive value is the limit in GB.  At
+every epoch boundary but the last, past the limit, the run saves the epoch
+if it has not, waits for the checkpoint and re-execs itself as
+`python -m kgtpu_torch.cli.train <the same flags> --resume`.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 from kgtpu_torch import checkpoint
 from kgtpu_torch.config import (Config, build_train_parser, config_from_json,
                                 config_from_train_args, required_divisor)
+from kgtpu_torch.utils import host
 
 log = logging.getLogger("kgtpu_torch.train")
 
@@ -64,23 +70,19 @@ LOADER_WORKERS = 4          # `batch_iterator`'s default pool
 def _refuse_unported(args) -> None:
     unported = [
         (args.steps_per_dispatch > 1,
-         "--steps_per_dispatch > 1 (multi-step dispatch) is ROADMAP item 9"),
-        (args.num_devices > 1, "--ngpus > 1 (data-parallel training) is ROADMAP item 9"),
-        (bool(args.coordinator), "--coordinator (multi-host training) is ROADMAP item 9"),
-        (bool(args.profile_dir), "--profile_dir is ROADMAP item 10"),
-        (args.debug_nans, "--debug_nans is ROADMAP item 10"),
-        (args.rss_limit_gb > 0, "--rss_limit_gb > 0 (the host-RSS watchdog) is "
-                                "ROADMAP item 10"),
+         "--steps_per_dispatch > 1 (multi-step dispatch) is ROADMAP §1: captured dispatch"),
+        (args.num_devices > 1,
+         "--ngpus > 1 (data-parallel training) is ROADMAP §1: data parallelism"),
+        (bool(args.coordinator),
+         "--coordinator (multi-host training) is ROADMAP §1: data parallelism"),
+        (bool(args.profile_dir),
+         "--profile_dir is ROADMAP §1: debugging, profiling and visualisation"),
+        (args.debug_nans,
+         "--debug_nans is ROADMAP §1: debugging, profiling and visualisation"),
     ]
     for bad, msg in unported:
         if bad:
             raise SystemExit(f"not ported yet: {msg}")
-
-
-def host_rss_gb() -> float:
-    """This process's resident set, in GB (decimal)."""
-    with open("/proc/self/statm") as f:
-        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
 
 
 def step_seed(seed: int, key: int) -> int:
@@ -167,6 +169,7 @@ def run(argv: list[str] | None = None) -> dict:
     evaluation and saving excluded) and the time spent waiting for batches,
     the last held-out metrics and label maps ({"raw", "ema"}), and best."""
     parser = build_train_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
     base = None
     if args.config:
@@ -219,7 +222,10 @@ def run(argv: list[str] | None = None) -> dict:
     start_step = state.step
     os.makedirs(tcfg.save_dir, exist_ok=True)
     metrics_path = os.path.join(tcfg.save_dir, "metrics.jsonl")
-    log.info("host-RSS watchdog off: the port has none (ROADMAP item 10)")
+    rss_limit = (host.default_rss_limit_gb() if args.rss_limit_gb < 0
+                 else args.rss_limit_gb)
+    if rss_limit:
+        log.info("host-RSS watchdog armed at %.1f GB", rss_limit)
 
     t_stats = time.time()
     data_stats = dataset_stats(ds, cfg)
@@ -246,9 +252,9 @@ def run(argv: list[str] | None = None) -> dict:
         t0, seen, wait = time.time(), 0, 0.0
         for i in range(steps_per_epoch):
             tw = time.time()
-            host = next(it)
+            host_batch = next(it)
             wait += time.time() - tw
-            batch = train_lib.batch_to_device(host, device)
+            batch = train_lib.batch_to_device(host_batch, device)
             gen = torch.Generator(device=device).manual_seed(
                 step_seed(tcfg.seed, epoch * 100_000 + i))
             metrics = step_fn(state, batch, gen)
@@ -264,7 +270,7 @@ def run(argv: list[str] | None = None) -> dict:
         summary["epochs"].append({"epoch": epoch, "steps": steps_per_epoch,
                                   "train_s": train_s, "wait_s": wait})
 
-        val, new_best = {}, False
+        val, new_best, best_saved = {}, False, False
         if tcfg.eval_every_epochs and (epoch + 1) % tcfg.eval_every_epochs == 0:
             t_ev = time.time()
             if held_out is None:
@@ -289,15 +295,17 @@ def run(argv: list[str] | None = None) -> dict:
                 if not on_save_grid:       # the regular save below covers it
                     checkpoint.save(tcfg.save_dir, epoch, state, extra=data_stats,
                                     block=False)
+                    best_saved = True
         with open(metrics_path, "a") as f:
             f.write(json.dumps({
                 "epoch": epoch,
                 **{k: round(float(v), 6) for k, v in metrics.items()},
                 **val,
                 "img_per_sec": round(seen / max(time.time() - t0, 1e-6), 2),
-                "host_rss_gb": round(host_rss_gb(), 2),
+                "host_rss_gb": round(host.host_rss_gb(), 2),
             }) + "\n")
-        if (epoch + 1) % tcfg.save_every_epochs == 0 or epoch == tcfg.num_epochs - 1:
+        on_grid = (epoch + 1) % tcfg.save_every_epochs == 0 or epoch == tcfg.num_epochs - 1
+        if on_grid:
             # prune before the new save: only finished dirs are candidates
             for p in checkpoint.prune(tcfg.save_dir, tcfg.keep_last):
                 log.info("pruned %s (--keep_last %d)", p, tcfg.keep_last)
@@ -311,6 +319,17 @@ def run(argv: list[str] | None = None) -> dict:
                 json.dump(best_val, f)
             log.info("new best val mAP %.4f at epoch %d -> best.json (use --weights "
                      "%s/best)", best_val["metric"], epoch, tcfg.save_dir)
+        rss = host.host_rss_gb()
+        if rss_limit and rss > rss_limit and epoch < tcfg.num_epochs - 1:
+            if not (on_grid or best_saved):
+                checkpoint.save(tcfg.save_dir, epoch, state, extra=data_stats,
+                                block=False)
+            checkpoint.wait()
+            log.warning("host RSS %.1f GB > limit %.1f GB: checkpoint flushed at "
+                        "epoch %d, re-exec'ing with --resume", rss, rss_limit, epoch)
+            # run as a module: the script path in sys.argv[0] cannot import
+            # the package when it is run as a script
+            host.reexec(["-m", "kgtpu_torch.cli.train", *host.restart_argv(argv)])
     checkpoint.wait()
     for p in checkpoint.prune(tcfg.save_dir, tcfg.keep_last):
         log.info("pruned %s (--keep_last %d)", p, tcfg.keep_last)

@@ -326,7 +326,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="mask-logit resolution (0 = 2x --roi_size)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--debug_nans", action="store_true",
-                   help="not ported (ROADMAP item 10)")
+                   help="not ported (ROADMAP §1: debugging, profiling and visualisation)")
 
 
 def build_train_parser() -> argparse.ArgumentParser:
@@ -369,19 +369,21 @@ def build_train_parser() -> argparse.ArgumentParser:
                    help="fine-tune: initialise only the network weights from "
                         "this checkpoint (fresh optimizer, epoch 0)")
     p.add_argument("--rss_limit_gb", type=float, default=-1.0,
-                   help="kgtpu's host-RSS watchdog; the port has none (values "
-                        "> 0: ROADMAP item 10)")
+                   help="host-RSS watchdog: past this many GB, checkpoint and "
+                        "re-exec with --resume at an epoch boundary (-1 = 75%% "
+                        "of MemTotal, 0 = off)")
     p.add_argument("--ngpus", "--num_devices", dest="num_devices", type=int,
-                   default=0, help="more than 1 is not ported (ROADMAP item 9)")
+                   default=0, help="more than 1 is not ported (ROADMAP §1: data parallelism)")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="more than 1 is not ported (ROADMAP item 9)")
+                   help="more than 1 is not ported (ROADMAP §1: captured dispatch)")
     p.add_argument("--target_renderer", default="scan", choices=["scan", "pallas"],
                    help="kgtpu's renderer switch; in the port the Gaussian "
                         "kernel renders every CUDA batch either way")
-    p.add_argument("--coordinator", default="", help="not ported (ROADMAP item 9)")
+    p.add_argument("--coordinator", default="", help="not ported (ROADMAP §1: data parallelism)")
     p.add_argument("--num_hosts", type=int, default=1)
     p.add_argument("--host_id", type=int, default=0)
-    p.add_argument("--profile_dir", default="", help="not ported (ROADMAP item 10)")
+    p.add_argument("--profile_dir", default="",
+                   help="not ported (ROADMAP §1: debugging, profiling and visualisation)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--config", default="",
                    help="a JSON config (as a checkpoint's config_json) for the "
@@ -407,7 +409,7 @@ def build_test_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8,
                    help="inference batch (the last chunk is padded)")
     p.add_argument("--save_vis", action="store_true",
-                   help="not ported (ROADMAP item 10)")
+                   help="not ported (ROADMAP §1: debugging, profiling and visualisation)")
     p.add_argument("--tiled", action="store_true",
                    help="whole-slide mode: --input_size is the slide's side, "
                         "served as tiles of --tile_size with --tile_overlap "
@@ -429,7 +431,7 @@ def build_test_parser() -> argparse.ArgumentParser:
     p.add_argument("--coco_json", default="",
                    help="also write predictions as COCO results JSON")
     p.add_argument("--ngpus", "--num_devices", dest="num_devices", type=int,
-                   default=0, help="more than 1 is not ported (ROADMAP item 9)")
+                   default=0, help="more than 1 is not ported (ROADMAP §1: data parallelism)")
     p.add_argument("--tile_size", type=int, default=512)
     p.add_argument("--tile_overlap", type=int, default=64)
     p.add_argument("--profile_dir", default="",

@@ -9,6 +9,9 @@ and floating-point operations in the same order:
                      drawn with cv2's fixed-point line (Line2), then a
                      scanline fill
   fill_ellipse       cv2.ellipse(img, c, axes, angle, 0, 360, color, -1)
+  fill_poly          cv2.fillPoly(img, rings, color, LINE_8, shift=0):
+                     every edge drawn with cv2's integer line, then the
+                     even-odd scanline fill of all rings together
   gaussian_blur3     cv2.GaussianBlur(uint8, (3, 3), 0)
   dilate3            cv2.dilate(uint8, ones((3, 3)))
   resize_cubic_f32   cv2.resize(f32, (w, h), interpolation=INTER_CUBIC)
@@ -234,6 +237,116 @@ def fill_convex_poly(img: np.ndarray, pts, color, shift: int = XY_SHIFT) -> None
         y += 1
         if y > ymax:
             break
+
+
+def _line(img: np.ndarray, p1: tuple[int, int], p2: tuple[int, int], color) -> None:
+    """cv2's Line(img, p1, p2, color, 8): clipped to the image, then
+    LineIterator's 8-connected walk from the left end along the major axis,
+    stepping the minor axis while the error term is negative."""
+    h, w = img.shape[:2]
+    a, b = list(p1), list(p2)
+    if not (0 <= a[0] < w and 0 <= b[0] < w and 0 <= a[1] < h and 0 <= b[1] < h):
+        if not _clip_line(w, h, a, b):
+            return
+    dx, dy = b[0] - a[0], b[1] - a[1]
+    if dx < 0:                                  # leftToRight
+        a, b, dx, dy = b, a, -dx, -dy
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    vert = dy > dx
+    major, minor = (dy, dx) if vert else (dx, dy)
+    k = np.arange(major + 1)
+    # err_k = major - 2 minor (k + 1) + 2 major (number of minor steps so far);
+    # a minor step is taken where the error before it is negative
+    steps = np.zeros(major + 1, np.int64)
+    err, m = major - 2 * minor, 0
+    for i in range(1, major + 1):
+        if err < 0:
+            err += 2 * major
+            m += 1
+        err -= 2 * minor
+        steps[i] = m
+    if vert:
+        xs, ys = a[0] + steps, a[1] + sy * k
+    else:
+        xs, ys = a[0] + k, a[1] + sy * steps
+    img[ys, xs] = color
+
+
+def fill_poly(img: np.ndarray, rings, color) -> None:
+    """cv2.fillPoly(img, rings, color) in place, LINE_8 with shift 0: each
+    ring an [n, 2] array of integer (x, y) points.  As drawing.cpp's
+    CollectPolyEdges and FillEdgeCollection: every edge, horizontal ones too,
+    drawn with `_line`; each non-horizontal edge kept in 16-bit fixed point
+    (its x at the upper row, its truncated slope dx, rows [y0, y1); an edge
+    that leaves the image runs between its clipped ends); then per row the
+    active edges, merged with the edges starting there (a new edge goes
+    before active edges of equal x), are filled pair by pair from ceil(x) to
+    floor(x) of the next, each edge stepping by dx when its pair is drawn,
+    and re-sorted by x, stably.  Equal to cv2 on every polygon whose
+    vertices lie inside the image; where an edge leaves it, cv2 5.0 can fill
+    a column more at the border (see the ROADMAP)."""
+    h, w = img.shape[:2]
+    edges = []
+    for ring in rings:
+        v = [(int(x), int(y)) for x, y in np.asarray(ring, np.int64).reshape(-1, 2)]
+        x0, y0 = v[-1][0] << XY_SHIFT, v[-1][1]
+        for px, py in v:
+            x1, y1 = px << XY_SHIFT, py
+            t0 = [(x0 + (XY_ONE >> 1)) >> XY_SHIFT, y0]
+            t1 = [(x1 + (XY_ONE >> 1)) >> XY_SHIFT, y1]
+            _line(img, tuple(t0), tuple(t1), color)
+            c0, c1 = [x0, y0], [x1, y1]
+            if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h and 0 <= t1[1] < h):
+                _clip_line(w, h, t0, t1)
+                if t0[1] != t1[1]:
+                    c0 = [t0[0] << XY_SHIFT, t0[1]]
+                    c1 = [t1[0] << XY_SHIFT, t1[1]]
+            if y0 != y1:
+                dx = _tdiv(c1[0] - c0[0], c1[1] - c0[1])
+                if y0 < y1:
+                    edges.append([y0, y1, c0[0] + (y0 - c0[1]) * dx, dx])
+                else:
+                    edges.append([y1, y0, c1[0] + (y1 - c1[1]) * dx, dx])
+            x0, y0 = x1, y1
+    if len(edges) < 2:
+        return
+    ends = [e[2] + (e[1] - e[0]) * e[3] for e in edges]
+    y_min, y_max = min(e[0] for e in edges), max(e[1] for e in edges)
+    x_min = min(min(e[2] for e in edges), min(ends))
+    x_max = max(max(e[2] for e in edges), max(ends))
+    if y_max < 0 or y_min >= h or x_max < 0 or x_min >= (w << XY_SHIFT):
+        return
+    edges.sort(key=lambda e: (e[0], e[2], e[3]))
+    # an edge: [x, dx, y1]
+    new = [[e[2], e[3], e[1], e[0]] for e in edges]
+    ni, active = 0, []
+    for y in range(new[0][3], min(y_max, h)):
+        merged = []
+        ai = 0
+        while True:
+            last = active[ai] if ai < len(active) else None
+            e = new[ni] if ni < len(new) else None
+            if last is not None and last[2] == y:
+                ai += 1                                    # the edge ends here
+                continue
+            if last is not None and (e is None or e[3] > y or last[0] < e[0]):
+                merged.append(last)
+                ai += 1
+            elif e is not None and e[3] == y:
+                merged.append(e[:3])
+                ni += 1
+            else:
+                break
+        for a, b in zip(merged[0::2], merged[1::2]):
+            if y >= 0:
+                lo, hi = (b[0], a[0]) if a[0] > b[0] else (a[0], b[0])
+                x1, x2 = (lo + XY_ONE - 1) >> XY_SHIFT, hi >> XY_SHIFT
+                if x1 < w and x2 >= 0:
+                    img[y, max(x1, 0):min(x2, w - 1) + 1] = color
+            a[0] += a[1]
+            b[0] += b[1]
+        active = sorted(merged, key=lambda e: e[0])
 
 
 def fill_ellipse(img: np.ndarray, center: tuple[int, int],

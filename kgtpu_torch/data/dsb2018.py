@@ -1,5 +1,5 @@
 """Kaggle DSB2018 nuclei dataset reader: counterpart of
-`kgtpu/data/dsb2018.py`, reading its PNGs with `data/png.py`.
+`kgtpu/data/dsb2018.py`, reading its images with `data/imread.py`.
 
 Expects the stage1 layout:
 
@@ -21,7 +21,7 @@ import warnings
 
 import numpy as np
 
-from kgtpu_torch.data.png import read_png
+from kgtpu_torch.data.imread import UnreadableImage, read_image
 
 
 def bucket(iid: str, val_fraction: float = 0.1) -> str:
@@ -64,11 +64,14 @@ class DSB2018:
         img_path = os.path.join(self.data_dir, iid, "images", iid + ".png")
         if not os.path.isfile(img_path):
             raise FileNotFoundError(img_path)
-        img = read_png(img_path, "color")
+        img = read_image(img_path, "color")
         label = np.zeros(img.shape[:2], np.int32)
         mask_dir = os.path.join(self.data_dir, iid, "masks")
         if os.path.isdir(mask_dir):
             for k, f in enumerate(sorted(os.listdir(mask_dir))):
-                m = read_png(os.path.join(mask_dir, f), "gray")
+                try:
+                    m = read_image(os.path.join(mask_dir, f), "gray")
+                except UnreadableImage:       # unreadable: skipped, as in kgtpu
+                    continue
                 label[m > 127] = k + 1
         return {"image": img, "label_map": label, "id": iid}

@@ -4,8 +4,8 @@
 `--dataset folder --data_dir <dir>`: every image file under the directory,
 recursively, with the same ids as kgtpu's reader (relative path without
 extension, separators as "__", "~n" appended to the n-th repeat).  Label
-maps are empty.  Images decode with `data/png.py`, so files of other
-formats are listed (their ids stay the same) but raise when read.
+maps are empty.  Images decode with `data/imread.py` (PNG, JPEG, TIFF, BMP,
+picked by content as cv2 picks them).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import os
 
 import numpy as np
 
-from kgtpu_torch.data.png import read_png
+from kgtpu_torch.data.imread import read_image
 
 EXTS = (".png", ".jpg", ".jpeg", ".tif", ".tiff", ".bmp")
 
@@ -50,7 +50,7 @@ class ImageFolder:
         return len(self.paths)
 
     def __getitem__(self, idx: int) -> dict:
-        img = read_png(self.paths[idx], "color")
+        img = read_image(self.paths[idx], "color")
         return {"image": img,
                 "label_map": np.zeros(img.shape[:2], np.int32),
                 "id": self._ids[idx]}

@@ -1,23 +1,28 @@
 """PNG reading and writing without cv2: zlib and NumPy only.
 
-Reads non-interlaced PNG at bit depth 8 and 16 in colour types 0 (grey),
-2 (RGB), 3 (palette, 8-bit indices), 4 (grey + alpha) and 6 (RGBA), with any
+Reads PNG in every colour type (0 grey, 2 RGB, 3 palette, 4 grey + alpha,
+6 RGBA) and bit depth (1, 2, 4, 8, 16), plain or Adam7-interlaced, with any
 of the five row filters, and returns what the JAX package's reads return
-(cv2 5.0, which it calls):
+(cv2 5.0, which hands PNG to libpng):
 
-  * read_png(path, "color")     = cv2.imread(IMREAD_COLOR) + BGR->RGB:
-    [H, W, 3] uint8 RGB; alpha dropped, grey and palette expanded, 16-bit
-    samples cut to their high byte;
-  * read_png(path, "gray")      = cv2.imread(IMREAD_GRAYSCALE): [H, W]
-    uint8; colour converted with libpng's fixed-point weights (`_to_gray`);
-  * read_png(path, "unchanged") = cv2.imread(IMREAD_UNCHANGED) for grey
-    images ([H, W], uint8 or uint16: the label maps); colour comes in the
-    file's channel order (RGB / RGBA, where cv2 gives BGR / BGRA), grey +
-    alpha widened to RGBA as cv2 does.
+  * "color"     = cv2.imread(IMREAD_COLOR) + BGR->RGB: [H, W, 3] uint8 RGB;
+    alpha dropped, grey and palette expanded (grey below 8 bits by bit
+    replication), 16-bit samples cut to their high byte;
+  * "gray"      = cv2.imread(IMREAD_GRAYSCALE): [H, W] uint8; colour
+    converted with libpng's fixed-point weights (`_to_gray`);
+  * "unchanged" = cv2.imread(IMREAD_UNCHANGED): grey as [H, W] uint8 or
+    uint16 (the label maps; below 8 bits replicated to 8), colour in the
+    file's channel order (RGB / RGBA, where cv2 gives BGR / BGRA); grey +
+    alpha widened to RGBA, and a tRNS chunk on a palette or RGB image made
+    an alpha channel, as cv2 does (a grey image's tRNS is ignored).
+
+An eXIf chunk's Orientation turns the image in the "color" and "gray" modes
+as cv2 turns it (`imread.orient`), wherever the chunk stands; the first one
+counts.  `read_png` reads label PNGs; `imread.read_image` reads PNG through
+`decode_png_mode`.
 
 `write_png` writes grey, RGB or RGBA arrays of uint8 or uint16 (filter 0 on
-every row), which cv2.imread(IMREAD_UNCHANGED) reads back unchanged.  Any
-other format (JPEG, TIFF, interlaced PNG, bit depths below 8) raises.
+every row), which cv2.imread(IMREAD_UNCHANGED) reads back unchanged.
 """
 
 from __future__ import annotations
@@ -27,15 +32,18 @@ import zlib
 
 import numpy as np
 
+from kgtpu_torch.data.imread import MODES, UnreadableImage, check_mode, exif_orientation, orient
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_UNSUPPORTED = ("the port reads non-interlaced 8- and 16-bit PNG only; other image "
-                "formats are ROADMAP item 10 (split out of item 3)")
-MODES = ("color", "gray", "unchanged")
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+         (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-class PNGFormatError(ValueError):
-    """The file is not a PNG the port reads."""
+class PNGFormatError(UnreadableImage):
+    """The file is not a PNG libpng reads (cv2.imread returns None for it)."""
 
 
 def _chunks(data: bytes):
@@ -87,13 +95,40 @@ def _unfilter(filtered: np.ndarray, height: int, width: int, bpp: int) -> np.nda
     return res[rows, rows + np.arange(width)[None, :]].astype(np.uint8)
 
 
+def _unpack(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """[H, rowbytes] bytes of 1-, 2- or 4-bit samples -> [H, width] uint8."""
+    per = 8 // depth
+    shifts = (depth * np.arange(per - 1, -1, -1)).astype(np.uint8)
+    v = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return v.reshape(len(rows), -1)[:, :width]
+
+
+def _decode_pass(raw: np.ndarray, pos: int, height: int, width: int, ch: int,
+                 depth: int) -> tuple[np.ndarray, int]:
+    """One (sub-)image of `height` x `width` from the inflated stream at `pos`:
+    ([height, width, ch] samples, the position after it)."""
+    rowbytes = (width * ch * depth + 7) // 8
+    n = height * (1 + rowbytes)
+    if raw.size < pos + n:
+        raise PNGFormatError("PNG image data is truncated")
+    bpp = max(ch * depth // 8, 1)
+    px = _unfilter(raw[pos:pos + n].reshape(height, -1), height, rowbytes // bpp, bpp)
+    px = px.reshape(height, rowbytes)
+    if depth < 8:
+        px = _unpack(px, width, depth)
+    elif depth == 16:
+        px = (px[:, 0::2].astype(np.uint16) << 8) | px[:, 1::2]
+    return px.reshape(height, width, ch), pos + n
+
+
 def decode_png(data: bytes) -> dict:
     """The stored image: {"pixels": [H, W, C] uint8 or uint16 (palette
-    indices for colour type 3), "color_type", "palette": [n, 3] uint8 or None,
-    "alpha": palette alpha [n] or None}."""
+    indices for colour type 3; grey below 8 bits replicated to 8 bits),
+    "color_type", "palette": [n, 3] uint8 or None, "alpha": palette alpha
+    [n] or None, "key": the RGB tRNS colour or None, "orientation"}."""
     if data[:8] != SIGNATURE:
-        raise PNGFormatError("not a PNG file; " + _UNSUPPORTED)
-    header, idat, palette, trns = None, [], None, None
+        raise PNGFormatError("not a PNG file")
+    header, idat, palette, trns, exif = None, [], None, None, None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
@@ -103,27 +138,39 @@ def decode_png(data: bytes) -> dict:
             trns = body
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"eXIf" and exif is None and body[:2] in (b"II", b"MM"):
+            exif = body
     if header is None:
         raise PNGFormatError("PNG without IHDR")
     width, height, depth, ctype, _, _, interlace = header
-    if ctype not in _CHANNELS or depth not in (8, 16) or interlace != 0 or (
-            ctype == 3 and (depth != 8 or palette is None)):
-        raise PNGFormatError(f"PNG colour type {ctype}, bit depth {depth}, interlace "
-                             f"{interlace}: " + _UNSUPPORTED)
+    if depth not in _DEPTHS.get(ctype, ()) or interlace > 1 or (
+            ctype == 3 and palette is None):
+        raise PNGFormatError(f"invalid PNG: colour type {ctype}, bit depth {depth}, "
+                             f"interlace {interlace}")
     ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < height * (1 + width * bpp):
-        raise PNGFormatError("PNG image data is truncated")
-    px = _unfilter(raw[:height * (1 + width * bpp)].reshape(height, -1), height, width, bpp)
-    if depth == 16:
-        px = (px[..., 0::2].astype(np.uint16) << 8) | px[..., 1::2]
-    alpha = None
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise PNGFormatError(f"corrupt PNG image data: {e}") from None
+    if not interlace:
+        px, _ = _decode_pass(raw, 0, height, width, ch, depth)
+    else:
+        px = np.zeros((height, width, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in ADAM7:
+            h, w = (height - y0 + dy - 1) // dy, (width - x0 + dx - 1) // dx
+            if h > 0 and w > 0:
+                px[y0::dy, x0::dx], pos = _decode_pass(raw, pos, h, w, ch, depth)
+    if ctype == 0 and depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    alpha = key = None
     if ctype == 3 and trns is not None:
         alpha = np.full(len(palette), 255, np.uint8)
         alpha[:len(trns)] = np.frombuffer(trns, np.uint8)[:len(palette)]
-    return {"pixels": px.reshape(height, width, ch), "color_type": ctype,
-            "palette": palette, "alpha": alpha}
+    if ctype == 2 and trns is not None and len(trns) >= 6:
+        key = np.array(struct.unpack(">HHH", trns[:6]), px.dtype)
+    return {"pixels": px, "color_type": ctype, "palette": palette, "alpha": alpha,
+            "key": key, "orientation": exif_orientation(exif or b"")}
 
 
 def _to8(px: np.ndarray) -> np.ndarray:
@@ -168,6 +215,10 @@ def to_mode(img: dict, mode: str) -> np.ndarray:
     if mode == "unchanged":
         if ct == 0:
             return np.ascontiguousarray(px[..., 0])
+        if ct == 2 and img["key"] is not None:   # the tRNS colour -> alpha 0
+            opaque = (px != img["key"]).any(-1, keepdims=True)
+            return np.concatenate(
+                [px, (opaque * np.iinfo(px.dtype).max).astype(px.dtype)], axis=-1)
         if ct == 3:
             rgb = _rgb(img)
             return rgb if img["alpha"] is None else np.concatenate(
@@ -178,14 +229,21 @@ def to_mode(img: dict, mode: str) -> np.ndarray:
     raise ValueError(f"read mode {mode!r} is not one of {MODES}")
 
 
+def decode_png_mode(data: bytes, mode: str) -> np.ndarray:
+    """The bytes of a PNG file as one of MODES, EXIF orientation applied
+    where cv2 applies it."""
+    img = decode_png(data)
+    out = to_mode(img, mode)
+    return out if mode == "unchanged" else orient(out, img["orientation"])
+
+
 def read_png(path: str, mode: str = "color") -> np.ndarray:
     """Read a PNG file in one of MODES (see the module docstring)."""
-    if mode not in MODES:
-        raise ValueError(f"read mode {mode!r} is not one of {MODES}")
+    check_mode(mode)
     with open(path, "rb") as f:
         data = f.read()
     try:
-        return to_mode(decode_png(data), mode)
+        return decode_png_mode(data, mode)
     except PNGFormatError as e:
         raise PNGFormatError(f"{path}: {e}") from None
 

@@ -1,14 +1,9 @@
 """Dataset registry keyed by the `--dataset` CLI flag: counterpart of
-`kgtpu/data/registry.py` for the readers the port has."""
+`kgtpu/data/registry.py`, for every dataset kgtpu reads."""
 
 from __future__ import annotations
 
 from kgtpu_torch.config import DataConfig
-
-_NOT_PORTED = {
-    "coco": "ROADMAP item 10 (COCO polygons and JPEG images)",
-    "neural_cells": "ROADMAP item 10 (its TIFF and JPEG images)",
-}
 
 # split -> (number of images, seed) of the generated datasets; the train
 # split's size is cfg.synthetic_train_images
@@ -29,7 +24,10 @@ def build_dataset(cfg: DataConfig, split: str = "train"):
     if cfg.dataset == "folder":
         from kgtpu_torch.data.folder import ImageFolder
         return ImageFolder(cfg.data_dir, split=split)
-    if cfg.dataset in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet: {_NOT_PORTED[cfg.dataset]}")
+    if cfg.dataset == "coco":
+        from kgtpu_torch.data.coco import CocoDataset
+        return CocoDataset(cfg.data_dir, split=split)
+    if cfg.dataset == "neural_cells":
+        from kgtpu_torch.data.neural_cells import NeuralCells
+        return NeuralCells(cfg.data_dir, split=split)
     raise ValueError(f"unknown dataset: {cfg.dataset}")

@@ -16,6 +16,8 @@ function equals kgtpu's result exactly:
     taps outside the source read 0;
   * `resize_image`, `resize_label_nearest`, `resize_sample`: the eval path's
     letterbox-free resize, the warps with the scale matrix;
+  * `resize_nearest`: cv2.resize(INTER_NEAREST) to any (w, h), which is
+    not the nearest warp: it floors x * (1 / (w_dst / w_src)) in f64;
   * `apply_affine`, `random_elastic_field`, `apply_elastic`: the train-time
     augmentation.  cv2.remap with f32 maps samples as warpAffine does, with
     the maps as the source points;
@@ -204,6 +206,19 @@ def resize_label_nearest(label: np.ndarray, out_size: int) -> np.ndarray:
     label = np.asarray(label)
     xs, ys = affine_points(_scale_matrix(label.shape, out_size), out_size, out_size)
     return sample_nearest(torch.from_numpy(label.astype(np.int64)), xs, ys).numpy().astype(np.int32)
+
+
+def resize_nearest(src: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """cv2.resize(src, (w, h), interpolation=INTER_NEAREST): destination
+    pixel x reads source min(floor(x * ifx), w_src - 1), where ifx is
+    1 / (w / w_src) in f64 (not w_src / w: the two differ in the last bit
+    at some sizes, and the floor with them); rows likewise."""
+    w, h = size
+    sh, sw = src.shape[:2]
+    ifx, ify = 1.0 / (w / sw), 1.0 / (h / sh)
+    xs = np.minimum(np.floor(np.arange(w) * ifx).astype(np.int64), sw - 1)
+    ys = np.minimum(np.floor(np.arange(h) * ify).astype(np.int64), sh - 1)
+    return src[ys[:, None], xs[None, :]]
 
 
 def apply_affine(sample: dict, m: np.ndarray, out_size: int,

@@ -129,18 +129,43 @@ def test_png_write_reads_back_in_cv2(tmp_path, dtype, shape):
 
 
 def test_png_other_formats_raise(tmp_path):
-    img = np.zeros((8, 8, 3), np.uint8)
+    """The files this reader used to refuse read as cv2 reads them: a JPEG
+    (through `imread.read_image`), an Adam7-interlaced and a 4-bit PNG
+    (through `read_png` too).  The variants still queued raise naming their
+    ROADMAP item (an arithmetic-coded JPEG, an RLE BMP); a corrupt chunk
+    raises."""
+    from test_torch_formats import make_bmp
+    from test_torch_formats import make_png as make_any_png
+
+    from kgtpu_torch.data.imread import QUEUED, UnsupportedImage, read_image
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (8, 8, 3)).astype(np.uint8)
     jpg = str(tmp_path / "a.jpg")
     cv2.imwrite(jpg, img)
     inter = str(tmp_path / "i.png")
     with open(inter, "wb") as f:
-        f.write(make_png(img, 2, 8, [0], interlace=1))
+        f.write(make_any_png(img, 2, 8, interlace=1))
     low = str(tmp_path / "g4.png")
     with open(low, "wb") as f:
-        f.write(make_png(np.zeros((8, 8), np.uint8), 0, 4, [0]))
+        f.write(make_any_png(rng.integers(0, 16, (8, 8)), 0, 4))
     for path in (jpg, inter, low):
-        with pytest.raises(png.PNGFormatError, match="ROADMAP item 10"):
-            png.read_png(path, "color")
+        for mode in png.MODES:
+            want = _cv2_read(path, mode)
+            np.testing.assert_array_equal(read_image(path, mode), want)
+            if path != jpg:
+                np.testing.assert_array_equal(png.read_png(path, mode), want)
+    ok, enc = cv2.imencode(".jpg", img)
+    enc = enc.tobytes()
+    at = enc.index(b"\xff\xc0")
+    arith = str(tmp_path / "arith.jpg")
+    with open(arith, "wb") as f:
+        f.write(enc[:at + 1] + b"\xc9" + enc[at + 2:])
+    rle = str(tmp_path / "rle.bmp")
+    with open(rle, "wb") as f:
+        f.write(make_bmp(np.zeros((8, 8)), 8, palette=np.zeros((256, 3)), compression=1))
+    for path in (arith, rle):
+        with pytest.raises(UnsupportedImage, match=QUEUED):
+            read_image(path, "color")
     bad = str(tmp_path / "crc.png")
     data = bytearray(make_png(img, 2, 8, [0]))
     data[40] ^= 0xFF
@@ -193,20 +218,15 @@ def _write_rgb(path, img):
 
 def test_image_folder_matches_kgtpu(tmp_path):
     """Same ids (nested paths flattened with '__', '~n' for repeats), order
-    and pixels; a file of another format is listed with its id and raises
-    when read."""
+    and pixels; a file of another format (here a JPEG, which used to raise
+    when read) reads as kgtpu reads it."""
     rng = np.random.default_rng(3)
     for rel in ("a.png", "scan__1.png", "scan/1.png", "sub/deep/b.PNG", "c.png"):
         _write_rgb(str(tmp_path / rel), rng.integers(0, 256, (20, 30, 3), dtype=np.uint8))
-    cv2.imwrite(str(tmp_path / "z.jpg"), np.zeros((8, 8, 3), np.uint8))
+    cv2.imwrite(str(tmp_path / "z.jpg"), rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
     ours, theirs = ImageFolder(str(tmp_path)), JaxImageFolder(str(tmp_path))
     assert len(ours) == len(theirs) == 6
     for i in range(len(ours)):
-        if ours.paths[i].endswith(".jpg"):
-            with pytest.raises(png.PNGFormatError):
-                ours[i]
-            assert ours._ids[i] == theirs[i]["id"]
-            continue
         a, b = ours[i], theirs[i]
         assert a["id"] == b["id"]
         np.testing.assert_array_equal(a["image"], b["image"])
@@ -260,17 +280,29 @@ def test_dsb2018_matches_kgtpu(tmp_path, split):
 @pytest.mark.parametrize("name,item", [("synthetic", 4), ("synthetic_hard", 4),
                                        ("synthetic_crowded", 4), ("coco", 10),
                                        ("neural_cells", 10)])
-def test_registry_names_the_roadmap_item(name, item):
-    """A dataset that is not ported raises naming its ROADMAP item; item 4
-    (the synthetic generator) is done, so those names build kgtpu's test
-    split (tests/test_torch_synthetic.py holds the images)."""
+def test_registry_names_the_roadmap_item(tmp_path, name, item):
+    """Every dataset kgtpu reads is ported: the synthetic names build
+    kgtpu's test split (tests/test_torch_synthetic.py holds the images);
+    coco and neural_cells, which used to raise naming their ROADMAP item,
+    build their readers (tests/test_torch_datasets.py holds the samples)."""
     cfg = DataConfig(dataset=name, input_size=64)
     if item == 4:
         ds = build_dataset(cfg, split="test")
         assert (type(ds).__name__, len(ds), ds.seed, ds.size) == ("SyntheticCells", 16, 13, 64)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        build_dataset(cfg, split="test")
+    root = tmp_path / name
+    img = np.zeros((16, 16, 3), np.uint8)
+    if name == "coco":
+        os.makedirs(root / "images")
+        cv2.imwrite(str(root / "images" / "a.jpg"), img)
+        with open(root / "annotations.json", "w") as f:
+            f.write('{"images": [{"id": 1, "file_name": "a.jpg"}], "annotations": []}')
+    else:
+        os.makedirs(root / "images")
+        cv2.imwrite(str(root / "images" / "a.tif"), img)
+    ds = build_dataset(DataConfig(dataset=name, data_dir=str(root)), split="test")
+    assert type(ds).__name__ == {"coco": "CocoDataset", "neural_cells": "NeuralCells"}[name]
+    assert len(ds) == 1 and ds[0]["image"].shape == (16, 16, 3)
 
 
 def test_registry_builds_the_ported_readers(tmp_path):

@@ -61,6 +61,9 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.ops, kgtpu_torch.ops.roi, kgtpu_torch.ops.decode\n"
         "import kgtpu_torch.models.unet, kgtpu_torch.models.resnet\n"
         "import kgtpu_torch.models.hourglass, kgtpu_torch.models.blocks\n"
+        "import kgtpu_torch.data.imread, kgtpu_torch.data.jpeg, kgtpu_torch.data.jpeg_pixels\n"
+        "import kgtpu_torch.data.tiff, kgtpu_torch.data.bmp, kgtpu_torch.data.coco\n"
+        "import kgtpu_torch.data.neural_cells, kgtpu_torch.utils.host\n"
         "import importlib.util as u\n"
         "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "s.loader.exec_module(u.module_from_spec(s))\n"
