@@ -111,6 +111,24 @@
     script): `python -m kgtpu_torch.cli.train` at a small size for 2 epochs
     with --rss_limit_gb 0.001 re-execs exactly once, resumes at epoch 1,
     writes two metrics.jsonl lines and exits 0.  Budget FORMATS_PHASE_S.
+[13] The serving export and the debugging flags.  (a) The flagship
+    (assets_torch/flagship_ema) exported with `kgtpu_torch.export.export_infer`
+    at batch 16, 512x512, in f32 and in bf16, into a temporary directory,
+    loaded with `load_serving` and run on the 16 images: integer outputs and
+    label maps equal to the live `build_infer_fn`'s in this process, floats
+    within 1e-4 (f32), [8]'s gates against kgtpu's reference, and the
+    GroupNorm kernel launched as many times inside the artifact as by the
+    live call; prints export s, artifact bytes and ms per batch of the
+    artifact and of the live path (median of 5), and the host syncs of one
+    call of each; a tiny artifact traced on the CPU is served on the card
+    (`load_serving` moves it) and launches the kernel.  (b) The TTA artifact
+    (3 scales + flip, batch 8) and the tiled one (a 2048x2048 slide, tiles
+    of 512) equal to the live builders in f32.  (c) `cli.test --save_vis
+    --debug_nans` over the 16 images (16 overlays, label maps equal to the
+    live f32 path's), `cli.train --profile_dir --debug_nans` for 2 steps (a
+    non-empty trace), and a checkpoint with one NaN weight under
+    --debug_nans stopping `cli.test` with FloatingPointError.  Budget
+    EXPORT_PHASE_S.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -238,6 +256,7 @@ WATCHDOG_FLAGS = ["--dataset", "synthetic", "--synthetic_n", "8", "--input_size"
                   "--mask_size", "16", "--K", "32", "--max_detections", "32",
                   "--rss_limit_gb", "0.001"]
 FORMATS_PHASE_S = 150       # phase [12]'s budget
+EXPORT_PHASE_S = 200        # phase [13]'s budget
 
 
 def require(cond, msg: str) -> None:
@@ -263,6 +282,11 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# kernel_device_ms calls whose device time came from CUDA events because the
+# profiler traced nothing (reported in the metrics line)
+PROFILER_BLIND: list = []
+
+
 def kernel_device_ms(torch, fn, names, launches_per_call: int, launched,
                      iters: int = 20) -> float:
     """Device time per call of `fn` spent in the kernels whose names hold
@@ -274,11 +298,15 @@ def kernel_device_ms(torch, fn, names, launches_per_call: int, launched,
     two windows in a row; after [10]'s profiled call, the first window of
     each later measurement keeps 0 or 4 device records of any kind) while
     the wrapper's count was whole, so a shortfall that is the profiler's
-    alone is measured up to four more times before it fails."""
+    alone is measured up to four more times before it fails.  Where every
+    window held no device record of any kind (the profiler traced nothing;
+    five such windows in a row have been seen on one machine), the device time
+    comes from CUDA events around the same calls instead, and the call is
+    listed in PROFILER_BLIND."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    want, attempts = iters * launches_per_call, 5
+    want, attempts, blind = iters * launches_per_call, 5, 0
     for attempt in range(attempts):
         before = launched()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -294,10 +322,17 @@ def kernel_device_ms(torch, fn, names, launches_per_call: int, launched,
         count = sum(e.count for e in rows)
         if count == want:
             return sum(getattr(e, "self_device_time_total", 0.0) for e in rows) / iters / 1e3
+        blind += not device
         log(f"  profiler saw {count} launches of {names} in {iters} calls, want {want}; "
             f"the wrapper launched all {made}; device records of any kind in the window: "
             f"{sum(e.count for e in device)}"
             + ("; measuring again" if attempt < attempts - 1 else ""))
+    if blind == attempts:
+        ms = cuda_time_ms(fn, iters=iters, warmup=0)
+        PROFILER_BLIND.append({"kernels": list(names), "event_ms": ms})
+        log(f"  the profiler traced no device activity in {attempts} windows: device time "
+            f"from CUDA events instead, {ms:.4f} ms a call")
+        return ms
     require(False, f"profiler saw {count} launches of {names} in {iters} calls")
 
 
@@ -397,11 +432,26 @@ def gn_shape_counts(call) -> dict:
     return counts
 
 
+def enqueue_us(torch, call, n: int = 50) -> float:
+    """Host microseconds per call over n back-to-back calls (enqueue only),
+    median of 3 such runs."""
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            call()
+        runs.append((time.perf_counter() - t) / n * 1e6)
+        torch.cuda.synchronize()
+    return sorted(runs)[1]
+
+
 def gn_per_shape(torch, gn, counts: dict) -> list:
     """The kernel at every shape of the e2e call (bf16, ReLU): CUDA-event ms
     over back-to-back calls, device ms from torch.profiler (one launch per
     call), the HBM bound and the wrapper's host time per call (enqueue
-    only: host clock over 50 calls, no synchronize inside)."""
+    only: host clock over 50 calls, no synchronize inside), as eager calls
+    make it and through the registered op, as an exported program does."""
     rows = []
     for shape, n in sorted(counts.items(), key=lambda kv: -kv[0][0] * kv[0][2] * kv[0][3]):
         c = shape[1]
@@ -411,17 +461,14 @@ def gn_per_shape(torch, gn, counts: dict) -> list:
         call = lambda: gn.group_norm_relu(x, w, b, gn.num_groups(c), True)
         ms = cuda_time_ms(call)
         dev = kernel_device_ms(torch, call, ("group_norm_kernel",), 1, lambda: gn.launches)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(50):
-            call()
-        host_us = (time.perf_counter() - t) / 50 * 1e6
-        torch.cuda.synchronize()
+        host_us, op_us = (enqueue_us(torch, f) for f in (
+            call, lambda: torch.ops.kgtpu_torch.group_norm_relu(x, w, b, gn.num_groups(c), True)))
         bound = 2 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3
         rows.append({"shape": list(shape), "launches": n, "ms": ms, "device_ms": dev,
-                     "bound_ms": bound, "host_us": host_us})
+                     "bound_ms": bound, "host_us": host_us, "host_us_op": op_us})
         log(f"  gn {str(list(shape)):20s} x{n:<3d} {ms:.4f} ms, device {dev:.4f} ms, bound "
-            f"{bound:.4f} ms ({bound / dev:.2f} of it), host {host_us:.1f} us/call")
+            f"{bound:.4f} ms ({bound / dev:.2f} of it), host {host_us:.1f} us/call ({op_us:.1f} "
+            f"through the registered op)")
         del x
     tot = lambda k: sum(r["launches"] * r[k] for r in rows)
     log(f"  e2e call's GroupNorm: {sum(r['launches'] for r in rows)} launches, device "
@@ -1643,6 +1690,297 @@ def phase_formats(np, torch, gn, gauss, fstats: dict) -> dict:
     return out
 
 
+def count_syncs(torch, call) -> int:
+    """Host-device synchronisations in one `call` (torch's sync debug mode
+    warns at each)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def write_like_cli(np, save: str, ids: list, out: dict) -> None:
+    """Label PNGs and detections.json of `out` (a served batch, numpy) as
+    `cli.test` writes them, for `cli.eval.records`."""
+    from kgtpu_torch.data.png import write_png
+    os.makedirs(save, exist_ok=True)
+    images = []
+    for k, iid in enumerate(ids):
+        write_png(os.path.join(save, f"{iid}_label.png"), out["label_map"][k].astype(np.uint16))
+        valid = out["valid"][k]
+        images.append({"id": iid, "scores": out["scores"][k][valid].tolist(),
+                       "num_instances": int(valid.sum())})
+    with open(os.path.join(save, "detections.json"), "w") as f:
+        json.dump({"images": images}, f)
+
+
+def same_outputs(np, got: dict, want: dict, float_tol) -> float:
+    """Integer outputs equal and floats within `float_tol` (None: not held);
+    returns the largest float difference."""
+    require(set(got) == set(want), f"outputs {sorted(got)} != {sorted(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        require(g.shape == w.shape and g.dtype == w.dtype, f"{k}: {g.shape} {g.dtype} against "
+                f"{w.shape} {w.dtype}")
+        if np.issubdtype(w.dtype, np.floating):
+            err = float(np.abs(g.astype(np.float64) - w).max()) if w.size else 0.0
+            worst = max(worst, err)
+            require(float_tol is None or err <= float_tol + float_tol * float(np.abs(w).max()),
+                    f"{k} differs by {err}")
+        else:
+            require(np.array_equal(g, w), f"{k} differs in {int((g != w).sum())} entries")
+    return worst
+
+
+def phase_export(np, torch, gn, gauss, smi: str) -> dict:
+    """[13]: the flagship exported with `kgtpu_torch.export` and served from
+    the reloaded artifact, against the live builders in the same process
+    and against kgtpu's committed reference; the CLIs' --save_vis,
+    --debug_nans and --profile_dir."""
+    from kgtpu_torch.cli import test as test_cli
+    from kgtpu_torch.cli import train as train_cli
+    from kgtpu_torch.cli.eval import metrics as eval_metrics
+    from kgtpu_torch.cli.eval import records
+    from kgtpu_torch.config import required_divisor
+    from kgtpu_torch.data.loader import prepare_sample
+    from kgtpu_torch.data.png import read_png
+    from kgtpu_torch.export import export_infer, load_serving, serving_model
+    from kgtpu_torch.infer import build_infer_fn, build_multiscale_fn, build_tiled_infer_fn
+    from kgtpu_torch.utils.debug import disable_nan_debugging
+    t_phase = time.perf_counter()
+    weights = os.path.join(ASSETS, "flagship_ema")
+    images_dir = os.path.join(ASSETS, "synthetic_hard", "images")
+    ref = np.load(os.path.join(ASSETS, "kgtpu_reference.npz"))
+    ids = [str(i) for i in ref["ids"]]
+    ref_metrics = json.loads(str(ref["metrics_json"]))
+    gt = {i: read_png(os.path.join(ASSETS, "synthetic_hard", "labels", f"{i}.png"),
+                      "unchanged").astype(np.int32) for i in ids}
+    pixels = [read_png(os.path.join(images_dir, f"{i}.png"), "color") for i in ids]
+    to_np = lambda out: {k: v.cpu().numpy() for k, v in out.items()}
+    out, live_f32 = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) single mode, batch 16, 512x512, f32 (TF32 off) and bf16
+        for dtype in ("float32", "bfloat16"):
+            short = "f32" if dtype == "float32" else "bf16"
+            art = os.path.join(tmp, f"single_{short}.pt2")
+            t = time.perf_counter()
+            m = export_infer(weights, art, batch=16, input_size=512, use_ema=True,
+                             compute_dtype=dtype)
+            export_s = time.perf_counter() - t
+            cfg, model = serving_model(weights, use_ema=True, input_size=512,
+                                       compute_dtype=dtype)
+            batch = torch.from_numpy(np.stack(
+                [prepare_sample({"image": im, "label_map": gt[i]}, cfg.data)["image"]
+                 for im, i in zip(pixels, ids)])).cuda()
+            live = build_infer_fn(model, cfg)
+            t = time.perf_counter()
+            serve = load_serving(art)
+            load_s = time.perf_counter() - t
+            gn.launches = 0
+            want = to_np(live(batch))
+            torch.cuda.synchronize()
+            n_live = gn.launches
+            gn.launches = 0                           # the artifact's run
+            got = to_np(serve(batch))
+            torch.cuda.synchronize()
+            n_art = gn.launches
+            err = same_outputs(np, got, want, 1e-4 if dtype == "float32" else None)
+            require(n_art == n_live > 0, f"{dtype}: the artifact launched the GroupNorm kernel "
+                    f"{n_art} times, the live path {n_live}")
+            art_ms = 1e3 * np.median(timed_repeats(torch, lambda: serve(batch), 5))
+            live_ms = 1e3 * np.median(timed_repeats(torch, lambda: live(batch), 5))
+            art_syncs, live_syncs = count_syncs(torch, lambda: serve(batch)), count_syncs(
+                torch, lambda: live(batch))
+            save = os.path.join(tmp, f"scored_{short}")
+            write_like_cli(np, save, ids, got)
+            metr = eval_metrics(records(save, gt, 512))
+            counts = got["valid"].sum(1)
+            dcount = counts - ref[f"counts_{dtype}"]
+            off = [int((got["label_map"][k] != ref[f"labels_{dtype}"][k]).sum())
+                   for k in range(len(ids))]
+            dmap = metr["mAP_dsb2018"] - ref_metrics[dtype]["mAP_dsb2018"]
+            log(f"  (a) single {dtype}: export {export_s:.1f} s, load {load_s:.1f} s, "
+                f"{m['bytes']} bytes; artifact {art_ms:.2f} ms per batch of 16 against live "
+                f"{live_ms:.2f} ms (median of 5); host syncs per call {art_syncs} (live "
+                f"{live_syncs}); GroupNorm launches {n_art} (live {n_live}); integer outputs "
+                f"equal, largest float diff {err:.3g}; {smi}")
+            log(f"    against kgtpu's {dtype} run: mAP_dsb2018 {metr['mAP_dsb2018']:.6f} (diff "
+                f"{dmap:+.6f}, tol {MAP_TOL[dtype]}), largest count diff "
+                f"{int(np.abs(dcount).max())}, label pixels off: max {max(off)}")
+            require(abs(dmap) <= MAP_TOL[dtype], f"artifact {dtype} mAP off kgtpu's by {dmap}")
+            if dtype == "float32":
+                require(not dcount.any(), f"artifact f32 counts off kgtpu's: {dcount.tolist()}")
+                require(max(off) <= PIXELS_OFF_TOL, f"artifact f32 label maps off kgtpu's by "
+                        f"{off} pixels")
+                live_f32 = want["label_map"]
+            out.update({f"export_single_s_{short}": export_s, f"export_load_s_{short}": load_s,
+                        f"export_single_bytes_{short}": m["bytes"],
+                        f"export_single_ms_b16_{short}": art_ms,
+                        f"live_single_ms_b16_{short}": live_ms,
+                        f"export_single_syncs_{short}": art_syncs,
+                        f"live_single_syncs_{short}": live_syncs,
+                        f"export_single_gn_launches_{short}": n_art,
+                        f"export_single_float_err_{short}": err,
+                        f"export_single_mAP_diff_{short}": dmap,
+                        f"export_single_pixels_off_max_{short}": max(off)})
+            del serve, live, model
+            torch.cuda.empty_cache()
+
+        # an artifact traced on the CPU and served on the card: load_serving
+        # moves it with move_to_device_pass (a tiny random model)
+        from kgtpu_torch import checkpoint
+        from kgtpu_torch.config import tiny_test_config
+        from kgtpu_torch.models import build_model
+        tiny = tiny_test_config()
+        tw = checkpoint.write_payload(
+            os.path.join(tmp, "tiny"), 0,
+            {"params": build_model(tiny.model, seed=0, device="cpu").state_dict()},
+            {"config_json": checkpoint.encode_config(tiny)})
+        art = os.path.join(tmp, "tiny_cpu.pt2")
+        export_infer(tw, art, batch=2, input_size=128, platforms=("cpu", "cuda"))
+        imgs = np.random.default_rng(3).integers(0, 256, (2, 128, 128, 3), np.uint8)
+        on_cpu = to_np(load_serving(art, device="cpu")(imgs))
+        gn.launches = 0
+        moved = load_serving(art)(imgs)
+        torch.cuda.synchronize()
+        moved_launches = gn.launches
+        require(all(v.device.type == "cuda" for v in moved.values()) and moved_launches > 0,
+                "the CPU-traced artifact did not serve on the card through the kernel")
+        moved = to_np(moved)
+        moved_err = max(float(np.abs(moved[k].astype(np.float64) - on_cpu[k]).max())
+                        for k in on_cpu if np.issubdtype(on_cpu[k].dtype, np.floating))
+        moved_px = int((moved["label_map"] != on_cpu["label_map"]).sum())
+        log(f"  (a) an artifact traced on the CPU (tiny random model, batch 2, 128x128) served on "
+            f"the card: GroupNorm launches {moved_launches}; against its CPU run, largest float "
+            f"diff {moved_err:.3g}, label pixels differing {moved_px}")
+        out.update({"export_moved_gn_launches": moved_launches,
+                    "export_moved_float_err_vs_cpu": moved_err})
+
+        # (b) TTA (3 scales + flip, batch 8) and one 2048x2048 slide (tiles of 512), f32
+        tta_kw = dict(test_scales=(0.75, 1.0, 1.25), test_flip=True)
+        art = os.path.join(tmp, "tta.pt2")
+        t = time.perf_counter()
+        export_infer(weights, art, batch=8, input_size=512, use_ema=True, mode="tta",
+                     compute_dtype="float32", **tta_kw)
+        tta_export_s = time.perf_counter() - t
+        cfg, model = serving_model(weights, use_ema=True, input_size=512,
+                                   compute_dtype="float32", **tta_kw)
+        div = required_divisor(cfg.model)
+        stacks = {}
+        for sc in cfg.infer.test_scales:
+            dcfg = dataclasses.replace(cfg.data, input_size=max(round(512 * sc / div), 1) * div)
+            stacks[f"{sc:g}"] = torch.from_numpy(np.stack(
+                [prepare_sample({"image": im, "label_map": gt[i]}, dcfg)["image"]
+                 for im, i in zip(pixels[:8], ids[:8])])).cuda()
+        want = to_np(build_multiscale_fn(model, cfg)(stacks))
+        gn.launches = 0
+        got = to_np(load_serving(art)(stacks))
+        tta_launches = gn.launches
+        tta_err = same_outputs(np, got, want, 1e-4)
+        require(tta_launches > 0 and int(want["valid"].sum()) > 0, "TTA artifact: no launch "
+                "or no detection")
+        del model
+        art = os.path.join(tmp, "tiled.pt2")
+        t = time.perf_counter()
+        export_infer(weights, art, use_ema=True, mode="tiled", slide_hw=(2048, 2048),
+                     tile_size=512, compute_dtype="float32")
+        tiled_export_s = time.perf_counter() - t
+        cfg, model = serving_model(weights, use_ema=True, tile_size=512, compute_dtype="float32")
+        slide = torch.from_numpy(mosaic(np, pixels, 4)).cuda()
+        want = to_np(build_tiled_infer_fn(model, cfg, (2048, 2048))(slide))
+        gn.launches = 0
+        got = to_np(load_serving(art)(slide))
+        tiled_launches = gn.launches
+        tiled_err = same_outputs(np, got, want, 1e-4)
+        require(tiled_launches > 0 and int(want["valid"].sum()) > 0, "tiled artifact: no "
+                "launch or no detection")
+        del model
+        torch.cuda.empty_cache()
+        log(f"  (b) TTA artifact (3 scales + flip, batch 8, f32): export {tta_export_s:.1f} s, "
+            f"equal to the live path (largest float diff {tta_err:.3g}), GroupNorm launches "
+            f"{tta_launches}; tiled artifact (2048x2048, 25 tiles of 512, f32): export "
+            f"{tiled_export_s:.1f} s, equal (largest float diff {tiled_err:.3g}), launches "
+            f"{tiled_launches}")
+        out.update({"export_tta_s": tta_export_s, "export_tta_gn_launches": tta_launches,
+                    "export_tta_float_err": tta_err, "export_tiled_s": tiled_export_s,
+                    "export_tiled_gn_launches": tiled_launches,
+                    "export_tiled_float_err": tiled_err})
+
+        # (c) the CLIs' flags
+        save = os.path.join(tmp, "vis")
+        gn.launches = 0
+        t = time.perf_counter()
+        try:
+            rc = test_cli.main(["--dataset", "folder", "--data_dir", images_dir,
+                                "--weights", weights, "--use_ema", "--input_size", "512",
+                                "--batch_size", "16", "--compute_dtype", "float32",
+                                "--save_dir", save, "--save_vis", "--debug_nans"])
+        finally:
+            disable_nan_debugging()
+        vis_s = time.perf_counter() - t
+        vis_launches = gn.launches
+        overlays = sorted(f for f in os.listdir(save) if f.endswith("_vis.png"))
+        require(rc == 0 and len(overlays) == 16, f"cli.test --save_vis wrote {len(overlays)}")
+        for k, i in enumerate(ids):
+            require(np.array_equal(read_png(os.path.join(save, f"{i}_label.png"), "unchanged"),
+                                   live_f32[k]), f"{i}: --debug_nans label map differs")
+            vis = read_png(os.path.join(save, f"{i}_vis.png"), "color")
+            require(vis.shape == (512, 512, 3), f"{i}: overlay {vis.shape}")
+        prof = os.path.join(tmp, "prof")
+        gauss.launches = 0
+        t = time.perf_counter()
+        try:
+            train_cli.run(["--dataset", "synthetic", "--synthetic_n", "16", "--batch_size", "8",
+                           "--num_epochs", "1", "--steps_per_epoch", "2", "--rss_limit_gb", "0",
+                           "--save_dir", os.path.join(tmp, "train"), "--profile_dir", prof,
+                           "--debug_nans"])
+        finally:
+            disable_nan_debugging()
+        train_s = time.perf_counter() - t
+        train_gauss = gauss.launches
+        require(train_gauss == 2, f"2 train steps launched the Gaussian kernel {train_gauss} "
+                "times")
+        trace_bytes = os.path.getsize(os.path.join(prof, "trace.json"))
+        with open(os.path.join(prof, "trace.json")) as f:
+            n_events = len(json.load(f)["traceEvents"])
+        require(n_events > 0, "the --profile_dir trace is empty")
+        from kgtpu_torch import checkpoint
+        state, extra = checkpoint.restore_bundle(weights, use_ema=True)
+        name = next(k for k in state if k.endswith("weight") and state[k].dim() == 4)
+        state = dict(state)
+        state[name] = state[name].clone()
+        state[name][0, 0, 0, 0] = float("nan")
+        bad = checkpoint.write_payload(os.path.join(tmp, "nan"), 0, {"params": state}, extra)
+        stopped = None
+        try:
+            test_cli.main(["--dataset", "folder", "--data_dir", images_dir, "--weights", bad,
+                           "--batch_size", "16", "--save_dir", os.path.join(tmp, "nan_out"),
+                           "--debug_nans"])
+        except FloatingPointError as e:
+            stopped = str(e)
+        finally:
+            disable_nan_debugging()
+        require(stopped is not None, "a NaN weight under --debug_nans did not stop cli.test")
+        log(f"  (c) cli.test --save_vis --debug_nans: 16 overlays, label maps equal to the live "
+            f"f32 path, {vis_s:.1f} s, GroupNorm launches {vis_launches}; cli.train "
+            f"--profile_dir --debug_nans: 2 steps in {train_s:.1f} s, trace {trace_bytes} bytes "
+            f"({n_events} events); planted NaN ({name}[0,0,0,0]) stopped cli.test: {stopped}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase [13]: {phase_s:.1f} s (budget {EXPORT_PHASE_S} s)")
+    require(phase_s <= EXPORT_PHASE_S, f"phase [13] took {phase_s:.0f} s")
+    return {**out, "vis_cli_s": vis_s, "vis_gn_launches": vis_launches,
+            "profile_trace_bytes": trace_bytes, "debug_train_s": train_s,
+            "debug_train_gauss_launches": train_gauss,
+            "export_phase_s": phase_s}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1833,6 +2171,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     xstats = phase_formats(np, torch, gn, gauss, fstats)
 
+    # 13. the serving export, and the debugging and profiling flags
+    log("[13] the flagship exported (kgtpu_torch.export) and served from the reloaded "
+        "artifact (single f32 and bf16, TTA, tiled) against the live path and kgtpu's "
+        "reference; cli.test --save_vis --debug_nans, cli.train --profile_dir --debug_nans, "
+        "a planted NaN")
+    torch.cuda.empty_cache()
+    estats = phase_export(np, torch, gn, gauss, smi)
+
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
                "e2e_img_per_s_all": e2e["img_per_s_all"], "e2e_batch": E2E_BATCH,
@@ -1849,7 +2195,8 @@ def main() -> int:
                "gn_per_shape_b32": gn_rows,
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
-               **tstats, **fstats, **cstats, **ttastats, **bstats, **xstats, "card": smi}
+               **tstats, **fstats, **cstats, **ttastats, **bstats, **xstats, **estats,
+               "device_ms_from_cuda_events": PROFILER_BLIND, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     kernel = {"name": "group_norm_relu", "route": "cuda",
@@ -1872,7 +2219,14 @@ def main() -> int:
                                        for name, v in bstats["variants"].items()},
                                     "JPEG folder f32 [12]": xstats["jpeg_gn_launches_f32"],
                                     "JPEG folder bf16 [12]": xstats["jpeg_gn_launches_bf16"],
-                                    "mixed folder [12]": xstats["mixed_gn_launches"]},
+                                    "mixed folder [12]": xstats["mixed_gn_launches"],
+                                    "single artifact f32 [13]": estats["export_single_gn_launches_f32"],
+                                    "single artifact bf16 [13]":
+                                        estats["export_single_gn_launches_bf16"],
+                                    "TTA artifact [13]": estats["export_tta_gn_launches"],
+                                    "tiled artifact [13]": estats["export_tiled_gn_launches"],
+                                    "cli.test --save_vis --debug_nans [13]":
+                                        estats["vis_gn_launches"]},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],
@@ -1887,7 +2241,9 @@ def main() -> int:
                                      **{f"{name} train [11]": v["gauss_launches_train"]
                                         for name, v in bstats["variants"].items()},
                                      **{f"{name} train [12]": xstats[f"train_{name}_gauss_launches"]
-                                        for name in TRAIN_FORMAT_STEPS}},
+                                        for name in TRAIN_FORMAT_STEPS},
+                                     "train --profile_dir --debug_nans [13]":
+                                         estats["debug_train_gauss_launches"]},
                "max_abs_err": gstats["max_abs_err"],
                "ms": gstats["ms"], "device_ms": gstats["device_ms"],
                "plain_ms": gstats["plain_ms"],

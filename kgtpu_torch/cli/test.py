@@ -27,11 +27,14 @@ Writes, per image:
                               of the valid detections, in slot order
 
 and <save_dir>/detections.json with all of them; --coco_json adds a COCO
-results file.  --profile_dir writes a torch.profiler trace.  Conflicting
-flags exit with test.py's messages; paths that are not ported raise
-SystemExit naming their ROADMAP item by its title: --ngpus > 1 (data
-parallelism), --save_vis and --debug_nans (debugging, profiling and
-visualisation).
+results file; --save_vis adds <save_dir>/<id>_vis.png, the RGB overlay of
+`visualize.draw_instances` on the served image (the pixels kgtpu's test.py
+writes).  --profile_dir writes a torch.profiler trace of the run
+(`utils/profiling.trace`); --debug_nans stops at the first op that produces
+a NaN with FloatingPointError (`utils/debug.enable_nan_debugging`).
+Conflicting flags exit with test.py's messages; --ngpus > 1 is not ported
+and raises SystemExit naming its ROADMAP item by its title (data
+parallelism).
 """
 
 from __future__ import annotations
@@ -65,17 +68,9 @@ def _refuse(args, cfg, ensemble: list[str]) -> None:
             raise SystemExit("--ensemble and --tiled are exclusive")
     if args.tiled and (cfg.infer.test_scales != (1.0,) or cfg.infer.test_flip):
         raise SystemExit("--tiled and multi-scale --test_scales are exclusive")
-    unported = [
-        (args.num_devices > 1,
-         "--ngpus > 1 (data-parallel inference) is ROADMAP §1: data parallelism"),
-        (args.save_vis,
-         "--save_vis (overlays) is ROADMAP §1: debugging, profiling and visualisation"),
-        (args.debug_nans,
-         "--debug_nans is ROADMAP §1: debugging, profiling and visualisation"),
-    ]
-    for bad, msg in unported:
-        if bad:
-            raise SystemExit(f"not ported yet: {msg}")
+    if args.num_devices > 1:
+        raise SystemExit("not ported yet: --ngpus > 1 (data-parallel inference) is "
+                         "ROADMAP §1: data parallelism")
 
 
 def load_model(cfg, args, parser, argv):
@@ -155,6 +150,9 @@ def main(argv: list[str] | None = None) -> int:
     cfg = config_from_test_args(args)
     ensemble = [x for x in args.ensemble.split(",") if x]
     _refuse(args, cfg, ensemble)
+    if args.debug_nans:
+        from kgtpu_torch.utils.debug import enable_nan_debugging
+        enable_nan_debugging()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
 
@@ -196,16 +194,19 @@ def main(argv: list[str] | None = None) -> int:
 
     profiler = contextlib.nullcontext()
     if args.profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-        profiler = profile(activities=[ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+        from kgtpu_torch.utils.profiling import trace
+        profiler = trace(args.profile_dir)
 
-    def write_result(iid, label, boxes, scores, valid):
+    def write_result(iid, label, boxes, scores, valid, image):
         if coco_records is not None:
             # slot-aligned full arrays: label id i + 1 <-> boxes[i], scores[i]
             coco_records.append({"id": iid, "label_map": label,
                                  "boxes": boxes, "scores": scores})
         write_png(os.path.join(save_dir, f"{iid}_label.png"), label.astype(np.uint16))
+        if args.save_vis:
+            from kgtpu_torch.visualize import draw_instances
+            write_png(os.path.join(save_dir, f"{iid}_vis.png"),
+                      draw_instances(image, label, boxes, scores, valid))
         rec = {"id": iid, "boxes": boxes[valid].tolist(),
                "scores": scores[valid].tolist(), "num_instances": int(valid.sum())}
         with open(os.path.join(save_dir, f"{iid}.json"), "w") as f:
@@ -224,12 +225,13 @@ def main(argv: list[str] | None = None) -> int:
             for i in range(len(ds)):
                 raw = ds[i]
                 iid = raw.get("id", f"img_{i:05d}")
-                out = fetch(infer(prepare_sample(raw, cfg.data)["image"]))
+                image = prepare_sample(raw, cfg.data)["image"]
+                out = fetch(infer(image))
                 # ids t * D + d + 1 -> 1..P; scores and boxes aligned to them
                 relab, ids = renumber(out["label_map"])
                 summary.append(write_result(iid, relab, out["boxes"][ids - 1],
                                             out["scores"][ids - 1],
-                                            np.ones(len(ids), bool)))
+                                            np.ones(len(ids), bool), image))
                 log.info("%d/%d (%.2f slides/s)", i + 1, len(ds),
                          (i + 1) / max(time.time() - t0, 1e-6))
         else:
@@ -247,16 +249,14 @@ def main(argv: list[str] | None = None) -> int:
                     stack = [prepare_sample(raw, cfg.data)["image"] for raw in raws]
                     imgs = np.stack(stack + [stack[-1]] * (bs - len(stack)))
                 out = fetch(infer(imgs))
+                shown = imgs["1"] if isinstance(imgs, dict) else imgs
                 for k, i in enumerate(idxs):
                     iid = raws[k].get("id", f"img_{i:05d}")
                     summary.append(write_result(iid, out["label_map"][k], out["boxes"][k],
-                                                out["scores"][k], out["valid"][k]))
+                                                out["scores"][k], out["valid"][k], shown[k]))
                 log.info("%d/%d (%.2f img/s)", len(summary), len(ds),
                          len(summary) / max(time.time() - t0, 1e-6))
 
-    if args.profile_dir:
-        os.makedirs(args.profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
     with open(os.path.join(save_dir, "detections.json"), "w") as f:
         json.dump({"images": summary, "input_size": base,
                    "test_scales": list(scales), "ensemble": ensemble}, f)

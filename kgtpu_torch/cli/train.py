@@ -30,10 +30,13 @@ loads the weights only.
 
 Every backbone (--backbone), norm (--norm batch keeps running stats, which
 checkpoints carry and evaluation uses beside the raw or EMA weights),
---inter_inject, --remat and --decode centernet train.  Paths that are not
-ported exit naming their ROADMAP item by its title: --steps_per_dispatch > 1
-(captured dispatch), --ngpus > 1 and --coordinator (data parallelism),
---profile_dir and --debug_nans (debugging, profiling and visualisation).
+--inter_inject, --remat and --decode centernet train.  --profile_dir traces
+the first epoch's steps (`utils/profiling.trace`, a Chrome trace in that
+directory), as kgtpu's main process does; --debug_nans stops at the first op
+that produces a NaN, forward or backward, with FloatingPointError
+(`utils/debug.enable_nan_debugging`).  Paths that are not ported exit naming
+their ROADMAP item by its title: --steps_per_dispatch > 1 (captured
+dispatch), --ngpus > 1 and --coordinator (data parallelism).
 
 The host-RSS watchdog is kgtpu's: --rss_limit_gb -1 (the default) arms it at
 75% of MemTotal, 0 turns it off, a positive value is the limit in GB.  At
@@ -44,6 +47,7 @@ if it has not, waits for the checkpoint and re-execs itself as
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -58,6 +62,7 @@ from kgtpu_torch import checkpoint
 from kgtpu_torch.config import (Config, build_train_parser, config_from_json,
                                 config_from_train_args, required_divisor)
 from kgtpu_torch.utils import host
+from kgtpu_torch.utils.profiling import trace
 
 log = logging.getLogger("kgtpu_torch.train")
 
@@ -75,10 +80,6 @@ def _refuse_unported(args) -> None:
          "--ngpus > 1 (data-parallel training) is ROADMAP §1: data parallelism"),
         (bool(args.coordinator),
          "--coordinator (multi-host training) is ROADMAP §1: data parallelism"),
-        (bool(args.profile_dir),
-         "--profile_dir is ROADMAP §1: debugging, profiling and visualisation"),
-        (args.debug_nans,
-         "--debug_nans is ROADMAP §1: debugging, profiling and visualisation"),
     ]
     for bad, msg in unported:
         if bad:
@@ -177,6 +178,9 @@ def run(argv: list[str] | None = None) -> dict:
             base = config_from_json(f.read())
     cfg = config_from_train_args(args, base)
     _refuse_unported(args)
+    if args.debug_nans:
+        from kgtpu_torch.utils.debug import enable_nan_debugging
+        enable_nan_debugging()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
 
@@ -250,23 +254,27 @@ def run(argv: list[str] | None = None) -> dict:
         it = batch_iterator(ds, cfg.data, tcfg.batch_size, augment=True,
                             seed=tcfg.seed + epoch, steps=steps_per_epoch)
         t0, seen, wait = time.time(), 0, 0.0
-        for i in range(steps_per_epoch):
-            tw = time.time()
-            host_batch = next(it)
-            wait += time.time() - tw
-            batch = train_lib.batch_to_device(host_batch, device)
-            gen = torch.Generator(device=device).manual_seed(
-                step_seed(tcfg.seed, epoch * 100_000 + i))
-            metrics = step_fn(state, batch, gen)
-            seen += tcfg.batch_size
-            if i % LOG_EVERY == 0:
-                m = {k: round(float(v), 4) for k, v in metrics.items()}
-                log.info("epoch %d step %d/%d %s (%.1f img/s)", epoch, i,
-                         steps_per_epoch, m, seen / max(time.time() - t0, 1e-6))
-        it.close()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        train_s = time.time() - t0
+        profiling = bool(args.profile_dir) and epoch == start_epoch
+        with trace(args.profile_dir) if profiling else contextlib.nullcontext():
+            for i in range(steps_per_epoch):
+                tw = time.time()
+                host_batch = next(it)
+                wait += time.time() - tw
+                batch = train_lib.batch_to_device(host_batch, device)
+                gen = torch.Generator(device=device).manual_seed(
+                    step_seed(tcfg.seed, epoch * 100_000 + i))
+                metrics = step_fn(state, batch, gen)
+                seen += tcfg.batch_size
+                if i % LOG_EVERY == 0:
+                    m = {k: round(float(v), 4) for k, v in metrics.items()}
+                    log.info("epoch %d step %d/%d %s (%.1f img/s)", epoch, i,
+                             steps_per_epoch, m, seen / max(time.time() - t0, 1e-6))
+            it.close()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            train_s = time.time() - t0
+        if profiling:
+            log.info("profile written to %s", args.profile_dir)
         summary["epochs"].append({"epoch": epoch, "steps": steps_per_epoch,
                                   "train_s": train_s, "wait_s": wait})
 

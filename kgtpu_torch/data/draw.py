@@ -278,14 +278,18 @@ def fill_poly(img: np.ndarray, rings, color) -> None:
     ring an [n, 2] array of integer (x, y) points.  As drawing.cpp's
     CollectPolyEdges and FillEdgeCollection: every edge, horizontal ones too,
     drawn with `_line`; each non-horizontal edge kept in 16-bit fixed point
-    (its x at the upper row, its truncated slope dx, rows [y0, y1); an edge
-    that leaves the image runs between its clipped ends); then per row the
-    active edges, merged with the edges starting there (a new edge goes
-    before active edges of equal x), are filled pair by pair from ceil(x) to
-    floor(x) of the next, each edge stepping by dx when its pair is drawn,
-    and re-sorted by x, stably.  Equal to cv2 on every polygon whose
-    vertices lie inside the image; where an edge leaves it, cv2 5.0 can fill
-    a column more at the border (see the ROADMAP)."""
+    (its x at the upper row, its truncated slope dx, rows [y0, y1)); then per
+    row the active edges, merged with the edges starting there (a new edge
+    goes before active edges of equal x), are filled pair by pair from
+    ceil(x) to floor(x) of the next, each edge stepping by dx when its pair
+    is drawn, and re-sorted by x, stably.
+
+    An edge that leaves the image runs between the x's of its clipped ends
+    (`_clip_line`, also where it misses the image); over the clipped rows
+    where those differ, and over its own rows where the clipped part is one
+    row.  So an edge that crosses the image in one row stands upright at its
+    clipped x, and fills up to the border column on the rows it spans
+    outside, as cv2 5.0 does."""
     h, w = img.shape[:2]
     edges = []
     for ring in rings:
@@ -299,9 +303,11 @@ def fill_poly(img: np.ndarray, rings, color) -> None:
             c0, c1 = [x0, y0], [x1, y1]
             if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h and 0 <= t1[1] < h):
                 _clip_line(w, h, t0, t1)
+                # the clipped x's always; the clipped rows unless they are
+                # one row, where the edge keeps its own rows
+                c0[0], c1[0] = t0[0] << XY_SHIFT, t1[0] << XY_SHIFT
                 if t0[1] != t1[1]:
-                    c0 = [t0[0] << XY_SHIFT, t0[1]]
-                    c1 = [t1[0] << XY_SHIFT, t1[1]]
+                    c0[1], c1[1] = t0[1], t1[1]
             if y0 != y1:
                 dx = _tdiv(c1[0] - c0[0], c1[1] - c0[1])
                 if y0 < y1:

@@ -20,7 +20,13 @@ detections, pastes per tile with globally unique ids and stitches
 
 JAX's jit and vmap have no counterpart here: PyTorch runs eagerly, and every
 op carries the batch axis.  A skipped chunk is found by one host-side count
-of valid slots per batch, where JAX used lax.cond per chunk.
+of valid slots per batch, where JAX used lax.cond per chunk, and the
+grouper's and NMS's rounds stop on a host check.  `traced=True` gives every
+builder the forms `torch.export` can trace (`kgtpu_torch/export.py`): a
+cond per slot chunk and while_loop rounds (`ops/control.py`), and the
+pipeline's body without `torch.inference_mode` (the caller traces under
+no_grad).  They compute the same outputs, a skipped chunk's logits 0
+included.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 from kgtpu_torch.config import Config
 from kgtpu_torch.device import resolve_device
 from kgtpu_torch.models import KGNet
+from kgtpu_torch.ops.control import cond
 from kgtpu_torch.ops.decode import decode_center_wh, decode_peaks, gather_at
 from kgtpu_torch.ops.group import Boxes, group_keypoints
 from kgtpu_torch.ops.nms import box_nms, merge_scales
@@ -49,51 +56,66 @@ def _check_cfg(cfg: Config) -> None:
         raise ValueError('group.method="centernet" needs model.use_wh_head=True')
 
 
-def decode_batch(cfg: Config, stack: dict) -> Boxes:
+def decode_batch(cfg: Config, stack: dict, traced: bool = False) -> Boxes:
     """Last-stack head maps (NHWC f32) -> NMS'd Boxes [B, D] (stride coords)."""
     if cfg.group.method == "centernet":
         if "wh" not in stack:
             raise ValueError('group.method="centernet" needs model.use_wh_head=True')
         cand = decode_center_wh(stack["hm"], stack["reg"], stack["wh"],
                                 cfg.group.max_detections, cfg.group.score_thresh)
-        return box_nms(cand, cfg.group.nms_iou)
+        return box_nms(cand, cfg.group.nms_iou, traced=traced)
     peaks = decode_peaks(stack["hm"], stack["reg"], cfg.group.max_peaks_per_class)
     kp_wh = None
     if cfg.group.size_prune > 0 and "wh" in stack:
         kp_wh = gather_at(stack["wh"], peaks.indices)     # [B, 5, K, 2]
-    cand = group_keypoints(peaks, cfg.group, kp_wh=kp_wh)
-    return box_nms(cand, cfg.group.nms_iou)
+    cand = group_keypoints(peaks, cfg.group, kp_wh=kp_wh, traced=traced)
+    return box_nms(cand, cfg.group.nms_iou, traced=traced)
 
 
-def detect_batch(model: KGNet, cfg: Config, images: torch.Tensor
-                 ) -> tuple[Boxes, torch.Tensor]:
+def detect_batch(model: KGNet, cfg: Config, images: torch.Tensor,
+                 traced: bool = False) -> tuple[Boxes, torch.Tensor]:
     """Normalized images [B, H, W, 3] -> (Boxes [B, D], features NHWC)."""
     out = model(images, last_stack_only=True)
-    return decode_batch(cfg, out["stacks"][-1]), out["feat"]
+    return decode_batch(cfg, out["stacks"][-1], traced), out["feat"]
 
 
 def mask_probs(model: KGNet, cfg: Config, feats: torch.Tensor,
-               dets: Boxes) -> torch.Tensor:
+               dets: Boxes, traced: bool = False) -> torch.Tensor:
     """ROI crop + mask head -> mask probabilities [B, D, m, m].  Slot chunks
-    with no valid detection in any image are skipped (zeros)."""
+    with no valid detection in any image are skipped: their logits are 0
+    (probability 0.5), as kgtpu's are."""
     b, d = dets.boxes.shape[:2]
     m = cfg.model.mask_size
     ch = cfg.infer.mask_chunk
-    if 0 < ch < d:
+    dense = not 0 < ch < d                  # dense: every slot, no skipping
+    if dense:
+        ch, pad, boxes = d, 0, dets.boxes
+    else:
         pad = (-d) % ch
         boxes = torch.nn.functional.pad(dets.boxes, (0, 0, 0, pad))
         valid = torch.nn.functional.pad(dets.valid, (0, pad))
         live = valid.reshape(b, -1, ch).any(dim=2).any(dim=0)
-        chunks = torch.nonzero(live).flatten().tolist()
-    else:                                   # dense: every slot, no skipping
-        ch, pad, boxes, chunks = d, 0, dets.boxes, [0]
-    logits = torch.zeros((b, d + pad, m, m), dtype=torch.float32,
-                         device=feats.device)
-    for ci in chunks:
-        sl = slice(ci * ch, (ci + 1) * ch)
-        crops = crop_and_resize(feats, boxes[:, sl], cfg.model.roi_size)
+
+    # a traced branch reads its operands only: the mask head's state goes in
+    state = dict(model.mask_head.named_parameters()) | dict(model.mask_head.named_buffers())
+
+    def head(feats, bx, *tensors) -> torch.Tensor:
+        crops = crop_and_resize(feats, bx, cfg.model.roi_size)
         flat = crops.reshape((b * ch,) + crops.shape[2:])
-        logits[:, sl] = model.apply_mask_head(flat).reshape(b, ch, m, m)
+        named = dict(zip(state, tensors)) if tensors else None
+        return model.apply_mask_head(flat, named).reshape(b, ch, m, m)
+
+    if dense:
+        return torch.sigmoid(head(feats, boxes))
+    if traced:
+        skip = lambda *_: torch.zeros((b, ch, m, m), dtype=torch.float32, device=feats.device)
+        logits = torch.cat([cond(live[ci], head, skip,
+                                 (feats, boxes[:, ci * ch:(ci + 1) * ch], *state.values()))
+                            for ci in range((d + pad) // ch)], dim=1)
+    else:
+        logits = torch.zeros((b, d + pad, m, m), dtype=torch.float32, device=feats.device)
+        for ci in torch.nonzero(live).flatten().tolist():
+            logits[:, ci * ch:(ci + 1) * ch] = head(feats, boxes[:, ci * ch:(ci + 1) * ch])
     return torch.sigmoid(logits[:, :d])
 
 
@@ -115,11 +137,12 @@ def rescore_by_maskness(cfg: Config, probs: torch.Tensor, scores: torch.Tensor,
 
 
 def mask_batch(model: KGNet, cfg: Config, feats: torch.Tensor, dets: Boxes,
-               height: int, width: int, gate: float | None = None) -> dict:
+               height: int, width: int, gate: float | None = None,
+               traced: bool = False) -> dict:
     """Stage 2: masks for the detection slots, pasted into label maps, with
     the rescore gate at `gate` (see rescore_by_maskness).  Boxes come back
     in image pixels."""
-    probs = mask_probs(model, cfg, feats, dets)
+    probs = mask_probs(model, cfg, feats, dets, traced)
     scores, valid = rescore_by_maskness(cfg, probs, dets.scores, dets.valid, gate)
     boxes = dets.boxes
     if cfg.infer.mask_rescore > 0:
@@ -135,7 +158,7 @@ def mask_batch(model: KGNet, cfg: Config, feats: torch.Tensor, dets: Boxes,
     ch = cfg.infer.mask_chunk
     label, score_map = paste_masks_batch(
         probs, boxes_px, scores, valid, height, width,
-        thresh=cfg.group.mask_thresh, box_chunk=ch if 0 < ch < d else 32)
+        thresh=cfg.group.mask_thresh, box_chunk=ch if 0 < ch < d else 32, traced=traced)
     return {"boxes": boxes_px, "scores": scores, "valid": valid,
             "masks": probs, "label_map": label, "score_map": score_map}
 
@@ -147,27 +170,33 @@ def _serving(model: KGNet, device) -> torch.device:
     return dev
 
 
+def _entry(body: Callable, traced: bool) -> Callable:
+    """A builder's pipeline: its body under torch.inference_mode, or the
+    bare body for tracing."""
+    return body if traced else torch.inference_mode()(body)
+
+
 def build_infer_fn(model: KGNet, cfg: Config,
-                   device: str | torch.device = "cuda") -> Callable:
+                   device: str | torch.device = "cuda", traced: bool = False) -> Callable:
     """(images [B, H, W, 3] raw pixels, uint8 or float 0-255) -> dict of
     boxes [B, D, 4] (pixels), scores [B, D], valid [B, D], masks
     [B, D, m, m], label_map [B, H, W] int32, score_map [B, H, W].
 
     Moves `model` to `device` (CUDA unless the caller asks for the CPU) and
-    puts it in eval mode.  Inputs are moved to that device.
+    puts it in eval mode.  Inputs are moved to that device.  traced: the
+    forms `torch.export` traces (module note).
     """
     _check_cfg(cfg)
     dev = _serving(model, device)
 
-    @torch.inference_mode()
     def infer(images) -> dict:
         images = torch.as_tensor(images).to(dev)
         x = normalize_images(images, cfg.data.mean, cfg.data.std)
-        dets, feats = detect_batch(model, cfg, x)
+        dets, feats = detect_batch(model, cfg, x, traced)
         return mask_batch(model, cfg, feats, dets, images.shape[1],
-                          images.shape[2])
+                          images.shape[2], traced=traced)
 
-    return infer
+    return _entry(infer, traced)
 
 
 def build_detect_fn(model: KGNet, cfg: Config,
@@ -196,7 +225,7 @@ def _cfg_at(cfg: Config, side: int) -> Config:
 
 
 def build_ensemble_fn(models: list[KGNet], cfg: Config, mask_member: int = 0,
-                      device: str | torch.device = "cuda") -> Callable:
+                      device: str | torch.device = "cuda", traced: bool = False) -> Callable:
     """Checkpoint ensemble with multi-scale and flip TTA: every (member,
     scale, flip) variant's detections, in base-scale stride coords, go
     through one `merge_scales` per image (cfg.infer's tta_vote, tta_vote_iou
@@ -209,7 +238,8 @@ def build_ensemble_fn(models: list[KGNet], cfg: Config, mask_member: int = 0,
     cfg.infer.input_size.  Members may differ in architecture; cfg.model is
     the mask member's (the stage-2 crop geometry), and every side must be
     divisible by every member's required divisor.  Each member moves to the
-    device in channels-last layout and eval mode."""
+    device in channels-last layout and eval mode.  traced: as
+    `build_infer_fn`'s."""
     _check_cfg(cfg)
     dev = [_serving(m, device) for m in models][0]
     scales = cfg.infer.test_scales
@@ -222,7 +252,6 @@ def build_ensemble_fn(models: list[KGNet], cfg: Config, mask_member: int = 0,
     gate = (min(cfg.group.score_thresh, cfg.infer.tta_vote_thresh)
             if cfg.infer.tta_vote == "mean" else None)
 
-    @torch.inference_mode()
     def infer_ens(images_by_scale: dict) -> dict:
         stacks = {k: torch.as_tensor(v).to(dev) for k, v in images_by_scale.items()}
         single = next(iter(stacks.values())).ndim == 3
@@ -236,14 +265,14 @@ def build_ensemble_fn(models: list[KGNet], cfg: Config, mask_member: int = 0,
             ws = x.shape[2] / stride
             flipped = torch.flip(x, dims=[2]) if cfg.infer.test_flip else None
             for mi, member in enumerate(models):
-                dets, feat = detect_batch(member, cfg_sc, x)
+                dets, feat = detect_batch(member, cfg_sc, x, traced)
                 if sc == 1.0 and mi == mask_member:
                     base_feat = feat
                 variants.append(Boxes(boxes=dets.boxes * factor, scores=dets.scores,
                                       valid=dets.valid))
                 if flipped is not None:
                     # detect on the mirrored batch, un-mirror: x' = W - x, swapped
-                    fd, _ = detect_batch(member, cfg_sc, flipped)
+                    fd, _ = detect_batch(member, cfg_sc, flipped, traced)
                     fb = fd.boxes
                     unflipped = torch.stack([ws - fb[..., 2], fb[..., 1], ws - fb[..., 0],
                                              fb[..., 3]], dim=-1)
@@ -251,26 +280,27 @@ def build_ensemble_fn(models: list[KGNet], cfg: Config, mask_member: int = 0,
                                           valid=fd.valid))
         merged = merge_scales(variants, cfg.group.nms_iou, cfg.group.max_detections,
                               vote=cfg.infer.tta_vote, vote_iou=cfg.infer.tta_vote_iou,
-                              vote_thresh=cfg.infer.tta_vote_thresh)
-        out = mask_batch(models[mask_member], cfg, base_feat, merged, base, base, gate)
+                              vote_thresh=cfg.infer.tta_vote_thresh, traced=traced)
+        out = mask_batch(models[mask_member], cfg, base_feat, merged, base, base, gate,
+                         traced=traced)
         if single:
             out = {k: v[0] for k, v in out.items()}
         return out
 
-    return infer_ens
+    return _entry(infer_ens, traced)
 
 
 def build_multiscale_fn(model: KGNet, cfg: Config,
-                        device: str | torch.device = "cuda") -> Callable:
+                        device: str | torch.device = "cuda", traced: bool = False) -> Callable:
     """Multi-scale and flip TTA: the one-member `build_ensemble_fn`.
     fn({f"{scale:g}": images [B, side, side, 3]}) with side =
     round(scale * input_size) to the model's divisor."""
-    return build_ensemble_fn([model], cfg, mask_member=0, device=device)
+    return build_ensemble_fn([model], cfg, mask_member=0, device=device, traced=traced)
 
 
 def build_tiled_infer_fn(model: KGNet, cfg: Config, image_hw: tuple[int, int],
                          device: str | torch.device = "cuda",
-                         tile_batch: int = 8) -> Callable:
+                         tile_batch: int = 8, traced: bool = False) -> Callable:
     """Whole-slide inference.  Returns fn(image [H, W, 3] raw pixels) ->
     {"label_map" [H, W] int32, "score_map" [H, W], "boxes" [T * D, 4]
     (slide pixels), "scores" [T * D], "valid" [T * D]}: slot d of tile t
@@ -282,7 +312,8 @@ def build_tiled_infer_fn(model: KGNet, cfg: Config, image_hw: tuple[int, int],
     short); each tile keeps the detections centered in its owned region,
     the mask stage and paste run over the chunk's tiles as a batch (slot
     chunks with no owned detection skip), and the tile canvases stitch by
-    score."""
+    score.  The grid is fixed, so the tile origins are Python ints on every
+    path.  traced: as `build_infer_fn`'s."""
     _check_cfg(cfg)
     dev = _serving(model, device)
     h, w = image_hw
@@ -290,36 +321,38 @@ def build_tiled_infer_fn(model: KGNet, cfg: Config, image_hw: tuple[int, int],
     s = cfg.data.stride
     d = cfg.group.max_detections
     origins_np = tile_grid(h, w, ts, cfg.infer.tile_overlap)
+    origins_list = origins_np.tolist()
     n_tiles = len(origins_np)
     origins = torch.from_numpy(origins_np).to(dev)
     rects = torch.from_numpy(ownership_rects(origins_np, ts)).to(dev)
     ch = cfg.infer.mask_chunk
     box_chunk = ch if 0 < ch < d else 32
 
-    @torch.inference_mode()
     def infer_tiled(image) -> dict:
         x = normalize_images(torch.as_tensor(image).to(dev), cfg.data.mean, cfg.data.std)
         parts = []
         for start in range(0, n_tiles, tile_batch):
             sl = slice(start, min(start + tile_batch, n_tiles))
             org = origins[sl]
-            dets, feats = detect_batch(model, cfg, extract_tiles(x, origins_np[sl], ts))
+            dets, feats = detect_batch(model, cfg, extract_tiles(x, origins_list[sl], ts),
+                                       traced)
             boxes_px = dets.boxes * s
             own = ownership_mask(Boxes(boxes=boxes_px, scores=dets.scores, valid=dets.valid),
                                  org, rects[sl])
             gboxes = boxes_px + org[:, None, [1, 0, 1, 0]].to(torch.float32)
-            probs = mask_probs(model, cfg, feats, Boxes(dets.boxes, dets.scores, own))
+            probs = mask_probs(model, cfg, feats, Boxes(dets.boxes, dets.scores, own), traced)
             scores, own = rescore_by_maskness(cfg, probs, dets.scores, own)
             tid = torch.arange(sl.start, sl.stop, dtype=torch.int32, device=dev)
             label, score = paste_masks_batch(probs, boxes_px, scores, own, ts, ts,
                                              thresh=cfg.group.mask_thresh,
-                                             box_chunk=box_chunk, id_base=tid * d)
+                                             box_chunk=box_chunk, id_base=tid * d,
+                                             traced=traced)
             parts.append((label, score, gboxes, scores, own))
         label, score, gboxes, scores, own = (torch.cat(p) for p in zip(*parts))
-        g_label, g_score = stitch_tiles(label, score, origins_np, h, w)
+        g_label, g_score = stitch_tiles(label, score, origins_list, h, w)
         return {"label_map": g_label, "score_map": g_score,
                 "boxes": gboxes.reshape(n_tiles * d, 4),
                 "scores": scores.reshape(n_tiles * d),
                 "valid": own.reshape(n_tiles * d)}
 
-    return infer_tiled
+    return _entry(infer_tiled, traced)

@@ -85,9 +85,14 @@ class KGNet(nn.Module):
                   for p in preds]
         return {"stacks": stacks, "feat": feats[-1].permute(0, 2, 3, 1)}
 
-    def apply_mask_head(self, crops: torch.Tensor) -> torch.Tensor:
-        """crops [D, R, R, F] -> mask logits [D, m, m] float32."""
-        return self.mask_head(_to_nchw(crops, self.compute_dtype)).float()
+    def apply_mask_head(self, crops: torch.Tensor, state: dict | None = None) -> torch.Tensor:
+        """crops [D, R, R, F] -> mask logits [D, m, m] float32.  `state`:
+        the mask head's parameters and buffers by name, to run it on those
+        tensors instead of its own (a traced branch reads its operands only)."""
+        x = _to_nchw(crops, self.compute_dtype)
+        if state is None:
+            return self.mask_head(x).float()
+        return torch.func.functional_call(self.mask_head, state, (x,)).float()
 
     def use_plain_norm(self, plain: bool = True) -> "KGNet":
         """Compute every GroupNorm with its plain PyTorch version instead of

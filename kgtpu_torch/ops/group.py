@@ -9,6 +9,13 @@ each round accepts every live edge that is the best of both its row and its
 column, then kills those rows and columns.  A round on a batch with no live
 edge changes nothing, so the host checks for live edges only every few
 rounds (each check is a device sync on the card).
+
+`traced=True` runs the same rounds as a while_loop (kgtpu's
+lax.while_loop; `ops/control.run_rounds`): each iteration runs
+ROUNDS_PER_CHECK rounds, and the loop goes on while an edge is live.  That
+form has no host-side branch, so `torch.export` can trace it
+(`kgtpu_torch/export.py`); it gives the same keep-set, since the rounds it
+adds after the last live edge change nothing.
 """
 
 from __future__ import annotations
@@ -18,10 +25,8 @@ from typing import NamedTuple
 import torch
 
 from kgtpu_torch.config import KP_BL, KP_BR, KP_CENTER, KP_TL, KP_TR, GroupConfig
+from kgtpu_torch.ops.control import run_rounds
 from kgtpu_torch.ops.decode import Peaks
-
-# Rounds run between two checks for live edges.
-ROUNDS_PER_CHECK = 4
 
 
 class Boxes(NamedTuple):
@@ -68,10 +73,12 @@ def _match_round(live: torch.Tensor, kept: torch.Tensor, score: torch.Tensor,
 
 
 def group_keypoints(peaks: Peaks, cfg: GroupConfig,
-                    kp_wh: torch.Tensor | None = None) -> Boxes:
+                    kp_wh: torch.Tensor | None = None,
+                    traced: bool = False) -> Boxes:
     """peaks [B, 5, K] -> Boxes [B, max_detections], score-descending, not
     yet NMS-deduplicated.  kp_wh: optional [B, 5, K, 2] size-head values at
-    each peak, for the size_prune gate."""
+    each peak, for the size_prune gate.  traced: the matching rounds as a
+    while_loop (see the module note)."""
     tl_s, br_s = peaks.scores[:, KP_TL], peaks.scores[:, KP_BR]       # [B, K]
     tl, br = peaks.coords[:, KP_TL], peaks.coords[:, KP_BR]           # [B, K, 2]
 
@@ -117,13 +124,10 @@ def group_keypoints(peaks: Peaks, cfg: GroupConfig,
     b, k = tl_s.shape
     fidx = torch.arange(k * k, device=score.device).reshape(1, k, k)
     live = ok & (score > 0.0)
-    kept = torch.zeros_like(live)
     # each round accepts >= 1 edge per batch item that has a live edge and
     # kills its row and column, so K rounds always suffice
-    for r in range(k):
-        if r % ROUNDS_PER_CHECK == 0 and not bool(live.any()):
-            break
-        live, kept = _match_round(live, kept, score, fidx, k * k)
+    kept = run_rounds(lambda lv, kp, sc, fi: _match_round(lv, kp, sc, fi, k * k),
+                      live, torch.zeros_like(live), k, traced, (score, fidx))
 
     # <= 1 kept edge per row: order rows by (score desc, row asc)
     masked = torch.where(kept, score, torch.full_like(score, -1.0))

@@ -9,12 +9,19 @@ header note gives the design and what bounds it): one cooperative launch
 per call that reads x once and writes y once.
 
 `group_norm_relu` takes an NCHW tensor laid out channels-last (NHWC in
-memory), the layout the port's convolutions produce.  A CPU tensor goes to
-`group_norm_relu_reference`; a CUDA tensor launches the kernel, which is
-built with nvcc at first use (`ops/_cuda.py`), or raises.  The kernel has
-no backward, like the Pallas one: on CUDA the wrapper raises when autograd
-would record the call, rather than return a result with no `grad_fn`.
-`launches` counts the kernel's launches.
+memory), the layout the port's convolutions produce, checks it and calls the
+custom op `torch.ops.kgtpu_torch.group_norm_relu`: on a CPU tensor the op
+computes `group_norm_relu_reference`; on a CUDA tensor it launches the
+kernel, which is built with nvcc at first use (`ops/_cuda.py`), or raises.
+As a registered op (with a fake implementation that gives the kernel's
+channels-last output) the norm is one node of a `torch.export` graph, and a
+saved program calls the kernel through it (`kgtpu_torch/export.py`).  An
+eager call (a plain tensor, no Python dispatch mode active) runs the op's
+implementation directly, without the op's dispatch.  The
+kernel has no backward, like the Pallas one: on CUDA the wrapper raises when
+autograd would record the call, rather than return a result with no
+`grad_fn`; on the CPU such a call computes the differentiable plain version
+directly.  `launches` counts the kernel's launches.
 
 `launch_plan` is the pure-Python part of a launch: how a sample's rows are
 cut into the parts that one block each holds in shared memory, and the
@@ -229,22 +236,58 @@ def group_norm_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """
     _check(x, weight, bias, groups)
     dev = x.device
-    if dev.type == "cpu":
-        return group_norm_relu_reference(x, weight, bias, groups, relu)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
+        if dev.type == "cpu":
+            return group_norm_relu_reference(x, weight, bias, groups, relu)
         raise RuntimeError(
             "the GroupNorm kernel has no backward: its output would cut the "
             "autograd graph (train with the module in training mode, or run "
             "under torch.no_grad / torch.inference_mode)")
-    if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("the GroupNorm kernel needs a channels_last tensor")
-    if (weight.dtype != torch.float32 or bias.dtype != torch.float32
-            or weight.device != dev or bias.device != dev
-            or not weight.is_contiguous() or not bias.is_contiguous()):
-        raise ValueError("weight and bias must be contiguous float32 on x's device")
+    if dev.type == "cuda":
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError("the GroupNorm kernel needs a channels_last tensor")
+        if (weight.dtype != torch.float32 or bias.dtype != torch.float32
+                or weight.device != dev or bias.device != dev
+                or not weight.is_contiguous() or not bias.is_contiguous()):
+            raise ValueError("weight and bias must be contiguous float32 on x's device")
+    if type(x) is not torch.Tensor or torch._C._len_torch_dispatch_stack():
+        # traced (fake tensors, a tracing or checking dispatch mode): the op,
+        # one node of the graph
+        return torch.ops.kgtpu_torch.group_norm_relu(x, weight, bias, groups, relu)
+    # eager: the op's implementation directly; the op's dispatch costs the
+    # card's host ~17 us a launch, which lowered e2e img/s (PERF.md §6)
+    if dev.type == "cuda":
+        return launch(x, weight, bias, groups, relu)
+    return _group_norm_relu_cpu(x, weight, bias, groups, relu)
+
+
+@torch.library.custom_op("kgtpu_torch::group_norm_relu", mutates_args=(),
+                         device_types="cuda")
+def _group_norm_relu_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                        groups: int, relu: bool) -> torch.Tensor:
+    """The op's CUDA implementation: one launch of the kernel (`launch`)."""
+    return launch(x, weight, bias, groups, relu)
+
+
+@_group_norm_relu_op.register_kernel("cpu")
+def _group_norm_relu_cpu(x, weight, bias, groups, relu):
+    return group_norm_relu_reference(x, weight, bias, groups, relu).contiguous(
+        memory_format=torch.channels_last)
+
+
+@_group_norm_relu_op.register_fake
+def _group_norm_relu_fake(x, weight, bias, groups, relu):
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
+def launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           groups: int, relu: bool) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors that `group_norm_relu` has
+    checked: y [B, C, H, W] channels-last, in x's dtype."""
+    dev = x.device
     b, c, h, w = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if b == 0 or h * w == 0:

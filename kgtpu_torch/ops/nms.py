@@ -7,14 +7,16 @@ Greedy suppression runs as parallel rounds: each round keeps every live box
 with no live higher-ranked box overlapping it (IoU > thresh, strict), then
 kills the boxes those keeps overlap.  The fixpoint is the sequential greedy
 keep-set; a round with no live box changes nothing, so the host checks for
-live boxes only every few rounds.
+live boxes only every few rounds, or, with `traced=True`, a while_loop runs
+them (`ops/control.run_rounds`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from kgtpu_torch.ops.group import ROUNDS_PER_CHECK, Boxes
+from kgtpu_torch.ops.control import run_rounds
+from kgtpu_torch.ops.group import Boxes
 
 
 def batched_box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -31,9 +33,19 @@ def batched_box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-9)
 
 
-def box_nms(dets: Boxes, iou_thresh: float, max_out: int | None = None) -> Boxes:
+def _suppress_round(live: torch.Tensor, keep: torch.Tensor, conflict: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    blocked = (conflict & live[:, :, None]).any(dim=1)
+    acc = live & ~blocked
+    dead = (conflict & acc[:, :, None]).any(dim=1)
+    return live & ~acc & ~dead, keep | acc
+
+
+def box_nms(dets: Boxes, iou_thresh: float, max_out: int | None = None,
+            traced: bool = False) -> Boxes:
     """dets [B, N] -> Boxes [B, max_out] with kept boxes first
-    (score-descending), padding after."""
+    (score-descending), padding after.  traced: the suppression rounds as a
+    while_loop."""
     n = dets.boxes.shape[1]
     max_out = max_out or n
     key = torch.where(dets.valid, dets.scores, torch.full_like(dets.scores, -1.0))
@@ -46,18 +58,9 @@ def box_nms(dets: Boxes, iou_thresh: float, max_out: int | None = None) -> Boxes
     idx = torch.arange(n, device=boxes.device)
     # conflict[b, j, i]: row j outranks row i and overlaps it enough
     conflict = (idx[:, None] < idx[None, :]) & (iou > iou_thresh)
-    live = valid
-    keep = torch.zeros_like(valid)
     # each round keeps at least the best-ranked live row, so N rounds
     # always suffice
-    for r in range(n):
-        if r % ROUNDS_PER_CHECK == 0 and not bool(live.any()):
-            break
-        blocked = (conflict & live[:, :, None]).any(dim=1)
-        acc = live & ~blocked
-        dead = (conflict & acc[:, :, None]).any(dim=1)
-        live = live & ~acc & ~dead
-        keep = keep | acc
+    keep = run_rounds(_suppress_round, valid, torch.zeros_like(valid), n, traced, (conflict,))
 
     _, out_order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True)
     out_order = out_order[:, :max_out]
@@ -72,7 +75,7 @@ def box_nms(dets: Boxes, iou_thresh: float, max_out: int | None = None) -> Boxes
 
 def merge_scales(per_variant: list[Boxes], iou_thresh: float, max_out: int,
                  vote: str = "max", vote_iou: float = 0.5,
-                 vote_thresh: float = 0.0) -> Boxes:
+                 vote_thresh: float = 0.0, traced: bool = False) -> Boxes:
     """Cross-variant TTA merge: the union of every variant's detections
     (each Boxes [B, Dv], already in the common frame) -> one NMS pass -> the
     top `max_out` rows [B, max_out].
@@ -81,11 +84,12 @@ def merge_scales(per_variant: list[Boxes], iou_thresh: float, max_out: int,
     survivor with the mean over variants of that variant's best-matching
     valid candidate score (IoU > vote_iou; 0 where a variant has none),
     drops survivors whose voted score is below `vote_thresh`, and restores
-    the kept-first, score-descending order (stable on ties)."""
+    the kept-first, score-descending order (stable on ties).  traced: as
+    `box_nms`'s."""
     cat = Boxes(boxes=torch.cat([d.boxes for d in per_variant], dim=1),
                 scores=torch.cat([d.scores for d in per_variant], dim=1),
                 valid=torch.cat([d.valid for d in per_variant], dim=1))
-    merged = box_nms(cat, iou_thresh, max_out=max_out)
+    merged = box_nms(cat, iou_thresh, max_out=max_out, traced=traced)
     if vote == "max":
         return merged
     if vote != "mean":

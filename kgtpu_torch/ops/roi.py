@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from kgtpu_torch.ops.control import cond
+
 
 def crop_weights(start: torch.Tensor, extent: torch.Tensor, r: int,
                  n_src: int) -> torch.Tensor:
@@ -86,15 +88,17 @@ def crop_and_resize(img: torch.Tensor, boxes: torch.Tensor,
 def paste_masks_batch(masks: torch.Tensor, boxes: torch.Tensor,
                       scores: torch.Tensor, valid: torch.Tensor, height: int,
                       width: int, thresh: float = 0.5,
-                      box_chunk: int = 32, id_base: int | torch.Tensor = 0
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+                      box_chunk: int = 32, id_base: int | torch.Tensor = 0,
+                      traced: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Paste per-box mask probabilities into per-image instance maps.
 
     masks [B, D, r, r], boxes [B, D, 4] (image pixel coords), scores and
     valid [B, D].  Each pixel goes to the highest-scoring valid instance
     whose mask exceeds `thresh` there (ties: the lowest slot).  Slots run in
     chunks of `box_chunk`; a chunk with no valid slot in any image is
-    skipped (one host-side check for the whole batch).  `id_base` is an int
+    skipped: by one host-side check for the whole batch, or with `traced`
+    by a cond per chunk (kgtpu's lax.cond; `ops/control.cond`), which
+    `torch.export` can trace.  A skipped chunk would change nothing.  `id_base` is an int
     or a per-image [B] int tensor (the tiled path passes tile index x D).
 
     Returns (label_map [B, H, W] int32, 0 = background, id_base[i] + d + 1
@@ -114,7 +118,8 @@ def paste_masks_batch(masks: torch.Tensor, boxes: torch.Tensor,
     base = base[:, None, None] + 1
     label = torch.zeros((b, height, width), dtype=torch.int32, device=dev)
     best = torch.zeros((b, height, width), dtype=torch.float32, device=dev)
-    for ci in torch.nonzero(live_chunks).flatten().tolist():
+
+    def paste(ci, label, best, masks, boxes, scores, valid, base):
         sl = slice(ci * box_chunk, (ci + 1) * box_chunk)
         box = boxes[:, sl].float()
         py = paste_weights(box[..., 1], box[..., 3] - box[..., 1], r, height)
@@ -127,8 +132,17 @@ def paste_masks_batch(masks: torch.Tensor, boxes: torch.Tensor,
         win_score, winner = cand.max(dim=1)               # first occurrence
         win_id = (ci * box_chunk + winner).to(torch.int32) + base
         better = (win_score > 0) & (win_score > best)
-        label = torch.where(better, win_id, label)
-        best = torch.where(better, win_score, best)
+        return torch.where(better, win_id, label), torch.where(better, win_score, best)
+
+    operands = (masks, boxes, scores, valid, base)
+    if traced:
+        for ci in range(n_chunks):
+            label, best = cond(live_chunks[ci], lambda *a, ci=ci: paste(ci, *a),
+                               lambda lb, bs, *_: (lb.clone(), bs.clone()),
+                               (label, best, *operands))
+        return label, best
+    for ci in torch.nonzero(live_chunks).flatten().tolist():
+        label, best = paste(ci, label, best, *operands)
     return label, best
 
 

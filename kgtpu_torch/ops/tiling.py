@@ -35,10 +35,16 @@ def tile_grid(height: int, width: int, tile: int, overlap: int) -> np.ndarray:
     return np.asarray([(y, x) for y in ys for x in xs], np.int32)
 
 
+def _pairs(origins) -> list:
+    """Tile origins as Python (oy, ox) pairs: from a list of pairs as it is,
+    from an array or a tensor through `.tolist()`."""
+    return origins.tolist() if hasattr(origins, "tolist") else origins
+
+
 def extract_tiles(image: torch.Tensor, origins, tile: int) -> torch.Tensor:
-    """image [H, W, C], origins [T, 2] (oy, ox; an array or a tensor) ->
-    [T, tile, tile, C]."""
-    return torch.stack([image[oy:oy + tile, ox:ox + tile] for oy, ox in origins.tolist()])
+    """image [H, W, C], origins [T, 2] (oy, ox; Python ints, an array or a
+    tensor) -> [T, tile, tile, C]."""
+    return torch.stack([image[oy:oy + tile, ox:ox + tile] for oy, ox in _pairs(origins)])
 
 
 def ownership_rects(origins: np.ndarray, tile: int) -> np.ndarray:
@@ -84,7 +90,7 @@ def stitch_tiles(local_labels: torch.Tensor, local_scores: torch.Tensor, origins
     ts = local_labels.shape[1]
     label = torch.zeros((height, width), dtype=torch.int32, device=local_labels.device)
     score = torch.zeros((height, width), dtype=torch.float32, device=local_labels.device)
-    for t, (oy, ox) in enumerate(origins.tolist()):
+    for t, (oy, ox) in enumerate(_pairs(origins)):
         cur_l = label[oy:oy + ts, ox:ox + ts]
         cur_s = score[oy:oy + ts, ox:ox + ts]
         better = local_scores[t] > cur_s

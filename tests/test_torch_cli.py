@@ -154,9 +154,7 @@ def test_config_json_refuses_a_dropped_setting(section, field, value):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ngpus", "2"], "data parallelism"),
-    (["--save_vis"], "debugging, profiling and visualisation"),
-    (["--debug_nans"], "debugging, profiling and visualisation")])
+    (["--ngpus", "2"], "data parallelism")])
 def test_unported_paths_exit_naming_their_item(flags, item):
     """The refusal names the ROADMAP item by its title, which a re-anchor
     that renumbers the queue does not change."""
@@ -229,16 +227,16 @@ def cli_runs(tmp_path_factory):
     jout, tout = str(root / "out_jax"), str(root / "out_torch")
     r = subprocess.run(
         [sys.executable, os.path.join(ROOT, "test.py"), *common, "--weights", jw,
-         "--save_dir", jout, "--coco_json", os.path.join(jout, "coco.json")],
+         "--save_dir", jout, "--coco_json", os.path.join(jout, "coco.json"), "--save_vis"],
         env={**os.environ, "KGTPU_PLATFORM": "cpu", "KGTPU_COMPILE_CACHE": "off"},
         capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     os.makedirs(tout)
     assert test_cli.main(common + ["--weights", tw, "--save_dir", tout, "--device", "cpu",
                                    "--coco_json", os.path.join(tout, "coco.json"),
-                                   "--profile_dir", str(root / "prof")]) == 0
+                                   "--profile_dir", str(root / "prof"), "--save_vis"]) == 0
     return {"jax": jout, "torch": tout, "dsb": str(dsb), "prof": str(root / "prof"),
-            "root": root, "common": common}
+            "root": root, "common": common, "weights": tw}
 
 
 VARIANTS = {
@@ -325,6 +323,61 @@ def test_cli_test_matches_kgtpu_test_py(cli_runs):
         assert abs(a["score"] - b["score"]) <= 2e-5
     with open(os.path.join(cli_runs["prof"], "trace.json")) as f:
         assert json.load(f)["traceEvents"]               # --profile_dir's torch.profiler trace
+
+
+def test_save_vis_overlays_equal_kgtpu_test_py(cli_runs):
+    """--save_vis: every image's overlay (masks, boxes and anti-aliased
+    score labels) equals the one kgtpu's test.py writes, pixel for pixel."""
+    jout, tout = cli_runs["jax"], cli_runs["torch"]
+    names = sorted(f for f in os.listdir(jout) if f.endswith("_vis.png"))
+    assert len(names) == 3 and names == sorted(f for f in os.listdir(tout)
+                                               if f.endswith("_vis.png"))
+    drawn = 0
+    for n in names:
+        want = cv2.imread(os.path.join(jout, n), cv2.IMREAD_UNCHANGED)
+        got = cv2.imread(os.path.join(tout, n), cv2.IMREAD_UNCHANGED)
+        assert got.shape == want.shape and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want, err_msg=n)
+        with open(os.path.join(tout, n.replace("_vis.png", ".json"))) as f:
+            drawn += json.load(f)["num_instances"]
+    assert drawn >= 6
+
+
+@pytest.fixture
+def nan_debugging_off():
+    """--debug_nans switches the NaN checks on for the whole process: off
+    again after the test, whatever it raised."""
+    from kgtpu_torch.utils.debug import disable_nan_debugging
+    yield
+    disable_nan_debugging()
+
+
+def test_debug_nans_serves_clean_and_stops_on_a_planted_nan(cli_runs, tmp_path,
+                                                           nan_debugging_off):
+    """--debug_nans: a clean run writes the label maps of the run without
+    it; a checkpoint with one NaN weight stops at the first op that produces
+    a NaN with FloatingPointError naming it."""
+    from kgtpu_torch import checkpoint as tckpt
+    from kgtpu_torch.utils.debug import disable_nan_debugging
+    common, tw = cli_runs["common"], cli_runs["weights"]
+    out = str(tmp_path / "clean")
+    assert test_cli.main(common + ["--weights", tw, "--save_dir", out, "--device", "cpu",
+                                   "--debug_nans"]) == 0
+    names = sorted(f for f in os.listdir(cli_runs["torch"]) if f.endswith("_label.png"))
+    assert len(names) == 3
+    for n in names:
+        np.testing.assert_array_equal(read_png(os.path.join(out, n)),
+                                      read_png(os.path.join(cli_runs["torch"], n)))
+    disable_nan_debugging()
+    state, extra = tckpt.restore_bundle(tw)
+    name = next(k for k in state if k.endswith("weight") and state[k].dim() == 4)
+    state = dict(state)
+    state[name] = state[name].clone()
+    state[name][0, 0, 0, 0] = float("nan")
+    bad = tckpt.write_payload(str(tmp_path / "nan"), 0, {"params": state}, extra)
+    with pytest.raises(FloatingPointError, match="nan"):
+        test_cli.main(common + ["--weights", bad, "--save_dir", str(tmp_path / "o"),
+                                "--device", "cpu", "--debug_nans"])
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))

@@ -595,6 +595,58 @@ def test_fill_poly_matches_cv2():
         np.testing.assert_array_equal(got, want, err_msg=str([r.tolist() for r in rings]))
 
 
+def _fill_both(h: int, w: int, rings) -> tuple[np.ndarray, np.ndarray]:
+    want = np.zeros((h, w), np.uint8)
+    cv2.fillPoly(want, rings, 1)
+    got = np.zeros((h, w), np.uint8)
+    draw.fill_poly(got, rings, 1)
+    return got, want
+
+
+@pytest.mark.parametrize("reach", [1, 2, 20, 200])
+def test_fill_poly_matches_cv2_beyond_the_border(reach):
+    """cv2.fillPoly on 600 random polygons whose vertices lie up to `reach`
+    px outside the image on every side: edges clipped at the border, edges
+    that miss the image, and edges that cross it in one row (cv2 5.0 then
+    stands the edge upright at its clipped x and fills to the border
+    column)."""
+    rng = np.random.default_rng(reach)
+    for _ in range(600):
+        h, w = (int(v) for v in rng.integers(3, 70, 2))
+        rings = [np.stack([rng.integers(-reach, w + reach, n),
+                           rng.integers(-reach, h + reach, n)], -1).astype(np.int32)
+                 for n in rng.integers(1, 15, int(rng.integers(1, 4)))]
+        got, want = _fill_both(h, w, rings)
+        np.testing.assert_array_equal(got, want, err_msg=str([r.tolist() for r in rings]))
+
+
+def test_fill_poly_matches_cv2_on_the_far_border_and_shallow_edges():
+    """Vertices exactly on x = w and y = h (where COCO polygons that touch
+    the image edge round to), long shallow edges that cross the image in
+    one row, and the 3x3 triangle (3,3), (3,1), (2,3), which cv2 fills at
+    (y=1, x=2) and (y=2, x=2)."""
+    got, want = _fill_both(3, 3, [np.array([[3, 3], [3, 1], [2, 3]], np.int32)])
+    np.testing.assert_array_equal(want, [[0, 0, 0], [0, 0, 1], [0, 0, 1]])
+    np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(3)
+    for trial in range(600):
+        h, w = (int(v) for v in rng.integers(3, 40, 2))
+        if trial % 2:
+            rings = [np.stack([rng.choice([0, w, w - 1, *rng.integers(0, w + 1, 3)], n),
+                               rng.choice([0, h, h - 1, *rng.integers(0, h + 1, 3)], n)],
+                              -1).astype(np.int32)
+                     for n in rng.integers(1, 10, int(rng.integers(1, 3)))]
+        else:
+            rings = [np.stack([rng.integers(-80, w + 80, n), rng.integers(-3, h + 3, n)],
+                              -1).astype(np.int32)
+                     for n in rng.integers(2, 8, int(rng.integers(1, 3)))]
+            if trial % 4 == 0:                      # shallow in y instead
+                rings = [r[:, ::-1].copy() for r in rings]
+                h, w = w, h
+        got, want = _fill_both(h, w, rings)
+        np.testing.assert_array_equal(got, want, err_msg=str([r.tolist() for r in rings]))
+
+
 def test_resize_nearest_sweep_matches_cv2():
     """cv2.resize(INTER_NEAREST) on 400 size pairs, up and down, square and
     not (each destination pixel's source read off a coordinate-coded map),

@@ -78,6 +78,31 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     assert gn.launches == before
 
 
+def test_traced_calls_are_one_op_node_eager_calls_skip_the_dispatch(monkeypatch):
+    """A traced call records the op `kgtpu_torch::group_norm_relu` (what an
+    exported program holds), with real or fake tensors; an eager call runs
+    its implementation without the op's dispatch, with the same result."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    x, scale, bias = _inputs(4, (2, 8, 8, 64))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    w, b = torch.from_numpy(scale), torch.from_numpy(bias)
+    for mode in ("real", "fake"):
+        graph = make_fx(lambda t, s, o: gn.group_norm_relu(t, s, o, 32, True),
+                        tracing_mode=mode)(xt, w, b).graph
+        targets = [n.target for n in graph.nodes if n.op == "call_function"]
+        assert targets == [torch.ops.kgtpu_torch.group_norm_relu.default], mode
+    # the op holds the implementation it was registered with; the eager path
+    # looks the module's function up at each call
+    direct, impl = [], gn._group_norm_relu_cpu
+    monkeypatch.setattr(gn, "_group_norm_relu_cpu",
+                        lambda *a: direct.append(1) or impl(*a))
+    y = gn.group_norm_relu(xt, w, b, 32, True)
+    assert direct == [1]
+    assert torch.equal(y, torch.ops.kgtpu_torch.group_norm_relu(xt, w, b, 32, True))
+    assert direct == [1]
+
+
 @pytest.mark.parametrize("channels", [1, 3, 16, 48, 64, 96, 128, 100])
 def test_num_groups_is_flax_norm_rule(channels):
     want = max(d for d in range(1, min(32, channels) + 1) if channels % d == 0)

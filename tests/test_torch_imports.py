@@ -64,6 +64,8 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.data.imread, kgtpu_torch.data.jpeg, kgtpu_torch.data.jpeg_pixels\n"
         "import kgtpu_torch.data.tiff, kgtpu_torch.data.bmp, kgtpu_torch.data.coco\n"
         "import kgtpu_torch.data.neural_cells, kgtpu_torch.utils.host\n"
+        "import kgtpu_torch.export, kgtpu_torch.visualize, kgtpu_torch.ops.control\n"
+        "import kgtpu_torch.utils.debug, kgtpu_torch.utils.profiling\n"
         "import importlib.util as u\n"
         "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "s.loader.exec_module(u.module_from_spec(s))\n"
@@ -120,6 +122,11 @@ def test_cli_and_from_checkpoint_refuse_cpu_fallback(monkeypatch, tmp_path):
     from kgtpu_torch.cli import train
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--dataset", "synthetic", "--save_dir", str(tmp_path / "t")])
+    from kgtpu_torch.export import export_infer, load_serving
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_infer(d, str(tmp_path / "m.pt2"), batch=1, input_size=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_serving(str(tmp_path / "m.pt2"))
 
 
 def test_create_train_state_refuses_cpu_fallback(monkeypatch):

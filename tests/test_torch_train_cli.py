@@ -114,8 +114,6 @@ def test_config_base_keeps_what_has_no_flag():
 @pytest.mark.parametrize("extra,item", [
     (["--steps_per_dispatch", "2"], "captured dispatch"), (["--ngpus", "2"], "data parallelism"),
     (["--coordinator", "localhost:1234"], "data parallelism"),
-    (["--profile_dir", "/p"], "debugging, profiling and visualisation"),
-    (["--debug_nans"], "debugging, profiling and visualisation"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else v.split(",")[0].replace(" ", "_"))
 def test_unported_flags_exit_naming_their_item(tiny_json, tmp_path, extra, item):
     """The refusal names the ROADMAP item by its title.  --rss_limit_gb > 0
@@ -264,6 +262,51 @@ def test_init_from_loads_the_weights_only(tiny_json, tmp_path):
     for n, t in src["params"].items():
         assert torch.equal(got["params"][n], t), n
     assert int(got["opt"]["count"]) == 1 and int(got["epoch"]) == 0
+
+
+@pytest.fixture
+def nan_debugging_off():
+    """--debug_nans switches the NaN checks on for the whole process: off
+    again after the test, whatever it raised."""
+    from kgtpu_torch.utils.debug import disable_nan_debugging
+    yield
+    disable_nan_debugging()
+
+
+def test_debug_nans_trains_clean_and_stops_on_a_planted_nan(tiny_json, tmp_path,
+                                                            nan_debugging_off):
+    """--debug_nans: a clean run takes the steps of the run without it, to
+    the bit; starting from weights with one NaN it stops with
+    FloatingPointError at the first op that produces a NaN."""
+    from kgtpu_torch.utils.debug import disable_nan_debugging
+    args = ("--num_epochs", "1", "--steps_per_epoch", "1", "--rss_limit_gb", "0")
+    train.run(_argv(tiny_json, tmp_path / "plain", *args))
+    train.run(_argv(tiny_json, tmp_path / "checked", *args, "--debug_nans"))
+    disable_nan_debugging()
+    a = checkpoint.restore(str(tmp_path / "plain" / "model_0"))
+    b = checkpoint.restore(str(tmp_path / "checked" / "model_0"))
+    for n, t in a["params"].items():
+        assert torch.equal(b["params"][n], t), n
+    params = dict(a["params"])
+    name = next(k for k in params if k.endswith("weight") and params[k].dim() == 4)
+    params[name] = params[name].clone()
+    params[name][0, 0, 0, 0] = float("nan")
+    bad = checkpoint.write_payload(str(tmp_path / "nan"), 0, {"params": params})
+    with pytest.raises(FloatingPointError, match="nan"):
+        train.run(_argv(tiny_json, tmp_path / "ft", *args, "--init_from", bad,
+                        "--debug_nans"))
+
+
+def test_profile_dir_traces_the_first_epoch(tiny_json, tmp_path):
+    """--profile_dir writes a Chrome trace of the first epoch's steps that
+    holds the train step's ops."""
+    prof = tmp_path / "prof"
+    train.run(_argv(tiny_json, tmp_path / "w", "--num_epochs", "2", "--steps_per_epoch", "1",
+                    "--rss_limit_gb", "0", "--profile_dir", str(prof)))
+    with open(prof / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::convolution") for n in names)
 
 
 def test_keep_last_prunes_and_spares_the_best(tiny_json, tmp_path):
