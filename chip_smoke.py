@@ -48,7 +48,7 @@
     lr 1e-3 after 50 warmup steps) on `synthetic` (64 generated images,
     rotation up to 15 degrees) for CLI_EPOCHS epochs of CLI_STEPS steps,
     evaluated on the 16 val images at the last one, then `--resume` for one
-    more epoch.  Requires: the EMA weights' val mAP_dsb2018 and AP50 above
+    more epoch of CLI_RESUME_STEPS steps.  Requires: the EMA weights' val mAP_dsb2018 and AP50 above
     their floors; a Gaussian launch every step; at least 58 GroupNorm
     launches per eval batch of 8 (raw and EMA weights) and none in
     training; best.json naming a checkpoint that exists; exactly
@@ -103,7 +103,7 @@
     GroupNorm kernel launched; the CLI's img/s beside [8]'s PNG folder; one
     more `cli.test` over the mixed folder, which must serve every file (the
     16-bit and the tiled TIFFs too).  (c) `cli.train` at the default Config
-    (full width, 512x512, batch 8) for 10 steps on `--dataset coco` and 5 on
+    (full width, 512x512, batch 8) for 5 steps on `--dataset coco` and 5 on
     `--dataset neural_cells`, the datasets built in a temporary directory
     from the fixtures: every sample's image and label map equal to kgtpu's
     readers' (by sha256), a finite loss, one Gaussian launch per step.  (d)
@@ -122,13 +122,43 @@
     artifact and of the live path (median of 5), and the host syncs of one
     call of each; a tiny artifact traced on the CPU is served on the card
     (`load_serving` moves it) and launches the kernel.  (b) The TTA artifact
-    (3 scales + flip, batch 8) and the tiled one (a 2048x2048 slide, tiles
-    of 512) equal to the live builders in f32.  (c) `cli.test --save_vis
+    (3 scales + flip, batch 8) and the tiled one (a 1024x1024 slide, 9 tiles
+    of 512 in two chunks; [10] times the 2048x2048 slide) equal to the live
+    builders in f32.  (c) `cli.test --save_vis
     --debug_nans` over the 16 images (16 overlays, label maps equal to the
     live f32 path's), `cli.train --profile_dir --debug_nans` for 2 steps (a
     non-empty trace), and a checkpoint with one NaN weight under
     --debug_nans stopping `cli.test` with FloatingPointError.  Budget
     EXPORT_PHASE_S.
+[14] Captured multi-step training and data parallelism.  (a) The default
+    Config at full width (batch 8, 512x512, EMA 0.999), from one seeded
+    state and 8 seeded batches with their draws: 8 eager steps, twice (the
+    yardstick), then 2 replays of k = 4 steps captured as one CUDA graph
+    (`train_lib.make_train_multi_step`, the batches staged from host NumPy);
+    again with norm=batch.  The losses agree within rtol 1e-4; every
+    parameter, Adam moment, EMA entry and running stat lies within twice
+    the two eager runs' gap plus kgtpu's multi-step tolerance (rtol 1e-5,
+    atol 1e-6); whether they are bitwise equal, and the largest gaps, are
+    printed.  The Gaussian kernel counts its launches on every replay (and
+    the capture's warm-up of k eager steps).  Fixed-batch train img/s at
+    k = 1 (eager) and k = 4 and 8 (graph): median of 5 rounds of 8 steps with
+    min and max, the host's ms per step, the device's idle share and the
+    peak memory.  (b) In a fresh process (this script with --graph-profile,
+    since the earlier phases' profiling leaves this one's profiler short of
+    records): a profiled replay holds k device records of the Gaussian
+    kernel (an empty or short window is measured again), and the replay's
+    loss equals the loss with plain targets on the same state.  (c)
+    `cli.train --steps_per_dispatch 4` and 1 (twice, the yardstick) on
+    `synthetic` (8 images), batch 8, 512x512: one epoch of 10 steps (2 dispatches and a
+    2-step tail), then one more with --resume; metrics.jsonl and the
+    checkpoints' tensors held to (a)'s bound; the CLI's img/s and wait per
+    step.  (d) `cli.train --coordinator localhost:<port> --num_hosts 1`
+    (NCCL, one rank) for 5 steps at k = 1 and k = 2 (the all-reduces inside
+    the graph): losses within 1e-4 of the run without a process group; the
+    all-reduces per step; `build_infer_fn(devices=<every card>)` equal to
+    the unsharded call, through the GroupNorm kernel.  The machine has one
+    H100, so no run here checks more than one rank on the card.  Budget
+    CAPTURE_PHASE_S.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -157,7 +187,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-WATCHDOG_S = 900            # the run's limit is 1200 s
+WATCHDOG_S = 1050           # the run's limit is 1200 s
 TOL = {"bfloat16": 0.05, "float32": 2e-4}   # tests/test_pallas.py's tolerances
 LABEL_AGREEMENT_FLOOR = 0.98
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -181,6 +211,7 @@ PIXELS_OFF_TOL = 16         # label-map pixels per image off kgtpu's, f32 CLI ru
 # this run reached on an H100 80GB HBM3 at 700 W (mAP_dsb2018 0.6437, AP50
 # 0.8143 after 240 steps), as tests/test_e2e.py sets its floors
 CLI_STEPS, CLI_EPOCHS, CLI_KEEP = 40, 6, 2
+CLI_RESUME_STEPS = 10       # the resumed epoch's steps (cut from 40 for the run's time)
 GN_PER_FORWARD = 58         # GroupNorm launches of one full-width forward
 CLI_MAP_FLOOR, CLI_AP50_FLOOR = 0.45, 0.57
 CLI_PHASE_S = 300           # phase [9]'s budget
@@ -249,7 +280,7 @@ FORMAT_KINDS = {   # timed kind: (folder, file-name suffix)
     "16-bit RGB TIFF": (os.path.join(FORMATS, "mixed"), "_rgb16.tif"),
     "24-bit BMP": (os.path.join(FORMATS, "mixed"), ".bmp"),
     "PNG (committed synthetic_hard)": (os.path.join(ASSETS, "synthetic_hard", "images"), ".png")}
-TRAIN_FORMAT_STEPS = {"coco": 10, "neural_cells": 5}
+TRAIN_FORMAT_STEPS = {"coco": 5, "neural_cells": 5}   # coco cut from 10 for the run's time
 WATCHDOG_FLAGS = ["--dataset", "synthetic", "--synthetic_n", "8", "--input_size", "64",
                   "--batch_size", "2", "--steps_per_epoch", "2", "--num_epochs", "2",
                   "--backbone", "hourglass_lite", "--num_stacks", "1", "--roi_size", "8",
@@ -257,6 +288,18 @@ WATCHDOG_FLAGS = ["--dataset", "synthetic", "--synthetic_n", "8", "--input_size"
                   "--rss_limit_gb", "0.001"]
 FORMATS_PHASE_S = 150       # phase [12]'s budget
 EXPORT_PHASE_S = 200        # phase [13]'s budget
+# phase [14]: captured multi-step training and data parallelism
+CAPTURE_BATCHES, CAPTURE_K = 8, 4
+TIMED_KS = (1, 4, 8)
+TIMED_REPEATS = 5
+CAPTURE_LOSS_RTOL = 1e-4
+MULTI_RTOL, MULTI_ATOL = 1e-5, 1e-6     # kgtpu's multi-step tolerance, tests/test_train.py
+CAPTURE_CLI_FLAGS = ["--dataset", "synthetic", "--synthetic_n", "8", "--ema_decay", "0.999",
+                     "--lr", "1e-3", "--eval_every", "0", "--rss_limit_gb", "0"]
+CAPTURE_CLI_STEPS, CAPTURE_CLI_K = 10, 4
+DP_STEPS = 5
+CAPTURE_PHASE_S = 180       # phase [14]'s budget
+GRAPH_PROFILE_FLAG = "--graph-profile"   # runs [14](b) alone, in a fresh process
 
 
 def require(cond, msg: str) -> None:
@@ -971,16 +1014,17 @@ def phase_train_cli(np, torch, gn, gauss) -> dict:
                 f"not above the floors {CLI_MAP_FLOOR} / {CLI_AP50_FLOOR}")
 
         gn.launches = gauss.launches = 0                  # the resumed run
-        second = train_cli.run(flags + ["--num_epochs", str(CLI_EPOCHS + 1), "--resume"])
+        second = train_cli.run(flags + ["--num_epochs", str(CLI_EPOCHS + 1), "--resume",
+                                        "--steps_per_epoch", str(CLI_RESUME_STEPS)])
         torch.cuda.synchronize()
         torch.set_num_threads(threads)
         log(f"  resumed at epoch {second['start_epoch']} step {second['start_step']}, ended at "
             f"step {second['end_step']}; launches: Gaussian {gauss.launches}, GroupNorm "
             f"{gn.launches}")
         require(second["start_epoch"] == CLI_EPOCHS and second["start_step"] == first["end_step"]
-                == steps and second["end_step"] == steps + CLI_STEPS,
+                == steps and second["end_step"] == steps + CLI_RESUME_STEPS,
                 "the resumed run did not continue from the saved epoch and step")
-        require(gauss.launches >= CLI_STEPS and gn.launches == 0,
+        require(gauss.launches >= CLI_RESUME_STEPS and gn.launches == 0,
                 "the resumed epoch's launches are off")
         with open(os.path.join(save, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
@@ -1026,7 +1070,7 @@ def phase_train_cli(np, torch, gn, gauss) -> dict:
     require(phase_s <= CLI_PHASE_S, f"phase [9] took {phase_s:.0f} s")
     return {"train_cli_img_per_s": img_s, "train_cli_step_ms": step_ms,
             "train_cli_wait_ms_per_step": wait_ms, "train_cli_first_wall_s": wall,
-            "train_cli_val": m, "train_cli_steps": steps + CLI_STEPS,
+            "train_cli_val": m, "train_cli_steps": steps + CLI_RESUME_STEPS,
             "train_cli_gauss_launches": gauss_1, "train_cli_gn_launches": gn_1,
             "train_cli_eval_batches": eval_batches, "host_ms_per_sample": host,
             "train_cli_phase_s": phase_s, "train_cli_map_floor": CLI_MAP_FLOOR,
@@ -1863,7 +1907,9 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
         out.update({"export_moved_gn_launches": moved_launches,
                     "export_moved_float_err_vs_cpu": moved_err})
 
-        # (b) TTA (3 scales + flip, batch 8) and one 2048x2048 slide (tiles of 512), f32
+        marks = {"single f32 and bf16, tiny CPU artifact": time.perf_counter() - t_phase}
+        # (b) TTA (3 scales + flip, batch 8) and one 1024x1024 slide (9 tiles of 512, two
+        # chunks), f32
         tta_kw = dict(test_scales=(0.75, 1.0, 1.25), test_flip=True)
         art = os.path.join(tmp, "tta.pt2")
         t = time.perf_counter()
@@ -1887,14 +1933,15 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
         require(tta_launches > 0 and int(want["valid"].sum()) > 0, "TTA artifact: no launch "
                 "or no detection")
         del model
+        marks["TTA"] = time.perf_counter() - t_phase
         art = os.path.join(tmp, "tiled.pt2")
         t = time.perf_counter()
-        export_infer(weights, art, use_ema=True, mode="tiled", slide_hw=(2048, 2048),
+        export_infer(weights, art, use_ema=True, mode="tiled", slide_hw=(1024, 1024),
                      tile_size=512, compute_dtype="float32")
         tiled_export_s = time.perf_counter() - t
         cfg, model = serving_model(weights, use_ema=True, tile_size=512, compute_dtype="float32")
-        slide = torch.from_numpy(mosaic(np, pixels, 4)).cuda()
-        want = to_np(build_tiled_infer_fn(model, cfg, (2048, 2048))(slide))
+        slide = torch.from_numpy(mosaic(np, pixels[:4], 2)).cuda()
+        want = to_np(build_tiled_infer_fn(model, cfg, (1024, 1024))(slide))
         gn.launches = 0
         got = to_np(load_serving(art)(slide))
         tiled_launches = gn.launches
@@ -1905,7 +1952,7 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
         torch.cuda.empty_cache()
         log(f"  (b) TTA artifact (3 scales + flip, batch 8, f32): export {tta_export_s:.1f} s, "
             f"equal to the live path (largest float diff {tta_err:.3g}), GroupNorm launches "
-            f"{tta_launches}; tiled artifact (2048x2048, 25 tiles of 512, f32): export "
+            f"{tta_launches}; tiled artifact (1024x1024, 9 tiles of 512, f32): export "
             f"{tiled_export_s:.1f} s, equal (largest float diff {tiled_err:.3g}), launches "
             f"{tiled_launches}")
         out.update({"export_tta_s": tta_export_s, "export_tta_gn_launches": tta_launches,
@@ -1913,6 +1960,7 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
                     "export_tiled_gn_launches": tiled_launches,
                     "export_tiled_float_err": tiled_err})
 
+        marks["tiled"] = time.perf_counter() - t_phase
         # (c) the CLIs' flags
         save = os.path.join(tmp, "vis")
         gn.launches = 0
@@ -1973,12 +2021,430 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
             f"--profile_dir --debug_nans: 2 steps in {train_s:.1f} s, trace {trace_bytes} bytes "
             f"({n_events} events); planted NaN ({name}[0,0,0,0]) stopped cli.test: {stopped}")
     phase_s = time.perf_counter() - t_phase
+    log("  phase [13] elapsed at the end of each part: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in marks.items()) + f", CLIs {phase_s:.1f} s")
     log(f"  phase [13]: {phase_s:.1f} s (budget {EXPORT_PHASE_S} s)")
     require(phase_s <= EXPORT_PHASE_S, f"phase [13] took {phase_s:.0f} s")
     return {**out, "vis_cli_s": vis_s, "vis_gn_launches": vis_launches,
             "profile_trace_bytes": trace_bytes, "debug_train_s": train_s,
             "debug_train_gauss_launches": train_gauss,
             "export_phase_s": phase_s}
+
+
+def capture_config(norm: str):
+    """[14]'s training Config: the default at full width (2-stack hourglass,
+    128 channels, 512x512, batch 8), EMA 0.999, a 1-step warmup."""
+    from kgtpu_torch.config import Config
+    c = Config()
+    return c.replace(model=dataclasses.replace(c.model, norm=norm),
+                     train=dataclasses.replace(c.train, lr_warmup_steps=1, ema_decay=0.999))
+
+
+def state_names(state) -> list:
+    """Names of `train_lib._state_tensors(state)`, in its order."""
+    names = [n for n, _ in state.model.named_parameters()]
+    bufs = [f"buffer {n}" for n, _ in state.model.named_buffers()]
+    return ([f"param {n}" for n in names] + [f"mu {n}" for n in names]
+            + [f"nu {n}" for n in names] + bufs
+            + ([f"ema {n}" for n in names] if state.ema is not None else []))
+
+
+def held_to_yardstick(torch, names, got, ref, ref2) -> dict:
+    """Each tensor of `got` against `ref`: |got - ref| <= 2 * max|ref - ref2|
+    (the tensor's own yardstick: two eager runs of the same steps; cuDNN's
+    and scatter's backward passes are not bitwise deterministic) + atol +
+    rtol * |ref| (kgtpu's multi-step tolerance)."""
+    over, rows, bitwise, bitwise_ref = [], [], True, True
+    for name, g, a, b in zip(names, got, ref, ref2):
+        g, a, b = g.detach().float(), a.detach().float(), b.detach().float()
+        yard = float((a - b).abs().max()) if a.numel() else 0.0
+        d = (g - a).abs()
+        gap = float(d.max()) if d.numel() else 0.0
+        if bool((d > 2 * yard + MULTI_ATOL + MULTI_RTOL * a.abs()).any()):
+            over.append(name)
+        bitwise &= torch.equal(g, a)
+        bitwise_ref &= torch.equal(a, b)
+        rows.append((gap, yard, name))
+    rows.sort(reverse=True)
+    return {"over": over, "bitwise_equal": bitwise, "eager_runs_bitwise_equal": bitwise_ref,
+            "largest_gaps": [{"tensor": n, "gap": g, "yardstick": y} for g, y, n in rows[:5]]}
+
+
+def capture_inputs(np, torch, cfg, hosts):
+    """Device batches, their [8, ...] device stacks and the 8 steps' draws
+    (step j's from its own generator)."""
+    from kgtpu_torch import train_lib
+    dev = torch.device("cuda")
+    batches = [train_lib.batch_to_device(h, dev) for h in hosts]
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    n = hosts[0]["valid"].shape[1]
+    draws = [train_lib.step_draws(cfg, torch.Generator(device="cuda").manual_seed(1000 + j),
+                                  cfg.train.batch_size, n, dev) for j in range(len(hosts))]
+    sel = torch.stack([d[0] for d in draws])
+    jit = torch.stack([d[1] for d in draws])
+    return batches, stacked, draws, sel, jit
+
+
+def capture_parity(np, torch, gauss, hosts, norm: str) -> dict:
+    """[14](a): 8 eager steps twice (the yardstick), then 2 replays of k = 4
+    from the same seeded state on the same batches and draws."""
+    from kgtpu_torch import train_lib
+    cfg = capture_config(norm)
+    batches, _, draws, sel, jit = capture_inputs(np, torch, cfg, hosts)
+
+    def eager():
+        st = train_lib.create_train_state(cfg, seed=0)
+        losses = [train_lib.train_step(st, b, *d, cfg)["loss"] for b, d in zip(batches, draws)]
+        return st, torch.stack(losses)
+
+    e1, l1 = eager()
+    e2, l2 = eager()
+    g = train_lib.create_train_state(cfg, seed=0)
+    multi = train_lib.make_train_multi_step(cfg, CAPTURE_K)
+    gauss.launches = 0                          # the captured steps' run
+    outs = []
+    for lo in range(0, CAPTURE_BATCHES, CAPTURE_K):
+        group = hosts[lo:lo + CAPTURE_K]        # host NumPy, staged through pinned memory
+        outs.append(multi(g, {k: np.stack([h[k] for h in group]) for k in group[0]},
+                          sel[lo:lo + CAPTURE_K], jit[lo:lo + CAPTURE_K]))
+    torch.cuda.synchronize()
+    launches = gauss.launches
+    lg = torch.cat([o["loss"] for o in outs])
+    loss_gap = float(((lg - l1).abs() / l1.abs()).max())
+    names = state_names(g)
+    held = held_to_yardstick(torch, names, train_lib._state_tensors(g),
+                             train_lib._state_tensors(e1), train_lib._state_tensors(e2))
+    log(f"  norm={norm}: eager losses {[round(float(v), 5) for v in l1]}; captured "
+        f"{[round(float(v), 5) for v in lg]}; largest relative loss gap {loss_gap:.3g} (rtol "
+        f"{CAPTURE_LOSS_RTOL}); captured == eager bitwise: {held['bitwise_equal']}, the two "
+        f"eager runs bitwise: {held['eager_runs_bitwise_equal']}; Gaussian launches of the "
+        f"capture's warm-up and the 2 replays: {launches}")
+    log("    largest gaps (captured vs eager, yardstick eager vs eager): " + "; ".join(
+        f"{r['tensor']} {r['gap']:.3g} ({r['yardstick']:.3g})" for r in held["largest_gaps"]))
+    # the capture's warm-up runs the k bodies once, eagerly
+    require(launches == CAPTURE_BATCHES + CAPTURE_K, f"the capture and its replays counted "
+            f"{launches} Gaussian launches, want {CAPTURE_BATCHES + CAPTURE_K}")
+    require(loss_gap <= CAPTURE_LOSS_RTOL, f"norm={norm}: captured losses off by {loss_gap}")
+    require(not held["over"], f"norm={norm}: {len(held['over'])} tensors beyond the bound, "
+            f"e.g. {held['over'][:3]}")
+    require(g.step == g.optimizer.count == CAPTURE_BATCHES, "the host counts did not advance by k")
+    return {"loss_rel_gap": loss_gap, "gauss_launches": launches, **held}
+
+
+def capture_timing(np, torch, hosts, cfg) -> dict:
+    """[14](a): fixed-batch train img/s over rounds of 8 steps on
+    device-resident batches: eager (k = 1) and one CUDA graph of k steps;
+    median of TIMED_REPEATS rounds, the host's ms per step (the call's
+    return, before the device finishes), the device's idle share of a
+    round (torch.profiler) and the peak memory."""
+    from kgtpu_torch import train_lib
+    batches, stacked, draws, sel, jit = capture_inputs(np, torch, cfg, hosts)
+    b = cfg.train.batch_size
+    rows = {}
+    for k in TIMED_KS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = train_lib.create_train_state(cfg, seed=0)
+        if k == 1:
+            def round_(st=st):
+                for bt, d in zip(batches, draws):
+                    train_lib.train_step(st, bt, *d, cfg)
+        else:
+            multi = train_lib.make_train_multi_step(cfg, k)
+
+            def round_(st=st, multi=multi, k=k):
+                for lo in range(0, CAPTURE_BATCHES, k):
+                    multi(st, {n: v[lo:lo + k] for n, v in stacked.items()}, sel[lo:lo + k],
+                          jit[lo:lo + k])
+        round_()                                # the capture, for k > 1
+        torch.cuda.synchronize()
+        walls, host = [], []
+        for _ in range(TIMED_REPEATS):
+            t = time.perf_counter()
+            round_()
+            th = time.perf_counter()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            host.append(th - t)
+        prof = profile_e2e(torch, round_, top=0)
+        ips = sorted(b * CAPTURE_BATCHES / w for w in walls)
+        rows[k] = {"img_per_s": ips[len(ips) // 2], "img_per_s_min": ips[0],
+                   "img_per_s_max": ips[-1],
+                   "host_ms_per_step": sorted(host)[len(host) // 2] / CAPTURE_BATCHES * 1e3,
+                   "idle_share": prof["idle_share"], "device_busy_ms_per_step":
+                   prof["device_busy_ms"] / CAPTURE_BATCHES,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  k={k} ({'eager' if k == 1 else 'CUDA graph'}): {rows[k]['img_per_s']:.2f} img/s "
+            f"(min {ips[0]:.2f}, max {ips[-1]:.2f}; median of {TIMED_REPEATS} rounds of "
+            f"{CAPTURE_BATCHES} steps at batch {b}), host {rows[k]['host_ms_per_step']:.2f} "
+            f"ms/step, device busy {rows[k]['device_busy_ms_per_step']:.2f} ms/step, idle share "
+            f"{prof['idle_share']:.3f}, peak {rows[k]['peak_mem_gb']:.2f} GB")
+        del st, round_
+        if k > 1:
+            del multi
+    return rows
+
+
+def gaussian_in_graph(np, torch, gauss, hosts, cfg) -> dict:
+    """[14](b) on k batches (`hosts`): a profiled replay holds k device
+    records of the Gaussian kernel (an empty or short window is measured
+    again, up to 5 windows), and the replay's first loss equals the loss
+    with plain targets on the same state, batch and draws."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kgtpu_torch import train_lib
+    from kgtpu_torch.ops.targets import render_heatmaps_batch
+    batches, stacked, draws, sel, jit = capture_inputs(np, torch, cfg, hosts)
+    st = train_lib.create_train_state(cfg, seed=0)
+    multi = train_lib.make_train_multi_step(cfg, CAPTURE_K)
+    k = CAPTURE_K
+    gauss.launches = 0                          # this path's run
+
+    def dispatch():                             # the k batches (`hosts`) as one dispatch
+        return multi(st, stacked, sel, jit)
+
+    dispatch()                                  # the capture and one replay
+    with torch.no_grad():
+        _, plain = train_lib.loss_fn(st.model, batches[0], *draws[0], cfg,
+                                     render=render_heatmaps_batch)
+    plain_loss = float(plain["loss"])
+    torch.cuda.synchronize()
+    counts, loss_gap = [], None
+    for window in range(5):
+        before = gauss.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = dispatch()                    # the same batches, from the moved state
+            torch.cuda.synchronize()
+        require(gauss.launches - before == k, f"a replay counted {gauss.launches - before} "
+                f"Gaussian launches, want {k}")
+        if loss_gap is None:
+            loss_gap = abs(float(out["loss"][0]) - plain_loss) / abs(plain_loss)
+        device = [e for e in prof.key_averages()
+                  if e.device_type != torch.autograd.DeviceType.CPU]
+        count = sum(e.count for e in device if "render_kernel" in e.key)
+        counts.append((count, sum(e.count for e in device)))
+        if count == k:
+            break
+        log(f"  profiler window {window}: {count} Gaussian kernel records of {k}, "
+            f"{counts[-1][1]} device records of any kind; measuring again")
+    blind = all(c[1] == 0 for c in counts)
+    log(f"  profiled replay: {counts[-1][0]} Gaussian kernel records for k={k} (windows: "
+        f"{counts}); replay loss vs plain targets: relative gap {loss_gap:.3g} (rtol "
+        f"{TRAIN_LOSS_RTOL})")
+    require(counts[-1][0] == k or blind, f"no profiled replay held {k} Gaussian records")
+    if blind:
+        PROFILER_BLIND.append({"kernels": ["render_kernel"], "graph_replay": True})
+    require(loss_gap <= TRAIN_LOSS_RTOL, "the replay's loss differs from the plain targets'")
+    return {"gauss_records_per_replay": counts[-1][0], "profiler_windows": counts,
+            "replay_loss_vs_plain_rel_gap": loss_gap, "gauss_launches": gauss.launches,
+            "profiler_blind": blind}
+
+
+def gaussian_in_graph_fresh() -> dict:
+    """[14](b) in a fresh process (this script with GRAPH_PROFILE_FLAG):
+    after the earlier phases' profiled calls, this process's torch.profiler
+    keeps too few device records (ROADMAP's "profiler drops records"), here
+    of a replay's kernels too (one H100 80GB HBM3 run: 3 of 4 Gaussian
+    records, and 42 of 10,295 records of any kind missing, in each of five
+    windows).
+    Its log lines are printed here; its last line is its stats."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), GRAPH_PROFILE_FLAG],
+                       capture_output=True, text=True, timeout=600)
+    lines = r.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    require(r.returncode == 0 and lines, f"[14](b) exited with {r.returncode}: "
+            f"{r.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def graph_profile_main() -> int:
+    """GRAPH_PROFILE_FLAG: [14](b) alone, its stats as the last line."""
+    import numpy as np
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from kgtpu_torch.ops import gaussian as gauss
+    cfg = capture_config("group")
+    hosts = [train_batch(np, cfg, cfg.train.batch_size, seed=20 + j) for j in range(CAPTURE_K)]
+    stats = gaussian_in_graph(np, torch, gauss, hosts, cfg)
+    print(json.dumps(stats), flush=True)
+    return 0
+
+
+def payload_tensors(torch, path: str) -> dict:
+    """The tensors of a checkpoint, by name."""
+    from kgtpu_torch import checkpoint
+    payload = checkpoint.restore(path)
+    out = {}
+    for sec in ("params", "ema"):
+        out.update({f"{sec} {n}": t for n, t in payload.get(sec, {}).items()})
+    for sec in ("mu", "nu"):
+        out.update({f"{sec} {n}": t for n, t in payload["opt"][sec].items()})
+    return out
+
+
+def capture_cli(np, torch, gauss) -> dict:
+    """[14](c): cli.train at k = CAPTURE_CLI_K and at k = 1 (twice, the
+    yardstick), one epoch of CAPTURE_CLI_STEPS steps then one more with
+    --resume; metrics and checkpoint tensors held to (a)'s bound."""
+    from kgtpu_torch.cli import train as train_cli
+    from kgtpu_torch.config import config_to_json
+    threads = torch.get_num_threads()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            f.write(config_to_json(capture_config("group")))
+        for name, k in (("k1", 1), (f"k{CAPTURE_CLI_K}", CAPTURE_CLI_K), ("k1 again", 1)):
+            save = os.path.join(tmp, name.replace(" ", "_"))
+            flags = CAPTURE_CLI_FLAGS + ["--config", cfg_path, "--save_dir", save,
+                                         "--steps_per_epoch", str(CAPTURE_CLI_STEPS),
+                                         "--steps_per_dispatch", str(k)]
+            gauss.launches = 0                  # this CLI run's path
+            first = train_cli.run(flags + ["--num_epochs", "1"])
+            second = train_cli.run(flags + ["--num_epochs", "2", "--resume"])
+            torch.cuda.synchronize()
+            torch.set_num_threads(threads)
+            with open(os.path.join(save, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            epochs = first["epochs"] + second["epochs"]
+            runs[name] = {"launches": gauss.launches, "rows": rows, "start": second["start_step"],
+                          "end": second["end_step"],
+                          "tensors": {e: payload_tensors(torch, os.path.join(save, f"model_{e}"))
+                                      for e in (0, 1)},
+                          "img_per_s": 8 * sum(e["steps"] for e in epochs)
+                          / sum(e["train_s"] for e in epochs),
+                          "wait_ms_per_step": sum(e["wait_s"] for e in epochs)
+                          / sum(e["steps"] for e in epochs) * 1e3}
+            r = runs[name]
+            log(f"  cli.train --steps_per_dispatch {k}: {r['img_per_s']:.2f} img/s, "
+                f"{r['wait_ms_per_step']:.1f} ms/step waiting for batches; resumed at step "
+                f"{r['start']}, ended at {r['end']}; Gaussian launches {r['launches']}; "
+                f"losses {[row['loss'] for row in rows]}")
+            # each of the two runs captures once, after a warm-up of k steps
+            warm = 2 * k if k > 1 else 0
+            require(r["launches"] == 2 * CAPTURE_CLI_STEPS + warm
+                    and r["start"] == CAPTURE_CLI_STEPS
+                    and r["end"] == 2 * CAPTURE_CLI_STEPS and len(rows) == 2,
+                    f"cli.train --steps_per_dispatch {k}: launches, steps or epochs off")
+    a, b, a2 = runs["k1"], runs[f"k{CAPTURE_CLI_K}"], runs["k1 again"]
+    for key in ("loss", "loss_hm", "loss_off", "loss_mask", "grad_norm"):
+        for ra, rb, ra2 in zip(a["rows"], b["rows"], a2["rows"]):
+            bound = 2 * abs(ra[key] - ra2[key]) + CAPTURE_LOSS_RTOL * abs(ra[key]) + 1e-6
+            require(abs(rb[key] - ra[key]) <= bound, f"metrics.jsonl {key} epoch "
+                    f"{ra['epoch']}: k={CAPTURE_CLI_K} {rb[key]} vs k=1 {ra[key]} (bound {bound})")
+    held = {}
+    for e in (0, 1):
+        names = sorted(a["tensors"][e])
+        held[e] = held_to_yardstick(torch, names, [b["tensors"][e][n] for n in names],
+                                    [a["tensors"][e][n] for n in names],
+                                    [a2["tensors"][e][n] for n in names])
+        log(f"  checkpoint model_{e}: k={CAPTURE_CLI_K} == k=1 bitwise {held[e]['bitwise_equal']};"
+            f" largest gaps " + "; ".join(f"{r['tensor']} {r['gap']:.3g} ({r['yardstick']:.3g})"
+                                          for r in held[e]["largest_gaps"][:3]))
+        require(not held[e]["over"], f"model_{e}: {held[e]['over'][:3]} beyond the bound")
+    return {"cli_img_per_s": {n: r["img_per_s"] for n, r in runs.items()},
+            "cli_wait_ms_per_step": {n: r["wait_ms_per_step"] for n, r in runs.items()},
+            "cli_gauss_launches_k4": b["launches"],
+            "cli_checkpoint_bitwise": {e: held[e]["bitwise_equal"] for e in held}}
+
+
+def dp_on_card(np, torch, gn, gauss) -> dict:
+    """[14](d): cli.train through --coordinator (NCCL, one rank) at k = 1 and
+    k = 2 against the run without a process group; data-parallel serving
+    over every visible card against the unsharded call."""
+    from kgtpu_torch import infer
+    from kgtpu_torch.cli import train as train_cli
+    from kgtpu_torch.config import Config, config_to_json
+    from kgtpu_torch.models import build_model
+    from kgtpu_torch.parallel import launch, make_mesh
+    threads = torch.get_num_threads()
+    cards = torch.cuda.device_count()
+    log(f"  visible cards: {cards}. This machine has one H100, so no run here checks more "
+        f"than one rank on the card (the CPU tests run two gloo ranks).")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            f.write(config_to_json(capture_config("group")))
+        for name, k, dp in (("plain", 1, False), ("nccl k=1", 1, True), ("nccl k=2", 2, True)):
+            save = os.path.join(tmp, name.replace(" ", "_").replace("=", ""))
+            flags = CAPTURE_CLI_FLAGS + ["--config", cfg_path, "--save_dir", save,
+                                         "--steps_per_epoch", str(DP_STEPS), "--num_epochs", "1",
+                                         "--steps_per_dispatch", str(k)]
+            if dp:
+                flags += ["--coordinator", f"localhost:{launch.free_port()}", "--num_hosts", "1",
+                          "--host_id", "0"]
+            gauss.launches = 0                  # this run's path
+            summary = train_cli.run(flags)
+            torch.cuda.synchronize()
+            torch.set_num_threads(threads)
+            with open(os.path.join(save, "metrics.jsonl")) as f:
+                row = json.loads(f.readline())
+            runs[name] = {"row": row, "launches": gauss.launches,
+                          "all_reduces": summary.get("all_reduces", 0)}
+            log(f"  {name}: loss {row['loss']}, Gaussian launches {gauss.launches}, all-reduces "
+                f"issued by the host {runs[name]['all_reduces']}")
+            warm = k if k > 1 else 0           # the capture's warm-up
+            require(gauss.launches == DP_STEPS + warm,
+                    f"{name}: {gauss.launches} Gaussian launches")
+    plain = runs["plain"]["row"]
+    for name in ("nccl k=1", "nccl k=2"):
+        row = runs[name]["row"]
+        for key in ("loss", "loss_hm", "loss_off", "loss_mask"):
+            gap = abs(row[key] - plain[key]) / abs(plain[key])
+            require(gap <= CAPTURE_LOSS_RTOL, f"{name} {key} {row[key]} vs {plain[key]}")
+    per_step = runs["nccl k=1"]["all_reduces"] / DP_STEPS
+    log(f"  all-reduces per step: {per_step:g} (a num_pos sum per stack, the metrics' sum, one "
+        f"flat gradient all-reduce); with k=2 the host issued "
+        f"{runs['nccl k=2']['all_reduces']} (the warm-up's and the capture's, and the tail's "
+        f"step), the replays re-run the captured ones")
+
+    cfg = Config()
+    model = build_model(cfg.model, seed=0, device="cuda")
+    imgs = np.random.default_rng(5).integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
+    devices = make_mesh(0, "cuda")
+    gn.launches = 0                             # the data-parallel serving path
+    got = infer.build_infer_fn(model, cfg, devices=devices)(imgs)
+    torch.cuda.synchronize()
+    gn_launches = gn.launches
+    want = infer.build_infer_fn(model, cfg)(imgs)
+    same = all(torch.equal(got[k], want[k]) for k in ("label_map", "valid", "boxes", "scores"))
+    log(f"  build_infer_fn(devices={[str(d) for d in devices]}) on a batch of 8: label maps, "
+        f"boxes, scores and validity equal to the unsharded call: {same}; GroupNorm launches "
+        f"{gn_launches}")
+    require(same and gn_launches >= GN_PER_FORWARD, "data-parallel serving differs")
+    return {"visible_cards": cards, "dp_losses": {n: r["row"]["loss"] for n, r in runs.items()},
+            "dp_all_reduces_per_step": per_step, "dp_gauss_launches": {
+                n: r["launches"] for n, r in runs.items()}, "dp_serving_gn_launches": gn_launches}
+
+
+def phase_capture(np, torch, gn, gauss) -> dict:
+    """[14]: captured multi-step training and data parallelism."""
+    t_phase = time.perf_counter()
+    cfg = capture_config("group")
+    hosts = [train_batch(np, cfg, cfg.train.batch_size, seed=20 + j)
+             for j in range(CAPTURE_BATCHES)]
+    log("  (a) 8 eager steps (twice) against 2 replays of k=4, GroupNorm and BatchNorm")
+    parity = {norm: capture_parity(np, torch, gauss, hosts, norm) for norm in ("group", "batch")}
+    torch.cuda.empty_cache()
+    timing = capture_timing(np, torch, hosts, cfg)
+    log("  (b) the Gaussian kernel inside the graph (a fresh process)")
+    torch.cuda.empty_cache()
+    graph = gaussian_in_graph_fresh()
+    log(f"  (c) cli.train --steps_per_dispatch {CAPTURE_CLI_K} against 1")
+    torch.cuda.empty_cache()
+    cli = capture_cli(np, torch, gauss)
+    log("  (d) data parallelism on the card")
+    torch.cuda.empty_cache()
+    dp = dp_on_card(np, torch, gn, gauss)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase [14]: {phase_s:.1f} s (budget {CAPTURE_PHASE_S} s)")
+    require(phase_s <= CAPTURE_PHASE_S, f"phase [14] took {phase_s:.0f} s")
+    return {"capture_parity": parity, "capture_timing": timing, "capture_graph": graph,
+            "capture_cli": cli, "capture_dp": dp, "capture_phase_s": phase_s}
 
 
 def main() -> int:
@@ -1988,6 +2454,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if GRAPH_PROFILE_FLAG in sys.argv[1:]:
+        return graph_profile_main()
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2179,6 +2647,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     estats = phase_export(np, torch, gn, gauss, smi)
 
+    # 14. captured multi-step training and data parallelism
+    log("[14] captured multi-step training (k steps in one CUDA graph) against eager steps, the "
+        "Gaussian kernel inside the graph, cli.train --steps_per_dispatch, and data "
+        "parallelism through NCCL on the card")
+    torch.cuda.empty_cache()
+    capstats = phase_capture(np, torch, gn, gauss)
+
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
                "e2e_img_per_s_all": e2e["img_per_s_all"], "e2e_batch": E2E_BATCH,
@@ -2196,6 +2671,7 @@ def main() -> int:
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
                **tstats, **fstats, **cstats, **ttastats, **bstats, **xstats, **estats,
+               **capstats,
                "device_ms_from_cuda_events": PROFILER_BLIND, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -2226,7 +2702,9 @@ def main() -> int:
                                     "TTA artifact [13]": estats["export_tta_gn_launches"],
                                     "tiled artifact [13]": estats["export_tiled_gn_launches"],
                                     "cli.test --save_vis --debug_nans [13]":
-                                        estats["vis_gn_launches"]},
+                                        estats["vis_gn_launches"],
+                                    "data-parallel serving [14](d)":
+                                        capstats["capture_dp"]["dp_serving_gn_launches"]},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],
@@ -2243,7 +2721,18 @@ def main() -> int:
                                      **{f"{name} train [12]": xstats[f"train_{name}_gauss_launches"]
                                         for name in TRAIN_FORMAT_STEPS},
                                      "train --profile_dir --debug_nans [13]":
-                                         estats["debug_train_gauss_launches"]},
+                                         estats["debug_train_gauss_launches"],
+                                     **{f"2 replays of k=4, norm={n} [14](a)":
+                                        v["gauss_launches"]
+                                        for n, v in capstats["capture_parity"].items()},
+                                     "capture and profiled replays, fresh process [14](b)":
+                                         capstats["capture_graph"]["gauss_launches"],
+                                     "device records in one profiled replay [14](b)":
+                                         capstats["capture_graph"]["gauss_records_per_replay"],
+                                     "cli.train --steps_per_dispatch 4 [14](c)":
+                                         capstats["capture_cli"]["cli_gauss_launches_k4"],
+                                     **{f"cli.train {n} [14](d)": v for n, v in
+                                        capstats["capture_dp"]["dp_gauss_launches"].items()}},
                "max_abs_err": gstats["max_abs_err"],
                "ms": gstats["ms"], "device_ms": gstats["device_ms"],
                "plain_ms": gstats["plain_ms"],

@@ -32,9 +32,10 @@ results file; --save_vis adds <save_dir>/<id>_vis.png, the RGB overlay of
 writes).  --profile_dir writes a torch.profiler trace of the run
 (`utils/profiling.trace`); --debug_nans stops at the first op that produces
 a NaN with FloatingPointError (`utils/debug.enable_nan_debugging`).
-Conflicting flags exit with test.py's messages; --ngpus > 1 is not ported
-and raises SystemExit naming its ROADMAP item by its title (data
-parallelism).
+--ngpus n serves the single-scale and --tiled paths data-parallel over n
+devices (`parallel.make_mesh`: cuda:0..n-1, or n CPU shards with --device
+cpu; `infer.py`'s devices=), the batch split in n shards and a chunk's tiles
+in n runs.  Conflicting flags exit with test.py's messages.
 """
 
 from __future__ import annotations
@@ -59,8 +60,7 @@ log = logging.getLogger("kgtpu_torch.test")
 
 
 def _refuse(args, cfg, ensemble: list[str]) -> None:
-    """test.py's exclusive flags, with its messages, then the paths that are
-    not ported."""
+    """test.py's exclusive flags, with its messages."""
     if ensemble:
         if not cfg.infer.weights:
             raise SystemExit("--ensemble needs --weights (the mask member)")
@@ -68,9 +68,18 @@ def _refuse(args, cfg, ensemble: list[str]) -> None:
             raise SystemExit("--ensemble and --tiled are exclusive")
     if args.tiled and (cfg.infer.test_scales != (1.0,) or cfg.infer.test_flip):
         raise SystemExit("--tiled and multi-scale --test_scales are exclusive")
-    if args.num_devices > 1:
-        raise SystemExit("not ported yet: --ngpus > 1 (data-parallel inference) is "
-                         "ROADMAP §1: data parallelism")
+    n_dev = args.num_devices or 1
+    if n_dev > 1:
+        if cfg.infer.batch_size % n_dev:
+            raise SystemExit(f"--batch_size {cfg.infer.batch_size} must be divisible by "
+                             f"--ngpus {n_dev}")
+        if args.tiled:
+            return
+        if ensemble:
+            raise SystemExit("--ngpus and --ensemble are exclusive")
+        if cfg.infer.test_scales != (1.0,) or cfg.infer.test_flip:
+            raise SystemExit("--ngpus applies to the single-scale and --tiled paths "
+                             "(TTA is per-scale-shaped)")
 
 
 def load_model(cfg, args, parser, argv):
@@ -163,8 +172,16 @@ def main(argv: list[str] | None = None) -> int:
     from kgtpu_torch.device import resolve_device
     from kgtpu_torch.infer import (build_ensemble_fn, build_infer_fn,
                                    build_multiscale_fn, build_tiled_infer_fn)
+    from kgtpu_torch.parallel import make_mesh
 
     device = resolve_device(args.device)
+    devices = None
+    if args.num_devices > 1:
+        try:
+            devices = make_mesh(args.num_devices, device)
+        except ValueError as e:
+            raise SystemExit(f"--ngpus {args.num_devices}: {e}") from e
+        log.info("batch-DP inference over %d devices", len(devices))
     cfg, model = load_model(cfg, args, parser, argv)
     members = [load_member(w, args) for w in ensemble]
     divisor = max([required_divisor(cfg.model)] + [required_divisor(m.cfg) for m in members])
@@ -180,13 +197,15 @@ def main(argv: list[str] | None = None) -> int:
     scales = cfg.infer.test_scales
     multiscale = scales != (1.0,) or cfg.infer.test_flip
     if args.tiled:
-        infer = build_tiled_infer_fn(model, cfg, (base, base), device=device)
+        n = len(devices or [device])
+        infer = build_tiled_infer_fn(model, cfg, (base, base), device=device, devices=devices,
+                                     tile_batch=max(8 // n, 1) * n)
     elif members:
         infer = build_ensemble_fn([model] + members, cfg, mask_member=0, device=device)
     elif multiscale:
         infer = build_multiscale_fn(model, cfg, device=device)
     else:
-        infer = build_infer_fn(model, cfg, device=device)
+        infer = build_infer_fn(model, cfg, device=device, devices=devices)
     ds = build_dataset(cfg.data, split="test")
     save_dir = cfg.infer.save_dir
     os.makedirs(save_dir, exist_ok=True)

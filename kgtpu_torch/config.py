@@ -326,13 +326,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="mask-logit resolution (0 = 2x --roi_size)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--debug_nans", action="store_true",
-                   help="not ported (ROADMAP §1: debugging, profiling and visualisation)")
+                   help="stop at the first op that produces a NaN")
 
 
 def build_train_parser() -> argparse.ArgumentParser:
-    """kgtpu's train.py flags, plus --device and --config.  Flags of paths
-    the port does not run parse, and `cli/train.py` exits naming their
-    ROADMAP item."""
+    """kgtpu's train.py flags, plus --device and --config."""
     p = argparse.ArgumentParser("python -m kgtpu_torch.cli.train",
                                 description="Train the KG model (PyTorch port)")
     _add_common(p)
@@ -373,17 +371,19 @@ def build_train_parser() -> argparse.ArgumentParser:
                         "re-exec with --resume at an epoch boundary (-1 = 75%% "
                         "of MemTotal, 0 = off)")
     p.add_argument("--ngpus", "--num_devices", dest="num_devices", type=int,
-                   default=0, help="more than 1 is not ported (ROADMAP §1: data parallelism)")
+                   default=0, help="data-parallel ranks on this host (rank i on cuda:i)")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="more than 1 is not ported (ROADMAP §1: captured dispatch)")
+                   help="steps per dispatch: k > 1 runs each k steps as one CUDA graph")
     p.add_argument("--target_renderer", default="scan", choices=["scan", "pallas"],
                    help="kgtpu's renderer switch; in the port the Gaussian "
                         "kernel renders every CUDA batch either way")
-    p.add_argument("--coordinator", default="", help="not ported (ROADMAP §1: data parallelism)")
+    p.add_argument("--coordinator", default="",
+                   help="host:port of rank 0: this process is rank --host_id of "
+                        "--num_hosts, one per host")
     p.add_argument("--num_hosts", type=int, default=1)
     p.add_argument("--host_id", type=int, default=0)
     p.add_argument("--profile_dir", default="",
-                   help="not ported (ROADMAP §1: debugging, profiling and visualisation)")
+                   help="write a torch.profiler trace of the first epoch here")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--config", default="",
                    help="a JSON config (as a checkpoint's config_json) for the "
@@ -409,7 +409,7 @@ def build_test_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8,
                    help="inference batch (the last chunk is padded)")
     p.add_argument("--save_vis", action="store_true",
-                   help="not ported (ROADMAP §1: debugging, profiling and visualisation)")
+                   help="also write each image's overlay as <id>_vis.png")
     p.add_argument("--tiled", action="store_true",
                    help="whole-slide mode: --input_size is the slide's side, "
                         "served as tiles of --tile_size with --tile_overlap "
@@ -431,7 +431,7 @@ def build_test_parser() -> argparse.ArgumentParser:
     p.add_argument("--coco_json", default="",
                    help="also write predictions as COCO results JSON")
     p.add_argument("--ngpus", "--num_devices", dest="num_devices", type=int,
-                   default=0, help="more than 1 is not ported (ROADMAP §1: data parallelism)")
+                   default=0, help="batch-DP inference over this many devices")
     p.add_argument("--tile_size", type=int, default=512)
     p.add_argument("--tile_overlap", type=int, default=64)
     p.add_argument("--profile_dir", default="",

@@ -27,11 +27,25 @@ cond per slot chunk and while_loop rounds (`ops/control.py`), and the
 pipeline's body without `torch.inference_mode` (the caller traces under
 no_grad).  They compute the same outputs, a skipped chunk's logits 0
 included.
+
+Data-parallel serving (`devices=` on `build_infer_fn` and
+`build_tiled_infer_fn`, the counterpart of kgtpu's `mesh=`) puts one replica
+of the model on each device, its weights copied once, and runs each
+device's shard of the batch (or of a chunk's tiles) in a host thread of its
+own, since the round loops sync with the host; the outputs are gathered in
+batch order on the first device.  Every stage is per image (or per tile),
+so the label maps, boxes, scores and validity equal the unsharded call's.
+Only the mask probabilities of invalid slots may differ: a slot chunk is
+skipped when no image of the shard has a valid detection in it, where the
+whole batch decides unsharded.  Each replica's GroupNorm runs the kernel;
+kgtpu turns its fused norm off under a mesh for want of an SPMD rule.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import torch
@@ -47,6 +61,7 @@ from kgtpu_torch.ops.preprocess import normalize_images
 from kgtpu_torch.ops.roi import crop_and_resize, paste_masks_batch
 from kgtpu_torch.ops.tiling import (extract_tiles, ownership_mask, ownership_rects,
                                     stitch_tiles, tile_grid)
+from kgtpu_torch.parallel.mesh import gather_batch, shard_batch
 
 
 def _check_cfg(cfg: Config) -> None:
@@ -170,6 +185,31 @@ def _serving(model: KGNet, device) -> torch.device:
     return dev
 
 
+def _replicas(model: KGNet, devices: list, traced: bool) -> tuple[list, list]:
+    """(devices, models): `model` served on the first device, a copy of it
+    on each other one."""
+    if traced:
+        raise ValueError("devices= serves eagerly: a traced program runs on one device")
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices= needs at least one device")
+    _serving(model, devs[0])
+    models = [model]
+    for d in devs[1:]:
+        models.append(copy.deepcopy(model))
+        _serving(models[-1], d)
+    return devs, models
+
+
+def _parallel(calls: list[Callable]) -> list:
+    """Run the calls, one host thread each (one call: in this thread)."""
+    if len(calls) == 1:
+        return [calls[0]()]
+    with ThreadPoolExecutor(len(calls)) as ex:
+        futures = [ex.submit(c) for c in calls]
+        return [f.result() for f in futures]
+
+
 def _entry(body: Callable, traced: bool) -> Callable:
     """A builder's pipeline: its body under torch.inference_mode, or the
     bare body for tracing."""
@@ -177,16 +217,30 @@ def _entry(body: Callable, traced: bool) -> Callable:
 
 
 def build_infer_fn(model: KGNet, cfg: Config,
-                   device: str | torch.device = "cuda", traced: bool = False) -> Callable:
+                   device: str | torch.device = "cuda", traced: bool = False,
+                   devices: list | None = None) -> Callable:
     """(images [B, H, W, 3] raw pixels, uint8 or float 0-255) -> dict of
     boxes [B, D, 4] (pixels), scores [B, D], valid [B, D], masks
     [B, D, m, m], label_map [B, H, W] int32, score_map [B, H, W].
 
     Moves `model` to `device` (CUDA unless the caller asks for the CPU) and
     puts it in eval mode.  Inputs are moved to that device.  traced: the
-    forms `torch.export` traces (module note).
+    forms `torch.export` traces (module note).  devices: data-parallel
+    serving over these devices (`parallel.make_mesh`; module note), the
+    batch divisible by their number, the outputs on the first; `device` is
+    then not read.
     """
     _check_cfg(cfg)
+    if devices is not None:
+        devs, models = _replicas(model, devices, traced)
+        fns = [build_infer_fn(m, cfg, d) for m, d in zip(models, devs)]
+
+        def infer_sharded(images) -> dict:
+            shards = shard_batch(torch.as_tensor(images), len(fns))
+            return gather_batch(_parallel([lambda f=f, x=x: f(x) for f, x in zip(fns, shards)]),
+                                devs[0])
+
+        return infer_sharded
     dev = _serving(model, device)
 
     def infer(images) -> dict:
@@ -300,7 +354,8 @@ def build_multiscale_fn(model: KGNet, cfg: Config,
 
 def build_tiled_infer_fn(model: KGNet, cfg: Config, image_hw: tuple[int, int],
                          device: str | torch.device = "cuda",
-                         tile_batch: int = 8, traced: bool = False) -> Callable:
+                         tile_batch: int = 8, traced: bool = False,
+                         devices: list | None = None) -> Callable:
     """Whole-slide inference.  Returns fn(image [H, W, 3] raw pixels) ->
     {"label_map" [H, W] int32, "score_map" [H, W], "boxes" [T * D, 4]
     (slide pixels), "scores" [T * D], "valid" [T * D]}: slot d of tile t
@@ -313,9 +368,18 @@ def build_tiled_infer_fn(model: KGNet, cfg: Config, image_hw: tuple[int, int],
     the mask stage and paste run over the chunk's tiles as a batch (slot
     chunks with no owned detection skip), and the tile canvases stitch by
     score.  The grid is fixed, so the tile origins are Python ints on every
-    path.  traced: as `build_infer_fn`'s."""
+    path.  traced: as `build_infer_fn`'s.  devices: each chunk's tiles split
+    over these devices in contiguous runs of tile_batch / n (tile_batch a
+    multiple of their number; module note), the stitch on the first.
+    """
     _check_cfg(cfg)
-    dev = _serving(model, device)
+    if devices is None:
+        devs, models = [_serving(model, device)], [model]
+    else:
+        devs, models = _replicas(model, devices, traced)
+        if tile_batch % len(devs):
+            raise ValueError(f"tile_batch {tile_batch} must be a multiple of the "
+                             f"{len(devs)} devices")
     h, w = image_hw
     ts = cfg.infer.tile_size
     s = cfg.data.stride
@@ -323,31 +387,44 @@ def build_tiled_infer_fn(model: KGNet, cfg: Config, image_hw: tuple[int, int],
     origins_np = tile_grid(h, w, ts, cfg.infer.tile_overlap)
     origins_list = origins_np.tolist()
     n_tiles = len(origins_np)
-    origins = torch.from_numpy(origins_np).to(dev)
-    rects = torch.from_numpy(ownership_rects(origins_np, ts)).to(dev)
+    origins = [torch.from_numpy(origins_np).to(dv) for dv in devs]
+    rects = [torch.from_numpy(ownership_rects(origins_np, ts)).to(dv) for dv in devs]
     ch = cfg.infer.mask_chunk
     box_chunk = ch if 0 < ch < d else 32
+    per_dev = tile_batch // len(devs)
+
+    def tiles(di: int, x: torch.Tensor, sl: slice) -> tuple:
+        """Tiles `sl` of the slide on device di: (labels, scores maps, slide
+        boxes, rescored scores, owned)."""
+        mdl, dev = models[di], devs[di]
+        org = origins[di][sl]
+        dets, feats = detect_batch(mdl, cfg, extract_tiles(x, origins_list[sl], ts), traced)
+        boxes_px = dets.boxes * s
+        own = ownership_mask(Boxes(boxes=boxes_px, scores=dets.scores, valid=dets.valid),
+                             org, rects[di][sl])
+        gboxes = boxes_px + org[:, None, [1, 0, 1, 0]].to(torch.float32)
+        probs = mask_probs(mdl, cfg, feats, Boxes(dets.boxes, dets.scores, own), traced)
+        scores, own = rescore_by_maskness(cfg, probs, dets.scores, own)
+        tid = torch.arange(sl.start, sl.stop, dtype=torch.int32, device=dev)
+        label, score = paste_masks_batch(probs, boxes_px, scores, own, ts, ts,
+                                         thresh=cfg.group.mask_thresh,
+                                         box_chunk=box_chunk, id_base=tid * d,
+                                         traced=traced)
+        return label, score, gboxes, scores, own
+
+    tiles_entry = _entry(tiles, traced)
 
     def infer_tiled(image) -> dict:
-        x = normalize_images(torch.as_tensor(image).to(dev), cfg.data.mean, cfg.data.std)
+        image = torch.as_tensor(image)
+        xs = [normalize_images(image.to(dv), cfg.data.mean, cfg.data.std) for dv in devs]
         parts = []
         for start in range(0, n_tiles, tile_batch):
-            sl = slice(start, min(start + tile_batch, n_tiles))
-            org = origins[sl]
-            dets, feats = detect_batch(model, cfg, extract_tiles(x, origins_list[sl], ts),
-                                       traced)
-            boxes_px = dets.boxes * s
-            own = ownership_mask(Boxes(boxes=boxes_px, scores=dets.scores, valid=dets.valid),
-                                 org, rects[sl])
-            gboxes = boxes_px + org[:, None, [1, 0, 1, 0]].to(torch.float32)
-            probs = mask_probs(model, cfg, feats, Boxes(dets.boxes, dets.scores, own), traced)
-            scores, own = rescore_by_maskness(cfg, probs, dets.scores, own)
-            tid = torch.arange(sl.start, sl.stop, dtype=torch.int32, device=dev)
-            label, score = paste_masks_batch(probs, boxes_px, scores, own, ts, ts,
-                                             thresh=cfg.group.mask_thresh,
-                                             box_chunk=box_chunk, id_base=tid * d,
-                                             traced=traced)
-            parts.append((label, score, gboxes, scores, own))
+            stop = min(start + tile_batch, n_tiles)
+            runs = [(di, slice(lo, min(lo + per_dev, stop)))
+                    for di, lo in enumerate(range(start, stop, per_dev))]
+            outs = _parallel([lambda di=di, sl=sl: tiles_entry(di, xs[di], sl)
+                              for di, sl in runs])
+            parts.extend(tuple(t.to(devs[0]) for t in o) for o in outs)
         label, score, gboxes, scores, own = (torch.cat(p) for p in zip(*parts))
         g_label, g_score = stitch_tiles(label, score, origins_list, h, w)
         return {"label_map": g_label, "score_map": g_score,

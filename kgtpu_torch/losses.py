@@ -9,6 +9,8 @@ the train step averages.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
@@ -16,11 +18,15 @@ from kgtpu_torch.ops.targets import keypoints_from_boxes
 
 
 def focal_loss(hm_logits: torch.Tensor, hm_targets: torch.Tensor,
-               alpha: float = 2.0, beta: float = 4.0) -> torch.Tensor:
+               alpha: float = 2.0, beta: float = 4.0,
+               count: Callable[[torch.Tensor], torch.Tensor] | None = None) -> torch.Tensor:
     """CornerNet penalty-reduced pixelwise focal loss.
 
     hm_logits, hm_targets [..., H, W, C]; targets are exactly 1.0 at keypoint
-    pixels.  Scalar, normalised by the number of positive pixels.
+    pixels.  Scalar, normalised by the number of positive pixels; `count`
+    maps this batch's number to the one to normalise by (a data-parallel
+    rank sums it over the ranks, so its loss is its share of the global
+    batch's).
     """
     lg = hm_logits.float()
     p = torch.sigmoid(lg)
@@ -28,7 +34,10 @@ def focal_loss(hm_logits: torch.Tensor, hm_targets: torch.Tensor,
     pos = (t >= 1.0).float()
     pos_loss = -((1.0 - p) ** alpha) * F.logsigmoid(lg) * pos
     neg_loss = -((1.0 - t) ** beta) * (p ** alpha) * F.logsigmoid(-lg) * (1.0 - pos)
-    num_pos = torch.clamp(pos.sum(), min=1.0)
+    num_pos = pos.sum()
+    if count is not None:
+        num_pos = count(num_pos)
+    num_pos = torch.clamp(num_pos, min=1.0)
     return (pos_loss.sum() + neg_loss.sum()) / num_pos
 
 

@@ -29,6 +29,7 @@ from kgtpu_torch.ops.groupnorm import (
     group_norm_relu_reference,
     num_groups,
 )
+from kgtpu_torch.parallel import multihost
 
 
 def same_pads(kernel: int, stride: int, size: int) -> tuple[int, int]:
@@ -98,7 +99,10 @@ class BatchNorm(nn.Module):
     normalisation are computed in at least f32 (flax's
     force_float32_reductions).  `update_stats` off (set for
     the recomputation of a rematerialised forward) normalises with the
-    batch's statistics without moving the buffers."""
+    batch's statistics without moving the buffers.  Inside a process group
+    of more than one rank (data-parallel training) the training statistics
+    are the global batch's: the sums of x and x^2 are all-reduced, with a
+    gradient."""
 
     momentum = 0.99
     eps = 1e-5
@@ -115,8 +119,17 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            world = multihost.world_size()
+            if world > 1:
+                # sync-BN: the global batch's statistics, as kgtpu's sharded
+                # step computes them; the all-reduce carries the gradient
+                n = xf.numel() // xf.shape[1] * world
+                sums = multihost.differentiable_sum(
+                    torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]))
+                mean, ex2 = sums[0] / n, sums[1] / n
+            else:
+                mean, ex2 = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)

@@ -85,7 +85,9 @@ class HourglassBackbone(nn.Module):
     def _hourglass(self, i: int, x: torch.Tensor) -> torch.Tensor:
         hg = self.hourglasses[i]
         if self.remat and self.training and torch.is_grad_enabled():
-            return checkpoint(hg, x, use_reentrant=False,
+            # the forward draws no random numbers: saving the RNG state
+            # would only stand in the way of capturing the step
+            return checkpoint(hg, x, use_reentrant=False, preserve_rng_state=False,
                               context_fn=lambda: (contextlib.nullcontext(),
                                                   _frozen_stats(hg)))
         return hg(x)

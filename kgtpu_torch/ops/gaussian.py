@@ -12,7 +12,10 @@ the inputs as they are (cast to contiguous f32 only where they are not): the
 kernel floors the keypoints and computes each instance's radius and
 1 / (2 sigma^2) itself.  It is built with nvcc at first use (`ops/_cuda.py`),
 or the call raises.  Targets are data: no gradient flows through them, and
-the output never requires one.  `launches` counts the kernel's launches.
+the output never requires one.  `launches` counts the kernel's launches:
+one per CUDA call of the wrapper, and, for a CUDA graph that holds
+launches (`train_lib`'s captured steps), their number on every replay; the
+capture itself runs nothing and adds nothing.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 from kgtpu_torch.ops import _cuda
 from kgtpu_torch.ops.targets import render_heatmaps_batch
 
-# Number of times the CUDA kernel was launched in this process.
+# Number of times the CUDA kernel was launched in this process (graph
+# replays included).
 launches = 0
 
 _SRC = "gaussian.cu"

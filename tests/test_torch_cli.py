@@ -153,27 +153,57 @@ def test_config_json_refuses_a_dropped_setting(section, field, value):
     assert tconfig.config_from_json(_kgtpu_json()) == tconfig.Config()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--ngpus", "2"], "data parallelism")])
-def test_unported_paths_exit_naming_their_item(flags, item):
-    """The refusal names the ROADMAP item by its title, which a re-anchor
-    that renumbers the queue does not change."""
-    with pytest.raises(SystemExit, match=f"ROADMAP §1: {item}"):
-        test_cli.main(flags + ["--device", "cpu"])
-
-
 @pytest.mark.parametrize("flags,message", [
     (["--ensemble", "/w2"], "--ensemble needs --weights (the mask member)"),
     (["--ensemble", "/w2", "--weights", "/w", "--tiled"], "--ensemble and --tiled are exclusive"),
     (["--tiled", "--test_scales", "0.75,1.0"], "--tiled and multi-scale --test_scales are exclusive"),
-    (["--tiled", "--test_flip"], "--tiled and multi-scale --test_scales are exclusive")])
+    (["--tiled", "--test_flip"], "--tiled and multi-scale --test_scales are exclusive"),
+    (["--ngpus", "2", "--batch_size", "3"], "--batch_size 3 must be divisible by --ngpus 2"),
+    (["--ngpus", "2", "--ensemble", "/w2", "--weights", "/w"],
+     "--ngpus and --ensemble are exclusive"),
+    (["--ngpus", "2", "--test_scales", "0.75,1.0"],
+     "--ngpus applies to the single-scale and --tiled paths (TTA is per-scale-shaped)")])
 def test_conflicting_flags_exit_with_test_py_messages(flags, message):
-    """test.py's refusals, with its messages, before anything is loaded."""
+    """test.py's refusals, with its messages, before anything is loaded.
+    The message is one of test.py's: a literal in its source, or (for the
+    `--ngpus` messages, split over lines or formatted) one of its string
+    expressions with every constant part in order and each field one word."""
     with open(os.path.join(ROOT, "test.py")) as f:
-        assert f'"{message}"' in f.read()
+        source = f.read()
+    assert f'"{message}"' in source or message in _test_py_messages(source)
     with pytest.raises(SystemExit) as e:
         test_cli.main(flags + ["--device", "cpu"])
     assert str(e.value) == message
+
+
+class _Formatted:
+    """An f-string of test.py: equal to a message that holds its constant
+    parts in order, with one word (no spaces) in place of each field."""
+
+    def __init__(self, node):
+        import ast
+        import re
+        self.pattern = re.compile("".join(
+            re.escape(v.value) if isinstance(v, ast.Constant) else r"\S+"
+            for v in node.values))
+
+    def __eq__(self, message):
+        return isinstance(message, str) and self.pattern.fullmatch(message) is not None
+
+
+def _test_py_messages(source: str) -> list:
+    """test.py's string expressions: each literal (adjacent literals joined)
+    as itself, each f-string with some constant text as `_Formatted`; an
+    f-string with no constant text (a bare field) is left out."""
+    import ast
+    out = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            out.append(node.value)
+        elif isinstance(node, ast.JoinedStr) and any(
+                isinstance(v, ast.Constant) and v.value for v in node.values):
+            out.append(_Formatted(node))
+    return out
 
 
 def _val_ids(n):

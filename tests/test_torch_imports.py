@@ -66,6 +66,8 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.data.neural_cells, kgtpu_torch.utils.host\n"
         "import kgtpu_torch.export, kgtpu_torch.visualize, kgtpu_torch.ops.control\n"
         "import kgtpu_torch.utils.debug, kgtpu_torch.utils.profiling\n"
+        "import kgtpu_torch.parallel.mesh, kgtpu_torch.parallel.multihost\n"
+        "import kgtpu_torch.parallel.launch\n"
         "import importlib.util as u\n"
         "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "s.loader.exec_module(u.module_from_spec(s))\n"

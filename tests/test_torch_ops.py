@@ -234,6 +234,26 @@ def test_normalize_images():
         jpre.normalize_images(jnp.asarray(img), mean, std)), rtol=0, atol=1e-6)
 
 
+def test_normalize_images_traced_first_keeps_real_constants():
+    """A `torch.export` trace that normalises first (fake tensors) leaves no
+    fake mean or std behind for eager calls, and both give the same
+    values; eager calls share one vector per device."""
+    img = np.random.default_rng(1).integers(0, 256, (2, 8, 8, 3), dtype=np.uint8)
+    mean, std = (0.11, 0.22, 0.33), (0.44, 0.55, 0.66)   # values no other test uses
+
+    class Norm(torch.nn.Module):
+        def forward(self, x):
+            return preprocess.normalize_images(x, mean, std)
+
+    program = torch.export.export(Norm(), (_t(img),), strict=False)
+    eager = preprocess.normalize_images(_t(img), mean, std)
+    assert type(preprocess._channel_vector(mean, _t(img))) is torch.Tensor
+    assert preprocess._channel_vector(std, _t(img)) is preprocess._channel_vector(std, _t(img))
+    torch.testing.assert_close(program.module()(_t(img)), eager, rtol=0, atol=0)
+    np.testing.assert_allclose(eager.numpy(), np.asarray(
+        jpre.normalize_images(jnp.asarray(img), mean, std)), rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("h,w,canvas", [(400, 600, 128), (600, 400, 128),
                                         (128, 96, 128), (300, 517, 256),
                                         (517, 517, 512), (260, 347, 512),

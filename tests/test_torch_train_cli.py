@@ -1,6 +1,6 @@
 """The port's training CLI (`python -m kgtpu_torch.cli.train`) on the CPU at
-tiny sizes: its flags and config against kgtpu's train.py parser, the
-flags it refuses, what a run writes (checkpoints, metrics.jsonl, best.json
+tiny sizes: its flags and config against kgtpu's train.py parser, what
+a run writes (checkpoints, metrics.jsonl, best.json
 and the dataset statistics kgtpu's train.py stores), resume, init_from,
 retention, and the learning gate of tests/test_e2e.py run through the CLI.
 
@@ -109,18 +109,6 @@ def test_config_base_keeps_what_has_no_flag():
     assert (cfg.model.base_channels, cfg.model.hg_depth, cfg.data.max_instances) == (32, 2, 16)
     assert cfg.train.mask_train_rois == 4 and cfg.train.lr == 0.01
     assert cfg.model.backbone == "hourglass" and cfg.data.input_size == 512
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--steps_per_dispatch", "2"], "captured dispatch"), (["--ngpus", "2"], "data parallelism"),
-    (["--coordinator", "localhost:1234"], "data parallelism"),
-], ids=lambda v: "_".join(v) if isinstance(v, list) else v.split(",")[0].replace(" ", "_"))
-def test_unported_flags_exit_naming_their_item(tiny_json, tmp_path, extra, item):
-    """The refusal names the ROADMAP item by its title.  --rss_limit_gb > 0
-    no longer refuses: the watchdog is ported (tests/test_torch_watchdog.py)."""
-    with pytest.raises(SystemExit, match=f"ROADMAP §1: {item}"):
-        train.run(_argv(tiny_json, tmp_path / "w") + extra)
-    assert not os.path.exists(tmp_path / "w")
 
 
 @pytest.mark.parametrize("extra", [
