@@ -149,7 +149,7 @@
     kernel (an empty or short window is measured again), and the replay's
     loss equals the loss with plain targets on the same state.  (c)
     `cli.train --steps_per_dispatch 4` and 1 (twice, the yardstick) on
-    `synthetic` (8 images), batch 8, 512x512: one epoch of 10 steps (2 dispatches and a
+    `synthetic` (8 images), batch 8, 512x512: one epoch of 6 steps (a dispatch and a
     2-step tail), then one more with --resume; metrics.jsonl and the
     checkpoints' tensors held to (a)'s bound; the CLI's img/s and wait per
     step.  (d) `cli.train --coordinator localhost:<port> --num_hosts 1`
@@ -159,6 +159,19 @@
     the unsharded call, through the GroupNorm kernel.  The machine has one
     H100, so no run here checks more than one rank on the card.  Budget
     CAPTURE_PHASE_S.
+[15] Format variants.  (a) Decodes every fixture of assets_torch/formats/
+    variants (the 16 synthetic_hard images at 512x512, each in one variant:
+    planar tiled and old-LZW TIFF, YCbCr and CMYK TIFF, CMYK / YCCK /
+    lossless JPEG, sequential and progressive arithmetic JPEG, JPEG in
+    TIFF, RLE8 / 565 / OS/2 BMP, Group 4 and Group 3 2-D TIFF) in every mode
+    with the port's readers: each equals cv2's sha256, shape and dtype
+    (kgtpu_reference_formats.npz `variants_decode_json`), or raises
+    UnreadableImage where cv2 returns None; times each variant (median of 3
+    reads, ms per image and per 512x512 of pixels) beside the card's name
+    and power limit.  (b) `cli.test --dataset folder` over that folder with
+    the flagship in f32 and bf16, held against kgtpu's committed runs on the
+    same files with [8]'s gates, the GroupNorm kernel launched; the CLI's
+    img/s beside [12]'s JPEG folder.  Budget VARIANTS_PHASE_S.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -296,8 +309,11 @@ CAPTURE_LOSS_RTOL = 1e-4
 MULTI_RTOL, MULTI_ATOL = 1e-5, 1e-6     # kgtpu's multi-step tolerance, tests/test_train.py
 CAPTURE_CLI_FLAGS = ["--dataset", "synthetic", "--synthetic_n", "8", "--ema_decay", "0.999",
                      "--lr", "1e-3", "--eval_every", "0", "--rss_limit_gb", "0"]
-CAPTURE_CLI_STEPS, CAPTURE_CLI_K = 10, 4
+CAPTURE_CLI_STEPS, CAPTURE_CLI_K = 6, 4   # 6 cut from 10 for the run's time
 DP_STEPS = 5
+# phase [15]: the image-format variants cv2 reads
+VARIANTS_DIR = os.path.join(FORMATS, "variants")
+VARIANTS_PHASE_S = 150      # phase [15]'s budget
 CAPTURE_PHASE_S = 180       # phase [14]'s budget
 GRAPH_PROFILE_FLAG = "--graph-profile"   # runs [14](b) alone, in a fresh process
 
@@ -1568,12 +1584,58 @@ def decode_checks(np) -> dict:
             "host_has": present}
 
 
+class _FolderRun(dict):
+    """One `cli.test` folder run held against kgtpu's (`folder_vs_kgtpu`)."""
+
+    def require(self, what: str) -> None:
+        dtype = self["dtype"]
+        require(self["launches"] > 0, f"the {what} folder {dtype} did not launch the "
+                "GroupNorm kernel")
+        require(abs(self["dmap"]) <= MAP_TOL[dtype], f"{what} {dtype} mAP_dsb2018 "
+                f"{self['mAP_dsb2018']} is off kgtpu's by {self['dmap']}")
+        if dtype == "float32":
+            require(self["count_diff_max"] == 0, f"{what} f32 instance counts off kgtpu's: "
+                    f"{self['count_diffs']}")
+            require(max(self["off"]) <= PIXELS_OFF_TOL, f"{what} f32 label maps off kgtpu's "
+                    f"by {self['off']}")
+
+
+def folder_vs_kgtpu(np, torch, gn, gauss, data_dir: str, ids: list, gt: dict, ref_labels,
+                    ref_counts, ref_metrics: dict, dtype: str, save: str) -> _FolderRun:
+    """`cli.test --dataset folder` over `data_dir` with the flagship (batch 16,
+    512x512, --use_ema) in `dtype`, scored and held against kgtpu's run:
+    mAP_dsb2018, instance counts and label-map pixels off, per image."""
+    from kgtpu_torch.cli import test as test_cli
+    from kgtpu_torch.cli.eval import metrics as eval_metrics
+    from kgtpu_torch.cli.eval import records
+    from kgtpu_torch.data.png import read_png
+    gn.launches = gauss.launches = 0                      # this path's run
+    t = time.perf_counter()
+    rc = test_cli.main(["--dataset", "folder", "--data_dir", data_dir,
+                        "--weights", os.path.join(ASSETS, "flagship_ema"), "--use_ema",
+                        "--input_size", "512", "--batch_size", "16", "--compute_dtype", dtype,
+                        "--save_dir", save])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    with open(os.path.join(save, "detections.json")) as f:
+        det = {r["id"]: r for r in json.load(f)["images"]}
+    require(rc == 0 and sorted(det) == sorted(ids), f"cli.test over {data_dir} {dtype} failed")
+    m = eval_metrics(records(save, gt, 512))
+    counts = np.array([det[i]["num_instances"] for i in ids])
+    dcount = counts - ref_counts
+    off = [int((read_png(os.path.join(save, f"{i}_label.png"), "unchanged")
+                != ref_labels[k]).sum()) for k, i in enumerate(ids)]
+    return _FolderRun(dtype=dtype, mAP_dsb2018=m["mAP_dsb2018"],
+                      dmap=m["mAP_dsb2018"] - ref_metrics["mAP_dsb2018"],
+                      counts=counts.tolist(), count_diffs=dcount.tolist(),
+                      count_diff_max=int(np.abs(dcount).max()), off=off, wall=wall,
+                      launches=gn.launches)
+
+
 def format_serving(np, torch, gn, gauss, fstats: dict) -> dict:
     """[12] (b): the flagship over the baseline JPEGs (f32, bf16) against
     kgtpu's run on them, and over the mixed folder."""
     from kgtpu_torch.cli import test as test_cli
-    from kgtpu_torch.cli.eval import metrics as eval_metrics
-    from kgtpu_torch.cli.eval import records
     from kgtpu_torch.data.png import read_png
     weights = os.path.join(ASSETS, "flagship_ema")
     ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
@@ -1585,46 +1647,25 @@ def format_serving(np, torch, gn, gauss, fstats: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for dtype in ("float32", "bfloat16"):
             short = "f32" if dtype == "float32" else "bf16"
-            save = os.path.join(tmp, dtype)
-            gn.launches = gauss.launches = 0              # this path's run
-            t = time.perf_counter()
-            rc = test_cli.main(["--dataset", "folder", "--data_dir", os.path.join(FORMATS, "jpeg"),
-                                "--weights", weights, "--use_ema", "--input_size", "512",
-                                "--batch_size", "16", "--compute_dtype", dtype,
-                                "--save_dir", save])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            launches = gn.launches
-            with open(os.path.join(save, "detections.json")) as f:
-                det = {r["id"]: r for r in json.load(f)["images"]}
-            require(rc == 0 and sorted(det) == sorted(ids), f"cli.test JPEG {dtype} failed")
-            m = eval_metrics(records(save, gt, 512))
-            counts = np.array([det[i]["num_instances"] for i in ids])
-            dcount = counts - ref[f"counts_{dtype}"]
-            off = [int((read_png(os.path.join(save, f"{i}_label.png"), "unchanged")
-                        != ref[f"labels_{dtype}"][k]).sum()) for k, i in enumerate(ids)]
-            dmap = m["mAP_dsb2018"] - ref_metrics[dtype]["mAP_dsb2018"]
+            r = folder_vs_kgtpu(np, torch, gn, gauss, os.path.join(FORMATS, "jpeg"), ids, gt,
+                                ref[f"labels_{dtype}"], ref[f"counts_{dtype}"],
+                                ref_metrics[dtype], dtype, os.path.join(tmp, dtype))
             png_wall = fstats[f"flagship_cli_wall_s_{dtype}"]
-            log(f"  JPEG folder {dtype}: mAP_dsb2018 {m['mAP_dsb2018']:.6f} (kgtpu "
-                f"{ref_metrics[dtype]['mAP_dsb2018']:.6f}, diff {dmap:+.6f}, tol "
-                f"{MAP_TOL[dtype]}); instances {counts.tolist()}, largest count diff "
-                f"{int(np.abs(dcount).max())}, label-map pixels off kgtpu's: max {max(off)}, "
-                f"equal {off.count(0)}/16; GroupNorm launches {launches}; CLI {16 / wall:.2f} "
-                f"img/s ({wall:.2f} s; the PNG folder of [8]: {16 / png_wall:.2f} img/s)")
-            require(launches > 0, f"the JPEG folder {dtype} did not launch the GroupNorm kernel")
-            require(abs(dmap) <= MAP_TOL[dtype], f"JPEG {dtype} mAP_dsb2018 {m['mAP_dsb2018']} "
-                    f"is off kgtpu's by {dmap}")
-            if dtype == "float32":
-                require(not dcount.any(), f"JPEG f32 instance counts off kgtpu's: "
-                        f"{dcount.tolist()}")
-                require(max(off) <= PIXELS_OFF_TOL, f"JPEG f32 label maps off kgtpu's by {off}")
-            out.update({f"jpeg_mAP_dsb2018_{short}": m["mAP_dsb2018"],
-                        f"jpeg_mAP_diff_{short}": dmap,
-                        f"jpeg_count_diff_max_{short}": int(np.abs(dcount).max()),
-                        f"jpeg_pixels_off_max_{short}": max(off),
-                        f"jpeg_cli_img_per_s_{short}": 16 / wall,
+            log(f"  JPEG folder {dtype}: mAP_dsb2018 {r['mAP_dsb2018']:.6f} (kgtpu "
+                f"{ref_metrics[dtype]['mAP_dsb2018']:.6f}, diff {r['dmap']:+.6f}, tol "
+                f"{MAP_TOL[dtype]}); instances {r['counts']}, largest count diff "
+                f"{r['count_diff_max']}, label-map pixels off kgtpu's: max {max(r['off'])}, "
+                f"equal {r['off'].count(0)}/16; GroupNorm launches {r['launches']}; CLI "
+                f"{16 / r['wall']:.2f} img/s ({r['wall']:.2f} s; the PNG folder of [8]: "
+                f"{16 / png_wall:.2f} img/s)")
+            r.require("JPEG")
+            out.update({f"jpeg_mAP_dsb2018_{short}": r["mAP_dsb2018"],
+                        f"jpeg_mAP_diff_{short}": r["dmap"],
+                        f"jpeg_count_diff_max_{short}": r["count_diff_max"],
+                        f"jpeg_pixels_off_max_{short}": max(r["off"]),
+                        f"jpeg_cli_img_per_s_{short}": 16 / r["wall"],
                         f"png_cli_img_per_s_{short}": 16 / png_wall,
-                        f"jpeg_gn_launches_{short}": launches})
+                        f"jpeg_gn_launches_{short}": r["launches"]})
         save = os.path.join(tmp, "mixed")
         gn.launches = 0
         rc = test_cli.main(["--dataset", "folder", "--data_dir", os.path.join(FORMATS, "mixed"),
@@ -2447,6 +2488,98 @@ def phase_capture(np, torch, gn, gauss) -> dict:
             "capture_cli": cli, "capture_dp": dp, "capture_phase_s": phase_s}
 
 
+def variant_decodes(np, smi: str) -> dict:
+    """[15] (a): every variant fixture in every mode against cv2's hash (or
+    UnreadableImage where cv2 returns None); the decode time of each."""
+    from kgtpu_torch.data.imread import UnreadableImage, read_image
+    from tools.make_torch_format_assets import sha
+    ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
+    decodes = json.loads(str(ref["variants_decode_json"]))
+    kinds = json.loads(str(ref["variants_kinds_json"]))
+    t = time.perf_counter()
+    bad, refused = [], 0
+    for d in decodes:
+        path = os.path.join(VARIANTS_DIR, d["path"])
+        if d["sha256"] is None:
+            try:
+                read_image(path, d["mode"])
+                bad.append((d["path"], d["mode"], "read where cv2 returns None"))
+            except UnreadableImage:
+                refused += 1
+            continue
+        got = read_image(path, d["mode"])
+        if (sha(got), list(got.shape), str(got.dtype)) != (d["sha256"], d["shape"], d["dtype"]):
+            bad.append((d["path"], d["mode"], list(got.shape)))
+    check_s = time.perf_counter() - t
+    log(f"  {len(decodes) - len(bad)}/{len(decodes)} variant decodes equal cv2's (sha256, "
+        f"shape, dtype; {refused} of them UnreadableImage where cv2 returns None) in "
+        f"{check_s:.1f} s")
+    require(not bad, f"variant decodes off cv2's: {bad[:5]}")
+    timed = {}
+    for f, kind in sorted(kinds.items(), key=lambda kv: kv[1]):
+        reads = []
+        for _ in range(3):
+            t = time.perf_counter()
+            img = read_image(os.path.join(VARIANTS_DIR, f), "color")
+            reads.append((time.perf_counter() - t) * 1e3)
+        ms, pixels = sorted(reads)[1], img.shape[0] * img.shape[1]
+        timed[kind] = {"ms_per_image": ms, "pixels": pixels,
+                       "ms_per_512x512": ms * 512 * 512 / pixels,
+                       "bytes": os.path.getsize(os.path.join(VARIANTS_DIR, f))}
+        log(f"  decode {kind}: {ms:.1f} ms per {img.shape[0]}x{img.shape[1]} image (median of "
+            f"3 reads), {timed[kind]['ms_per_512x512']:.1f} ms per 512x512 of pixels, "
+            f"{timed[kind]['bytes']} bytes; {smi}")
+    return {"variant_decode_checks": len(decodes), "variant_decode_refused": refused,
+            "variant_decode_check_s": check_s, "variant_decode_ms": timed}
+
+
+def variant_serving(np, torch, gn, gauss, xstats: dict) -> dict:
+    """[15] (b): the flagship over formats/variants (f32, bf16) against
+    kgtpu's run on the same files, with [8]'s gates."""
+    from kgtpu_torch.data.png import read_png
+    ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
+    ref_metrics = json.loads(str(ref["variants_metrics_json"]))
+    ids = [str(i) for i in ref["variants_ids"]]
+    gt = {i: read_png(os.path.join(ASSETS, "synthetic_hard", "labels", f"{i}.png"),
+                      "unchanged").astype(np.int32) for i in ids}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("float32", "bfloat16"):
+            short = "f32" if dtype == "float32" else "bf16"
+            r = folder_vs_kgtpu(np, torch, gn, gauss, VARIANTS_DIR, ids, gt,
+                                ref[f"labels_variants_{dtype}"],
+                                ref[f"counts_variants_{dtype}"], ref_metrics[dtype], dtype,
+                                os.path.join(tmp, dtype))
+            jpeg = xstats[f"jpeg_cli_img_per_s_{short}"]
+            log(f"  variants folder {dtype}: mAP_dsb2018 {r['mAP_dsb2018']:.6f} (kgtpu "
+                f"{ref_metrics[dtype]['mAP_dsb2018']:.6f}, diff {r['dmap']:+.6f}, tol "
+                f"{MAP_TOL[dtype]}); instances {r['counts']}, largest count diff "
+                f"{r['count_diff_max']}, label-map pixels off kgtpu's: max {max(r['off'])}, "
+                f"equal {r['off'].count(0)}/16; GroupNorm launches {r['launches']}; CLI "
+                f"{16 / r['wall']:.2f} img/s ({r['wall']:.2f} s; the JPEG folder of [12]: "
+                f"{jpeg:.2f} img/s)")
+            r.require("variants")
+            out.update({f"variants_mAP_dsb2018_{short}": r["mAP_dsb2018"],
+                        f"variants_mAP_diff_{short}": r["dmap"],
+                        f"variants_count_diff_max_{short}": r["count_diff_max"],
+                        f"variants_pixels_off_max_{short}": max(r["off"]),
+                        f"variants_cli_img_per_s_{short}": 16 / r["wall"],
+                        f"variants_gn_launches_{short}": r["launches"]})
+    return out
+
+
+def phase_variants(np, torch, gn, gauss, smi: str, xstats: dict) -> dict:
+    """[15]: (a) and (b) of the module docstring."""
+    t_phase = time.perf_counter()
+    out = variant_decodes(np, smi)
+    out.update(variant_serving(np, torch, gn, gauss, xstats))
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase [15]: {phase_s:.1f} s (budget {VARIANTS_PHASE_S} s)")
+    require(phase_s <= VARIANTS_PHASE_S, f"phase [15] took {phase_s:.0f} s")
+    out["variants_phase_s"] = phase_s
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2654,6 +2787,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     capstats = phase_capture(np, torch, gn, gauss)
 
+    # 15. the image-format variants cv2 reads
+    log("[15] format variants: every variant fixture decoded as cv2 decodes it and timed, the "
+        "flagship over formats/variants (f32, bf16) against kgtpu's run on them")
+    torch.cuda.empty_cache()
+    vstats = phase_variants(np, torch, gn, gauss, smi, xstats)
+
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
                "e2e_img_per_s_all": e2e["img_per_s_all"], "e2e_batch": E2E_BATCH,
@@ -2671,7 +2810,7 @@ def main() -> int:
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
                **tstats, **fstats, **cstats, **ttastats, **bstats, **xstats, **estats,
-               **capstats,
+               **capstats, **vstats,
                "device_ms_from_cuda_events": PROFILER_BLIND, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -2704,7 +2843,10 @@ def main() -> int:
                                     "cli.test --save_vis --debug_nans [13]":
                                         estats["vis_gn_launches"],
                                     "data-parallel serving [14](d)":
-                                        capstats["capture_dp"]["dp_serving_gn_launches"]},
+                                        capstats["capture_dp"]["dp_serving_gn_launches"],
+                                    "variants folder f32 [15]": vstats["variants_gn_launches_f32"],
+                                    "variants folder bf16 [15]":
+                                        vstats["variants_gn_launches_bf16"]},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],

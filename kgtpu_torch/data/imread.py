@@ -17,8 +17,12 @@ each.  EXIF orientation is applied as cv2 applies it: to JPEG and PNG in the
 Orientation tag in the decoder (see `data/tiff.py`).
 
 A file cv2 cannot read (its imread returns None) raises `UnreadableImage`, a
-FileNotFoundError as kgtpu's readers raise; a variant cv2 reads but the port
-does not yet raises `UnsupportedImage`, a ValueError naming the ROADMAP item.
+FileNotFoundError as kgtpu's readers raise.  A file cv2 reads and the port
+does not yet raises `UnsupportedImage`, a ValueError naming the ROADMAP item
+that queues it: a variant of the four formats above (`QUEUED`), or another
+container cv2 5.0 sniffs and reads whatever the file's extension says
+(`CONTAINERS`: WebP, JPEG 2000, PNM / PAM / PFM, Sun raster, Radiance HDR,
+GIF, AVIF), recognised by the signature cv2's decoder checks.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 
 MODES = ("color", "gray", "unchanged")
 QUEUED = "ROADMAP §1: image-format variants still to port"
+CONTAINERS = "ROADMAP §1: image containers beyond PNG, JPEG, TIFF and BMP"
 
 
 class UnreadableImage(FileNotFoundError, ValueError):
@@ -39,8 +44,43 @@ class UnsupportedImage(ValueError):
     """A variant cv2.imread reads but the port does not yet."""
 
 
-def unsupported(what: str) -> UnsupportedImage:
-    return UnsupportedImage(f"{what} is not ported yet ({QUEUED})")
+def unsupported(what: str, item: str = QUEUED) -> UnsupportedImage:
+    return UnsupportedImage(f"{what} is not ported yet ({item})")
+
+
+def _avif(data: bytes) -> bool:
+    """An ISO-BMFF file whose ftyp box names the brand avif or avis."""
+    if data[4:8] != b"ftyp":
+        return False
+    (size,) = struct.unpack(">I", data[:4])
+    box = data[8:min(size, len(data))]
+    brands = [box[i:i + 4] for i in range(0, len(box) - 3, 4) if i != 4]
+    return bool({b"avif", b"avis"} & set(brands))
+
+
+def other_container(data: bytes) -> str | None:
+    """The name of a container cv2 5.0 reads beyond PNG, JPEG, TIFF and BMP,
+    by the signature its decoder's checkSignature accepts, or None."""
+    ws = data[2:3] in (b" ", b"\t", b"\n", b"\v", b"\f", b"\r")
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if data[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
+        return "JPEG 2000"
+    if data[:1] == b"P" and ws and data[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6"):
+        return "PNM"
+    if data[:2] == b"P7" and ws:
+        return "PAM"
+    if data[:2] in (b"PF", b"Pf") and ws:
+        return "PFM"
+    if data[:4] == b"\x59\xa6\x6a\x95":
+        return "Sun raster"
+    if data[:6] == b"#?RGBE" or data[:10] == b"#?RADIANCE":
+        return "Radiance HDR"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if _avif(data):
+        return "AVIF"
+    return None
 
 
 def exif_orientation(tiff: bytes) -> int:
@@ -109,6 +149,9 @@ def read_image(path: str, mode: str = "color") -> np.ndarray:
         if data[:2] == b"BM":
             from kgtpu_torch.data.bmp import decode_bmp
             return decode_bmp(data, mode)
-        raise UnreadableImage("not an image format cv2 reads (PNG, JPEG, TIFF or BMP)")
+        kind = other_container(data)
+        if kind is not None:
+            raise unsupported(f"{kind} content", CONTAINERS)
+        raise UnreadableImage("not an image format cv2 reads")
     except (UnreadableImage, UnsupportedImage) as e:
         raise type(e)(f"{path}: {e}") from None

@@ -1,17 +1,29 @@
-"""JPEG decoding without cv2: markers and Huffman entropy decoding in pure
-Python, the pixels in NumPy (`data/jpeg_pixels.py`).  Returns what cv2 5.0
+"""JPEG decoding without cv2: markers and entropy decoding in pure Python,
+the pixels in NumPy (`data/jpeg_pixels.py`).  Returns what cv2 5.0
 (through libjpeg-turbo 3.1, with its defaults: ISLOW IDCT, fancy
 upsampling) returns in the read modes of `data/imread.py`.
 
-Reads 8-bit Huffman-coded JPEG, baseline or extended sequential (SOF0,
-SOF1) and progressive (SOF2): DC first and refinement scans, AC first and
-refinement scans with end-of-band runs; interleaved and non-interleaved
-scans (a non-interleaved scan walks the component's own block grid, not the
-MCU-padded one); restart intervals (RSTn resets the DC predictions and the
-end-of-band run, and the bit reader restarts on a byte); 0xFF00 stuffing;
-any sampling factors.  One or three components: three are YCbCr unless an
-Adobe APP14 marker says transform 0 without a JFIF APP0, or, with neither
-marker, the component ids are 'R', 'G', 'B' (libjpeg's rules).
+Reads 8-bit JPEG:
+
+  * Huffman-coded DCT, baseline or extended sequential (SOF0, SOF1) and
+    progressive (SOF2): DC first and refinement scans, AC first and
+    refinement scans with end-of-band runs;
+  * arithmetic-coded DCT, sequential (SOF9) and progressive (SOF10), with
+    DAC conditioning (`data/jpeg_arith.py`, a port of `jdarith.c`);
+  * lossless, Huffman-coded (SOF3): predictors 1-7, the point transform,
+    restarts (`data/jpeg_lossless.py`, after `jdlhuff.c` / `jdlossls.c` /
+    `jddiffct.c`);
+
+interleaved and non-interleaved scans (a non-interleaved scan walks the
+component's own block grid, not the MCU-padded one); restart intervals
+(RSTn resets the DC predictions, the end-of-band run, the arithmetic
+statistics and the lossless prediction, and the reader restarts on a
+byte); 0xFF00 stuffing; any sampling factors.  Components, as libjpeg
+names their colour space: one is grey; three are YCbCr unless an Adobe
+APP14 marker says transform 0 without a JFIF APP0, or, with neither
+marker, the component ids are 'R', 'G', 'B' or the frame is lossless;
+four are CMYK unless an Adobe marker says a
+transform other than 0, which makes them YCCK.
 
 The bit reader looks 16 bits ahead: every Huffman table becomes a
 65536-entry list that maps the next 16 bits to the code's length and
@@ -19,14 +31,27 @@ symbol and, where the code and its magnitude bits fit in those 16 bits, to
 the decoded coefficient too (libjpeg's HUFF_LOOKAHEAD table, widened), so
 a coefficient costs one lookup.
 
-Arithmetic coding, 12-bit samples, lossless and hierarchical JPEG and
-four-component (CMYK / YCCK) images raise `UnsupportedImage`.  An EXIF APP1
-Orientation turns the image in the "color" and "gray" modes, as cv2 does.
+Lossless files whose components are sampled differently raise
+`UnsupportedImage` (libjpeg-turbo's lossless upsampling is not checked
+here).  A progressive file whose scans leave any of the first nine AC coefficients
+of a component incomplete (a scan missing, or a last scan with Al > 0)
+raises `UnsupportedImage`: libjpeg then estimates them from the
+neighbouring blocks' DC values (`jdcoefct.c`'s block smoothing), which
+this port does not do yet.
+
+cv2 returns None, so `UnreadableImage`: any precision but 8 bits (cv2
+calls the 8-bit jpeg_read_scanlines, which refuses 12- and 16-bit data),
+hierarchical frames (SOF5-7, SOF13-15), lossless arithmetic (SOF11), a
+height left to a DNL marker, two components, and the colour conversions
+libjpeg-turbo refuses in lossless mode (see `jpeg_pixels.to_pixels`).  An
+EXIF APP1 Orientation turns the image in the "color" and "gray" modes, as
+cv2 does.
 """
 
 from __future__ import annotations
 
 import functools
+import re
 import struct
 
 import numpy as np
@@ -52,6 +77,9 @@ class Component:
         self.blocks_w = self.blocks_h = 0      # the component's own grid
         self.grid_w = self.grid_h = 0          # padded to whole MCUs
         self.coef: list[int] = []
+        self.samples = None                    # lossless: [blocks_h, blocks_w] samples
+        self.pt = 0                            # lossless: the scan's point transform
+        self.coef_bits = [-1] * 64             # progressive: Al of each coefficient's last scan
 
     def coefficients(self) -> np.ndarray:
         """[grid_h, grid_w, 64] int32, natural order."""
@@ -95,34 +123,86 @@ def _tables(spec: bytes, ac: bool) -> tuple[list, list]:
 
 def _windows(segment: bytes) -> list[int]:
     """Entropy-coded bytes (stuffing removed) -> for every byte, the 24 bits
-    that start there; zero bits follow the end, as libjpeg supplies them."""
+    that start there; zero bits follow the end, as libjpeg supplies them
+    (enough for the MCU that runs past the end, see the note below)."""
     b = np.frombuffer(segment + b"\0" * 8, np.uint8).astype(np.int64)
     w = (b[:-2] << 16) | (b[1:-1] << 8) | b[2:]
-    return w.tolist() + [0] * 64
+    return w.tolist() + [0] * 4096
 
 
-def _segments(data: bytes, pos: int) -> tuple[list[bytes], int]:
+# Out of data (libjpeg's insufficient_data): once decoding reads past an
+# interval's data, every later MCU of the interval is left as it was (zero,
+# so uniform grey, in a sequential scan).  The state carries into the next
+# interval unless its RSTn marker was found: an interval left without data
+# (None from `restart_data`) is skipped if the one before ran short, else
+# its first MCU decodes from zero bits.
+
+_STUFFED = re.compile(rb"\xff+\x00")
+
+
+def _segments(data: bytes, pos: int) -> tuple[list, int]:
     """The entropy-coded data of a scan starting at `pos`, split at its
-    restart markers and unstuffed, and the position of the marker that
-    ends it."""
-    segs, start, at = [], pos, pos
+    restart markers and unstuffed: [(None, data before the first RSTn),
+    (n, data after RSTn), ...] (n = -1 after a marker code below 0xC0, which
+    libjpeg does not know), and the position of the marker that ends it.
+    As libjpeg reads it: 0xFF 0x00 (after any run of 0xFF) is one 0xFF;
+    0xFF bytes before a marker, or before the end of the file, are fill,
+    not data."""
+    segs, start, at, num = [], pos, pos, None
     n = len(data)
     while True:
         at = data.find(b"\xff", at)
-        if at < 0 or at + 1 >= n:
-            segs.append(data[start:].replace(b"\xff\x00", b"\xff"))
+        if at < 0:
+            segs.append((num, _STUFFED.sub(b"\xff", data[start:])))
+            return segs, n
+        run = at
+        while at + 1 < n and data[at + 1] == 0xFF:
+            at += 1
+        if at + 1 >= n:
+            segs.append((num, _STUFFED.sub(b"\xff", data[start:run])))
             return segs, n
         m = data[at + 1]
         if m == 0x00:
             at += 2
-        elif 0xD0 <= m <= 0xD7:
-            segs.append(data[start:at].replace(b"\xff\x00", b"\xff"))
+        elif 0xD0 <= m <= 0xD7 or m < 0xC0:            # RSTn, or an invalid code
+            segs.append((num, _STUFFED.sub(b"\xff", data[start:run])))
+            num = m - 0xD0 if m >= 0xD0 else -1
             start = at = at + 2
-        elif m == 0xFF:                       # fill byte before a marker
-            at += 1
         else:
-            segs.append(data[start:at].replace(b"\xff\x00", b"\xff"))
+            segs.append((num, _STUFFED.sub(b"\xff", data[start:run])))
             return segs, at
+
+
+def restart_data(segs: list, intervals: int) -> list:
+    """Each restart interval's data, as libjpeg's read_restart_marker and
+    jpeg_resync_to_restart hand it out: RSTn with the expected n starts the
+    next interval; RSTn one or two ahead, or the scan's end, leaves the
+    interval without data (None) and is kept for the next; RSTn one or two
+    behind, or an unknown code, is skipped with its data; any other RSTn is
+    taken as expected."""
+    out = [segs[0][1]]
+    j, want = 1, 0
+    while len(out) < intervals:
+        while True:
+            if j >= len(segs):
+                out.append(None)
+                break
+            m = segs[j][0]
+            if m == want:
+                out.append(segs[j][1])
+                j += 1
+                break
+            if m in ((want + 1) & 7, (want + 2) & 7):
+                out.append(None)
+                break
+            if m < 0 or m in ((want - 1) & 7, (want - 2) & 7):
+                j += 1
+                continue
+            out.append(segs[j][1])
+            j += 1
+            break
+        want = (want + 1) & 7
+    return out
 
 
 def _bits(W: list[int], p: int, n: int) -> int:
@@ -166,11 +246,16 @@ class _Scan:
 
 
 def _baseline(scan: _Scan, segs: list[bytes], comps, dc_tabs, ac_tabs) -> None:
+    short = False
     for interval, seg in zip(scan.intervals, segs):
-        W = _windows(seg)
+        short = short and seg is None
+        W, limit = _windows(seg or b""), 8 * len(seg or b"")
         p = 0
         pred = [0] * len(comps)
         for mcu in interval:
+            if short or p > limit:
+                short = True
+                break
             for ci, base in mcu:
                 coef = comps[ci].coef
                 dsym, dcoef = dc_tabs[ci]
@@ -203,41 +288,59 @@ def _baseline(scan: _Scan, segs: list[bytes], comps, dc_tabs, ac_tabs) -> None:
                     k += r
                     coef[base + ZIGZAG[k]] = v
                     k += 1
+        short = short or p > limit
 
 
 def _dc_first(scan, segs, comps, dc_tabs, al):
+    short = False
     for interval, seg in zip(scan.intervals, segs):
-        W = _windows(seg)
+        short = short and seg is None
+        W, limit = _windows(seg or b""), 8 * len(seg or b"")
         p = 0
         pred = [0] * len(comps)
         for mcu in interval:
+            if short or p > limit:
+                short = True
+                break
             for ci, base in mcu:
                 s, p = _decode(W, p, dc_tabs[ci][0])
                 pred[ci] += _extend(_bits(W, p, s), s)
                 p += s
                 comps[ci].coef[base] = pred[ci] << al
+        short = short or p > limit
 
 
 def _dc_refine(scan, segs, comps, al):
     bit = 1 << al
+    short = False
     for interval, seg in zip(scan.intervals, segs):
-        W = _windows(seg)
+        short = short and seg is None
+        W, limit = _windows(seg or b""), 8 * len(seg or b"")
         p = 0
         for mcu in interval:
+            if short or p > limit:
+                short = True
+                break
             for ci, base in mcu:
                 if (W[p >> 3] << (p & 7)) & 0x800000:
                     comps[ci].coef[base] |= bit
                 p += 1
+        short = short or p > limit
 
 
 def _ac_first(scan, segs, comp, tabs, ss, se, al):
     asym, acoef = tabs
     coef = comp.coef
+    short = False
     for interval, seg in zip(scan.intervals, segs):
-        W = _windows(seg)
+        short = short and seg is None
+        W, limit = _windows(seg or b""), 8 * len(seg or b"")
         p = 0
         eobrun = 0
         for mcu in interval:
+            if short or p > limit:
+                short = True
+                break
             base = mcu[0][1]
             if eobrun:
                 eobrun -= 1
@@ -265,17 +368,23 @@ def _ac_first(scan, segs, comp, tabs, ss, se, al):
                     p += r
                     break
                 k += 1
+        short = short or p > limit
 
 
 def _ac_refine(scan, segs, comp, tabs, ss, se, al):
     asym = tabs[0]
     coef = comp.coef
     p1, m1 = 1 << al, -1 << al
+    short = False
     for interval, seg in zip(scan.intervals, segs):
-        W = _windows(seg)
+        short = short and seg is None
+        W, limit = _windows(seg or b""), 8 * len(seg or b"")
         p = 0
         eobrun = 0
         for mcu in interval:
+            if short or p > limit:
+                short = True
+                break
             base = mcu[0][1]
             k = ss
             if not eobrun:
@@ -314,6 +423,7 @@ def _ac_refine(scan, segs, comp, tabs, ss, se, al):
                         p += 1
                     k += 1
                 eobrun -= 1
+        short = short or p > limit
 
 
 def parse(data: bytes) -> dict:
@@ -329,6 +439,7 @@ def parse(data: bytes) -> dict:
     comps: list[Component] = []
     jfif = adobe = False
     transform, orientation = None, 1
+    cond: dict = {"L": {}, "U": {}, "K": {}}
     while pos < n:
         if data[pos] != 0xFF:
             pos += 1                        # libjpeg skips junk before a marker
@@ -348,16 +459,16 @@ def parse(data: bytes) -> dict:
         (length,) = struct.unpack(">H", data[pos:pos + 2])
         seg = data[pos + 2:pos + length]
         pos += length
-        if m in (0xC0, 0xC1, 0xC2):
+        if m in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
             if frame is not None:
                 raise UnreadableImage("JPEG with two frames")
             prec, hgt, wid, nf = struct.unpack(">BHHB", seg[:6])
             if prec != 8:
-                raise unsupported(f"{prec}-bit JPEG")
+                raise UnreadableImage(f"{prec}-bit JPEG (cv2 reads 8-bit samples only)")
             if hgt == 0:
-                raise unsupported("JPEG whose height is given by a DNL marker")
-            if nf not in (1, 3):
-                raise unsupported(f"JPEG with {nf} components (CMYK / YCCK)")
+                raise UnreadableImage("JPEG whose height is given by a DNL marker")
+            if nf not in (1, 3, 4):
+                raise UnreadableImage(f"JPEG with {nf} components")
             if wid == 0:
                 raise UnreadableImage("JPEG of width 0")
             for i in range(nf):
@@ -365,11 +476,23 @@ def parse(data: bytes) -> dict:
                 comps.append(Component(cid, hv >> 4, hv & 15, tq))
             if any(not 1 <= c.h <= 4 or not 1 <= c.v <= 4 for c in comps):
                 raise UnreadableImage("JPEG sampling factor out of range")
-            frame = _frame(wid, hgt, comps, progressive=m == 0xC2)
-        elif m in (0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF, 0xCC):
-            kind = {0xC3: "lossless", 0xCC: "arithmetic-coded"}.get(
-                m, "arithmetic-coded" if m >= 0xC9 else "hierarchical")
-            raise unsupported(f"{kind} JPEG (SOF 0x{m:02X})")
+            frame = _frame(wid, hgt, comps, progressive=m in (0xC2, 0xCA),
+                           lossless=m == 0xC3)
+            frame["arith"] = m in (0xC9, 0xCA)
+        elif m in (0xC5, 0xC6, 0xC7, 0xCB, 0xCD, 0xCE, 0xCF):
+            kind = "lossless arithmetic-coded" if m == 0xCB else "hierarchical"
+            raise UnreadableImage(f"{kind} JPEG (SOF 0x{m:02X}; cv2 cannot read it)")
+        elif m == 0xCC:
+            for at in range(0, len(seg) - 1, 2):
+                t, val = seg[at], seg[at + 1]
+                if t >= 32:
+                    raise UnreadableImage(f"JPEG DAC table {t}")
+                if t >= 16:
+                    cond["K"][t - 16] = val
+                else:
+                    if val & 15 > val >> 4:
+                        raise UnreadableImage(f"JPEG DAC value {val}")
+                    cond["L"][t], cond["U"][t] = val & 15, val >> 4
         elif m == 0xC4:
             at = 0
             while at < len(seg):
@@ -396,7 +519,7 @@ def parse(data: bytes) -> dict:
         elif m == 0xDA:
             if frame is None:
                 raise UnreadableImage("JPEG scan before its frame")
-            pos = _scan(data, pos, seg, frame, comps, qt, dc, ac, restart)
+            pos = _scan(data, pos, seg, frame, comps, qt, dc, ac, restart, cond)
         elif m == 0xE0 and seg[:5] == b"JFIF\0":
             jfif = True
         elif m == 0xE1 and seg[:6] == b"Exif\0\0" and orientation == 1:
@@ -405,59 +528,96 @@ def parse(data: bytes) -> dict:
             adobe, transform = True, seg[11]
     if frame is None:
         raise UnreadableImage("JPEG without a frame")
-    if any(c.quant is None for c in comps):
+    if any(c.quant is None for c in comps) and not frame["lossless"] or any(
+            c.samples is None for c in comps) and frame["lossless"]:
         raise UnreadableImage("JPEG component without a scan")
-    color = "gray"
-    if len(comps) == 3:
-        ids = tuple(c.id for c in comps)
+    if frame["lossless"] and len({(c.h, c.v) for c in comps}) > 1:
+        raise unsupported("lossless JPEG with subsampled components")
+    if frame["progressive"] and all(c.coef_bits[0] >= 0 for c in comps) and any(
+            any(c.coef_bits[1:10]) for c in comps):
+        raise unsupported("progressive JPEG whose first nine AC coefficients are not all "
+                          "complete (libjpeg smooths its blocks, `jdcoefct.c`)")
+    ids = tuple(c.id for c in comps)
+    if len(comps) == 1:
+        color = "gray"
+    elif len(comps) == 3:
         color = "ycc"
-        if not jfif and (adobe and transform == 0 or not adobe and ids == (82, 71, 66)):
+        if jfif:
+            pass
+        elif adobe:
+            color = "rgb" if transform == 0 else "ycc"
+        elif ids == (82, 71, 66) or frame["lossless"]:
             color = "rgb"
+    else:
+        color = "ycck" if adobe and transform != 0 else "cmyk"
     return {"width": frame["width"], "height": frame["height"], "components": comps,
-            "color": color, "orientation": orientation}
+            "color": color, "orientation": orientation, "lossless": frame["lossless"],
+            "scans": frame["scans"], "arith": frame["arith"]}
 
 
-def _frame(wid: int, hgt: int, comps: list[Component], progressive: bool) -> dict:
+def _frame(wid: int, hgt: int, comps: list[Component], progressive: bool,
+           lossless: bool = False) -> dict:
+    """Block grids (a block is one sample in a lossless frame)."""
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-    mcu_cols, mcu_rows = -(-wid // (8 * hmax)), -(-hgt // (8 * vmax))
+    n = 1 if lossless else 8
+    mcu_cols, mcu_rows = -(-wid // (n * hmax)), -(-hgt // (n * vmax))
     for c in comps:
-        c.blocks_w = -(-wid * c.h // (8 * hmax))
-        c.blocks_h = -(-hgt * c.v // (8 * vmax))
+        c.blocks_w = -(-wid * c.h // (n * hmax))
+        c.blocks_h = -(-hgt * c.v // (n * vmax))
         c.grid_w, c.grid_h = mcu_cols * c.h, mcu_rows * c.v
-        c.coef = [0] * (c.grid_w * c.grid_h * 64)
+        c.coef = [] if lossless else [0] * (c.grid_w * c.grid_h * 64)
     return {"width": wid, "height": hgt, "hmax": hmax, "vmax": vmax, "mcu_cols": mcu_cols,
-            "mcu_rows": mcu_rows, "progressive": progressive}
+            "mcu_rows": mcu_rows, "progressive": progressive, "lossless": lossless,
+            "arith": False, "scans": []}
 
 
-def _scan(data, pos, seg, frame, comps, qt, dc, ac, restart) -> int:
+def _scan(data, pos, seg, frame, comps, qt, dc, ac, restart, cond) -> int:
     ns = seg[0]
     ids = {c.id: i for i, c in enumerate(comps)}
-    scomps, dc_tabs, ac_tabs = [], {}, {}
+    scomps, dc_tabs, ac_tabs, dc_sel, ac_sel = [], {}, {}, {}, {}
     for i in range(ns):
         cid, tdta = seg[1 + 2 * i], seg[2 + 2 * i]
         if cid not in ids:
             raise UnreadableImage(f"JPEG scan names unknown component {cid}")
         ci = ids[cid]
         scomps.append(ci)
+        dc_sel[ci], ac_sel[ci] = tdta >> 4, tdta & 15
         dc_tabs[ci] = dc.get(tdta >> 4)
         ac_tabs[ci] = ac.get(tdta & 15)
-        if comps[ci].quant is None:
+        if comps[ci].quant is None and not frame["lossless"]:
             if comps[ci].tq not in qt:
                 raise UnreadableImage("JPEG quantisation table missing")
             comps[ci].quant = qt[comps[ci].tq]
     ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
     ah, al = ahal >> 4, ahal & 15
-    segs, end = _segments(data, pos)
+    frame["scans"].append({"comps": [comps[ci].id for ci in scomps], "ss": ss, "se": se,
+                           "ah": ah, "al": al})
+    marked, end = _segments(data, pos)
+    if frame["lossless"]:
+        from kgtpu_torch.data.jpeg_lossless import decode_lossless_scan
+        if any(dc_tabs[ci] is None for ci in scomps):
+            raise UnreadableImage("JPEG Huffman table missing")
+        decode_lossless_scan(marked, comps, scomps, dc_tabs, frame, restart, ss, al)
+        return end
     scan = _Scan(comps, scomps, frame, restart)
-    segs += [b""] * (len(scan.intervals) - len(segs))
+    # intervals left without data (None; see the note above `_STUFFED`);
+    # arithmetic decoding reads zeros there
+    segs = restart_data(marked, len(scan.intervals))
     progressive = frame["progressive"]
-    if not progressive:
+    if progressive and (ss == 0 and se != 0 or ss > se or se > 63 or ss and ns != 1):
+        raise UnreadableImage("bad progressive JPEG scan")
+    if progressive:
+        for ci in scomps:
+            comps[ci].coef_bits[ss:se + 1] = [al] * (se + 1 - ss)
+    if frame["arith"]:
+        from kgtpu_torch.data.jpeg_arith import decode_scan
+        decode_scan(scan, [g or b"" for g in segs], comps, scomps, dc_sel, ac_sel, cond,
+                    progressive, ss, se, ah, al)
+    elif not progressive:
         if any(dc_tabs[ci] is None or ac_tabs[ci] is None for ci in scomps):
             raise UnreadableImage("JPEG Huffman table missing")
         _baseline(scan, segs, comps, dc_tabs, ac_tabs)
     elif ss == 0:
-        if se != 0:
-            raise UnreadableImage("progressive JPEG scan mixes DC and AC")
         if ah:
             _dc_refine(scan, segs, comps, al)
         else:
@@ -465,8 +625,6 @@ def _scan(data, pos, seg, frame, comps, qt, dc, ac, restart) -> int:
                 raise UnreadableImage("JPEG Huffman table missing")
             _dc_first(scan, segs, comps, dc_tabs, al)
     else:
-        if ns != 1 or se > 63 or ss > se:
-            raise UnreadableImage("bad progressive JPEG AC scan")
         ci = scomps[0]
         if ac_tabs[ci] is None:
             raise UnreadableImage("JPEG Huffman table missing")

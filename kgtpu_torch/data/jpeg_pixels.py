@@ -5,10 +5,16 @@ components (`jdsample.c`, fancy where libjpeg is) and the colour conversion
 (`jdcolor.c`).
 
   * IDCT: 13-bit fixed-point constants, 2 extra bits kept between the column
-    and the row pass, each pass rounded; the result is taken & 1023 and read
-    through libjpeg's range-limit table (`jdmaster.c::
-    prepare_range_limit_table`), so a value out of range wraps at 10 bits
-    before it is clamped to 0..255.
+    and the row pass, each pass rounded, as libjpeg-turbo's AVX2 ISLOW IDCT
+    (`jidctint-avx2.asm`, which cv2's SIMD build runs) computes them: the
+    dequantised coefficient and four of each pass's input sums wrap at 16
+    bits; the column pass's results saturate at 16 bits, except in a block
+    whose coefficient rows 1-7 are all zero, whose columns are their row-0
+    values shifted left in 16 bits (wrapping); the output saturates to
+    0..255.
+    (The C code would keep them in 32 bits and wrap outputs past +-384
+    through its range-limit table; valid data never gets there, corrupt
+    data does.)
   * Upsampling of a component with h x v sampling under the frame's
     maximum: 2:1 across (and down) is libjpeg's "fancy" triangle filter,
     3/4 of the nearer sample and 1/4 of the further with biases 1 / 2
@@ -20,7 +26,18 @@ components (`jdsample.c`, fancy where libjpeg is) and the colour conversion
     leaves fancy upsampling on, which rules it out.
   * Colour: YCbCr -> RGB with libjpeg's 16-bit fixed-point tables; grey mode
     is the Y plane alone (no conversion), or, for an RGB-coded JPEG, libjpeg's
-    fixed-point RGB -> Y.
+    fixed-point RGB -> Y.  Four components: cv2 asks libjpeg for CMYK (YCCK
+    through `ycck_cmyk_convert`: the YCbCr -> RGB tables, each channel
+    255 - it, clamped; K as stored) and converts it itself, taking the
+    values as inverted (Adobe) CMYK: `icvCvt_CMYK2BGR_8u_C4C3R`'s
+    c' = k - ((255 - c) k >> 8) for each of C, M, Y -> R, G, B, and for
+    grey `icvCvt_CMYK2Gray_8u_C4C1R`, cv2's fixed-point grey of that
+    colour.  "unchanged" of three or four components is the "color" result.
+  * Lossless frames (`data/jpeg_lossless.py`) skip the IDCT: the samples are
+    (value << Pt) & 255.  libjpeg-turbo allows no lossy colour conversion
+    in lossless mode: grey reads only as grey, RGB only as colour, CMYK in
+    every mode (cv2 converts it), YCbCr and YCCK not at all
+    (`UnreadableImage`).
 """
 
 from __future__ import annotations
@@ -35,30 +52,25 @@ _F = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433,
 CONST_BITS, PASS1_BITS = 13, 2
 
 
-def _range_limit_table() -> np.ndarray:
-    """libjpeg's post-IDCT table, indexed by (value & 1023): 0..127 ->
-    128..255, 128..511 -> 255, 512..895 -> 0, 896..1023 -> 0..127."""
-    v = np.arange(1024)
-    return np.where(v < 128, v + 128, np.where(v < 512, 255, np.where(v < 896, 0, v - 896))
-                    ).astype(np.uint8)
-
-
-_RANGE = _range_limit_table()
+def _wrap16(x: np.ndarray) -> np.ndarray:
+    return ((x + 32768) & 0xFFFF) - 32768
 
 
 def _idct_1d(d: list[np.ndarray]) -> list[np.ndarray]:
     """One pass of jpeg_idct_islow over 8 inputs (each an array), before the
-    final descale."""
+    final descale, as the AVX2 code computes it: the sums d0 + d4, d0 - d4,
+    d7 + d3 and d5 + d1 are taken in 16 bits (vpaddw / vpsubw, wrapping);
+    every product and every other sum is exact (vpmaddwd, 32 bits)."""
     z2, z3 = d[2], d[6]
     z1 = (z2 + z3) * _F["0_541196100"]
     tmp2 = z1 - z3 * _F["1_847759065"]
     tmp3 = z1 + z2 * _F["0_765366865"]
-    tmp0 = (d[0] + d[4]) << CONST_BITS
-    tmp1 = (d[0] - d[4]) << CONST_BITS
+    tmp0 = _wrap16(d[0] + d[4]) << CONST_BITS
+    tmp1 = _wrap16(d[0] - d[4]) << CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = d[7], d[5], d[3], d[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, _wrap16(t0 + t2), _wrap16(t1 + t3)
     z5 = (z3 + z4) * _F["1_175875602"]
     t0 = t0 * _F["0_298631336"]
     t1 = t1 * _F["2_053119869"]
@@ -78,18 +90,25 @@ def _idct_1d(d: list[np.ndarray]) -> list[np.ndarray]:
 
 def idct_islow(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """[..., 64] coefficients (natural order) and a [64] quantisation table
-    -> [..., 8, 8] uint8 samples, exactly as jpeg_idct_islow."""
-    x = coef.astype(np.int64) * quant.astype(np.int64)
+    -> [..., 8, 8] uint8 samples, exactly as libjpeg-turbo's AVX2
+    jsimd_idct_islow."""
+    x = _wrap16(coef.astype(np.int64) * quant.astype(np.int64))      # vpmullw
     x = x.reshape(x.shape[:-1] + (8, 8))
-    # pass 1: columns (row index = vertical frequency)
+    # pass 1: columns (row index = vertical frequency); packed with saturation
     cols = _idct_1d([x[..., k, :] for k in range(8)])
     half = 1 << (CONST_BITS - PASS1_BITS - 1)
-    ws = np.stack([(c + half) >> (CONST_BITS - PASS1_BITS) for c in cols], axis=-2)
+    ws = np.clip(np.stack([(c + half) >> (CONST_BITS - PASS1_BITS) for c in cols], axis=-2),
+                 -32768, 32767)
+    # a block whose rows 1-7 of coefficients are all zero takes the shortcut:
+    # each column is its row-0 value << PASS1_BITS, shifted in 16 bits
+    flat = (coef.reshape(coef.shape[:-1] + (8, 8))[..., 1:, :] == 0).all(axis=(-2, -1))
+    dc_rows = np.broadcast_to(_wrap16(x[..., :1, :] << PASS1_BITS), ws.shape)
+    ws = np.where(flat[..., None, None], dc_rows, ws)
     # pass 2: rows
     rows = _idct_1d([ws[..., :, k] for k in range(8)])
     shift = CONST_BITS + PASS1_BITS + 3
     out = np.stack([(r + (1 << (shift - 1))) >> shift for r in rows], axis=-1)
-    return _RANGE[out & 1023]
+    return np.clip(out + 128, 0, 255).astype(np.uint8)
 
 
 def _plane(comp, frame: dict) -> np.ndarray:
@@ -150,22 +169,57 @@ def _rgb_to_y(r: np.ndarray, g: np.ndarray, b: np.ndarray) -> np.ndarray:
     return ((19595 * r + 38470 * g + 7471 * b + 32768) >> 16).astype(np.uint8)
 
 
+def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """cv2's CMYK -> BGR on inverted CMYK, as RGB: v' = k - ((255 - v) k >> 8)."""
+    return np.stack([k - (((255 - v) * k) >> 8) for v in (c, m, y)], -1).astype(np.uint8)
+
+
+def _lossless_refusal(color: str, n: int, mode: str) -> None:
+    """libjpeg-turbo's refusal of a colour conversion in lossless mode
+    (cv2 asks for grey in "gray" mode and for BGR otherwise, or for CMYK
+    from four components; "unchanged" of one component is grey)."""
+    out = "cmyk" if n == 4 else "gray" if mode == "gray" or (n == 1 and mode == "unchanged") \
+        else "rgb"
+    if out != color:
+        from kgtpu_torch.data.imread import UnreadableImage
+        raise UnreadableImage(f"lossless JPEG of colour space {color} read as {out} (libjpeg "
+                              "refuses a colour conversion in lossless mode)")
+
+
 def to_pixels(img: dict, mode: str) -> np.ndarray:
     """A parsed JPEG (`jpeg.parse`) as one of `imread.MODES` ("unchanged" is
-    "color" for three components and "gray" for one, as in cv2)."""
+    "color" for three or four components and "gray" for one, as in cv2)."""
     comps = img["components"]
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     frame = {"width": img["width"], "height": img["height"], "hmax": hmax, "vmax": vmax}
     w, h = img["width"], img["height"]
+    color = img["color"]
+    if img["lossless"]:
+        _lossless_refusal(color, len(comps), mode)
     if mode == "unchanged":
         mode = "gray" if len(comps) == 1 else "color"
-    used = comps[:1] if len(comps) == 1 or (mode == "gray" and img["color"] == "ycc") \
-        else comps
-    planes = [upsample(_plane(c, frame), c.h, c.v, hmax, vmax)[:h, :w] for c in used]
+    used = comps[:1] if len(comps) == 1 or (mode == "gray" and color == "ycc") else comps
+    planes = []
+    for c in used:
+        if img["lossless"]:
+            plane = (c.samples << c.pt) & 255
+        else:
+            plane = _plane(c, frame)
+        planes.append(upsample(plane, c.h, c.v, hmax, vmax)[:h, :w])
     if len(planes) == 1:
         y = planes[0].astype(np.uint8)
         return np.repeat(y[..., None], 3, axis=-1) if mode == "color" else y
-    if img["color"] == "rgb":
+    if len(planes) == 4:
+        c, m, y, k = planes
+        if color == "ycck":
+            r, g, b = (v.astype(np.int64) for v in np.moveaxis(_ycc_to_rgb(c, m, y), -1, 0))
+            c, m, y = 255 - r, 255 - g, 255 - b
+        rgb = _cmyk_to_rgb(c, m, y, k.astype(np.int64))
+        if mode == "gray":
+            from kgtpu_torch.data.bmp import bgr_to_gray
+            return bgr_to_gray(rgb[..., ::-1])
+        return rgb
+    if color == "rgb":
         if mode == "gray":
             return _rgb_to_y(*planes)
         return np.stack(planes, axis=-1).astype(np.uint8)

@@ -131,9 +131,10 @@ def test_png_write_reads_back_in_cv2(tmp_path, dtype, shape):
 def test_png_other_formats_raise(tmp_path):
     """The files this reader used to refuse read as cv2 reads them: a JPEG
     (through `imread.read_image`), an Adam7-interlaced and a 4-bit PNG
-    (through `read_png` too).  The variants still queued raise naming their
-    ROADMAP item (an arithmetic-coded JPEG, an RLE BMP); a corrupt chunk
-    raises."""
+    (through `read_png` too), and since the variants were ported an
+    arithmetic-coded JPEG and an RLE BMP.  A variant still queued (a
+    4x4-subsampled YCbCr TIFF) raises naming its ROADMAP item; a corrupt
+    chunk raises."""
     from test_torch_formats import make_bmp
     from test_torch_formats import make_png as make_any_png
 
@@ -164,8 +165,18 @@ def test_png_other_formats_raise(tmp_path):
     with open(rle, "wb") as f:
         f.write(make_bmp(np.zeros((8, 8)), 8, palette=np.zeros((256, 3)), compression=1))
     for path in (arith, rle):
-        with pytest.raises(UnsupportedImage, match=QUEUED):
-            read_image(path, "color")
+        for mode in png.MODES:
+            want = _cv2_read(path, mode)
+            assert want is not None
+            np.testing.assert_array_equal(read_image(path, mode), want)
+    from tools.variant_encoders import tiff_ycbcr
+    ycc = str(tmp_path / "y.tif")
+    with open(ycc, "wb") as f:
+        f.write(tiff_ycbcr(np.arange(64, dtype=np.uint8).reshape(8, 8), np.full((2, 2), 90),
+                           np.full((2, 2), 200), 4, 4, rows_per_strip=8))
+    assert cv2.imread(ycc) is not None
+    with pytest.raises(UnsupportedImage, match=QUEUED):
+        read_image(ycc, "color")
     bad = str(tmp_path / "crc.png")
     data = bytearray(make_png(img, 2, 8, [0]))
     data[40] ^= 0xFF

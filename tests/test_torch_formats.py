@@ -7,7 +7,8 @@ cv2.fillPoly and `transforms.resize_nearest` against cv2.resize.
 
 Fixtures are written in tmp_path with cv2 and PIL, and by the encoders
 below where neither writes the variant (interlaced and low-depth PNG, BMP
-headers and bit fields, tiled TIFF, every TIFF codec and predictor).  cv2
+headers and bit fields, tiled TIFF, every TIFF codec and predictor, with
+the LZW and PackBits coders of tools/variant_encoders.py).  cv2
 reading a fixture is the check that it is valid.
 
 Tolerance: none.  Every comparison is exact (dtype, shape and every value).
@@ -26,6 +27,8 @@ from kgtpu_torch.data.bmp import bgr_to_gray
 from kgtpu_torch.data.imread import (MODES, QUEUED, UnreadableImage, UnsupportedImage,
                                      read_image)
 from kgtpu_torch.data.transforms import resize_nearest
+from tools.variant_encoders import lzw_encode, packbits
+from tools.variant_encoders import pack_bits as _pack
 
 _CV = {"color": cv2.IMREAD_COLOR, "gray": cv2.IMREAD_GRAYSCALE,
        "unchanged": cv2.IMREAD_UNCHANGED}
@@ -68,14 +71,6 @@ ADAM7 = [(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (
 
 def _chunk(kind, body):
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-
-def _pack(v, bits):
-    """[rows, n] samples of 1, 2 or 4 bits -> rows of bytes, MSB first."""
-    per = 8 // bits
-    v = np.concatenate([v, np.zeros((len(v), (-v.shape[1]) % per), v.dtype)], 1)
-    v = v.reshape(len(v), -1, per).astype(np.uint8)
-    return (v << (bits * np.arange(per - 1, -1, -1)).astype(np.uint8)).sum(-1).astype(np.uint8)
 
 
 def _png_rows(px, ctype, depth, filters):
@@ -157,62 +152,6 @@ def make_bmp(px, bpp, palette=None, header=40, compression=0, masks=None, top_do
     off = 14 + 4 + len(info) + len(extra) + len(pal)
     return (b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + struct.pack("<I", header)
             + info + extra + pal + data)
-
-
-def lzw_encode(data: bytes) -> bytes:
-    """TIFF LZW as libtiff writes it (MSB-first codes, early change)."""
-    out, acc, nacc = bytearray(), 0, 0
-
-    def put(code, width):
-        nonlocal acc, nacc
-        acc = (acc << width) | code
-        nacc += width
-        while nacc >= 8:
-            nacc -= 8
-            out.append((acc >> nacc) & 0xFF)
-        acc &= (1 << nacc) - 1
-    table = {bytes([i]): i for i in range(256)}
-    nxt, width, w = 258, 9, b""
-    put(256, width)
-    for c in data:
-        wc = w + bytes([c])
-        if wc in table:
-            w = wc
-            continue
-        put(table[w], width)
-        table[wc] = nxt
-        nxt += 1
-        if nxt >= 4094:
-            put(256, width)
-            table = {bytes([i]): i for i in range(256)}
-            nxt, width = 258, 9
-        elif nxt > (1 << width) - 1:
-            width += 1
-        w = bytes([c])
-    if w:
-        put(table[w], width)
-        if nxt + 1 > (1 << width) - 1 and width < 12:
-            width += 1
-    put(257, width)
-    if nacc:
-        out.append((acc << (8 - nacc)) & 0xFF)
-    return bytes(out)
-
-
-def packbits(data: bytes) -> bytes:
-    out, i, n = bytearray(), 0, len(data)
-    while i < n:
-        j = i
-        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
-            j += 1
-        if j > i:
-            out += bytes([257 - (j - i + 1)]) + data[i:i + 1]
-        else:
-            while j + 1 < n and data[j + 1] != data[j] and j - i < 127:
-                j += 1
-            out += bytes([j - i]) + data[i:j + 1]
-        i = j + 1
-    return bytes(out)
 
 
 def make_tiff(px, photometric, bits=8, compression=1, predictor=1, tile=None,
@@ -542,10 +481,15 @@ def test_content_not_extension_picks_the_codec(tmp_path):
 
 
 def test_unreadable_and_queued_variants_raise(tmp_path):
-    """What cv2 cannot read raises FileNotFoundError (as kgtpu's readers
-    do); what cv2 reads and the port does not yet raises UnsupportedImage
-    naming the ROADMAP item: arithmetic-coded, 12-bit and CMYK JPEG, RLE
-    and 16-bit BMP, TIFF with JPEG compression."""
+    """What cv2 cannot read raises FileNotFoundError (UnreadableImage), as
+    kgtpu's readers do: a text file, a directory, a missing file, a 12-bit
+    JPEG (cv2's 8-bit jpeg_read_scanlines refuses it), raw bytes flagged
+    RLE8 in a BMP and raw bytes flagged JPEG in a TIFF.  What cv2 reads
+    equals its decode: the SOF9 (arithmetic) patch of a baseline stream,
+    which libjpeg decodes as arithmetic data, a CMYK JPEG, and a 24-bit
+    BMP relabelled 16-bit.  A variant cv2 reads and the port still queues
+    (a 4x4-subsampled YCbCr TIFF) raises UnsupportedImage naming the
+    ROADMAP item."""
     text = write(tmp_path / "notes.png", b"not an image\n")
     assert cv2.imread(text) is None
     with pytest.raises(FileNotFoundError):
@@ -566,12 +510,24 @@ def test_unreadable_and_queued_variants_raise(tmp_path):
     b16 = bytearray(make_bmp(np.zeros((4, 4, 3)), 24))
     b16[28:30] = struct.pack("<H", 16)
     tjpeg = make_tiff(np.zeros((8, 8, 3)), 2, compression=7)
-    for name, data in (("a.jpg", arith), ("t.jpg", bytes(twelve)), ("r.bmp", rle),
-                       ("s.bmp", bytes(b16)), ("j.tif", tjpeg)):
-        with pytest.raises(UnsupportedImage, match=QUEUED):
-            read_image(write(tmp_path / name, data))
+    for name, data in (("t.jpg", bytes(twelve)), ("r.bmp", rle), ("j.tif", tjpeg)):
+        path = write(tmp_path / name, data)
+        for mode in MODES:
+            assert cv2.imread(path, _CV[mode]) is None
+            with pytest.raises(UnreadableImage):
+                read_image(path, mode)
+    for path in (write(tmp_path / "a.jpg", arith), write(tmp_path / "s.bmp", bytes(b16)),
+                 str(tmp_path / "cmyk.jpg")):
+        for mode in MODES:
+            assert cv2.imread(path, _CV[mode]) is not None
+        assert_reads_like_cv2(path)
+    from tools.variant_encoders import tiff_ycbcr
+    y = np.arange(64, dtype=np.uint8).reshape(8, 8)
+    ycc = write(tmp_path / "y.tif", tiff_ycbcr(y, np.full((2, 2), 90), np.full((2, 2), 200),
+                                               4, 4, rows_per_strip=8))
+    assert cv2.imread(ycc) is not None
     with pytest.raises(UnsupportedImage, match=QUEUED):
-        read_image(str(tmp_path / "cmyk.jpg"))
+        read_image(ycc)
 
 
 # --- fill_poly and the nearest resize --------------------------------------

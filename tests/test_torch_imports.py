@@ -54,6 +54,8 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.ops.gaussian, kgtpu_torch.data.transforms\n"
         "import kgtpu_torch.checkpoint, kgtpu_torch.evaluate, kgtpu_torch.coco_export\n"
         "import kgtpu_torch.data.png, kgtpu_torch.data.folder, kgtpu_torch.data.dsb2018\n"
+        "import kgtpu_torch.data.jpeg_arith, kgtpu_torch.data.jpeg_lossless\n"
+        "import kgtpu_torch.data.tiff_color, kgtpu_torch.data.tiff_jpeg, kgtpu_torch.data.ccitt\n"
         "import kgtpu_torch.data.registry, kgtpu_torch.data.loader\n"
         "import kgtpu_torch.data.draw, kgtpu_torch.data.synthetic\n"
         "import kgtpu_torch.cli.test, kgtpu_torch.cli.eval, kgtpu_torch.cli.bench\n"

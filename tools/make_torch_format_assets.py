@@ -2,7 +2,7 @@
 """Make the image-format and dataset fixtures of the PyTorch port under
 assets_torch/formats/, and kgtpu's references for them.
 
-    python tools/make_torch_format_assets.py [--out assets_torch]
+    python tools/make_torch_format_assets.py [--out assets_torch] [--only variants]
 
 Runs on the CPU where cv2, PIL, jax and kgtpu are installed (after
 tools/make_torch_eval_assets.py, whose synthetic_hard images and flagship it
@@ -38,8 +38,26 @@ reads), and writes:
                                of the image and label map of every sample of
                                kgtpu's coco and neural_cells readers, per
                                split, on the layouts `dataset_layout` builds.
+  formats/variants/<id>.<ext>  the 16 synthetic_hard test images at 512x512,
+                               each stored in one of the image-format
+                               variants of `VARIANTS` (two or three of every
+                               group: TIFF layouts, TIFF photometric kinds,
+                               four-component and lossless JPEG, arithmetic
+                               JPEG, JPEG in TIFF, BMP, CCITT), written with
+                               PIL, cv2 and tools/variant_encoders.py; and
+                               in kgtpu_reference_formats.npz
+                               `variants_decode_json` (cv2's decode of each
+                               in every mode: sha256, shape, dtype, or null
+                               where cv2 returns None), `variants_kinds_json`
+                               ({file: variant}), and kgtpu's own flagship
+                               runs over the folder, `labels_variants_<dtype>`,
+                               `counts_variants_<dtype>`, `variants_ids` and
+                               `variants_metrics_json`.
 
-The fixtures and the reference together stay under 8 MiB.
+`--only variants` writes formats/variants alone and adds its keys to the
+existing kgtpu_reference_formats.npz, keeping every other array as it is.
+The fixtures and the reference together stay under 8 MiB (the variants
+under 8 MiB of their own).
 """
 
 from __future__ import annotations
@@ -207,27 +225,226 @@ def fixtures(formats: str) -> list[str]:
     return out
 
 
+# formats/variants: the variant of each of the 16 images, in id order, by group
+VARIANTS = [
+    ("tiff_planar_tiled", ".tif"), ("tiff_old_lzw", ".tif"),            # TIFF layouts
+    ("tiff_ycbcr_2x2", ".tif"), ("tiff_cmyk", ".tif"),                  # photometric kinds
+    ("jpeg_cmyk", ".jpg"), ("jpeg_ycck", ".jpg"), ("jpeg_lossless_rgb", ".jpg"),
+    ("jpeg_arith", ".jpg"), ("jpeg_arith_progressive", ".jpg"),         # arithmetic
+    ("tiff_jpeg_ycbcr", ".tif"), ("tiff_jpeg_pil", ".tif"),             # JPEG in TIFF
+    ("bmp_rle8", ".bmp"), ("bmp_565", ".bmp"), ("bmp_os2", ".bmp"),     # BMP
+    ("tiff_group4", ".tif"), ("tiff_group3_2d", ".tif"),                # CCITT
+]
+
+
+def write_variant(kind: str, rgb) -> bytes:
+    """One 8-bit RGB image ([H, W, 3]) stored as the variant `kind`."""
+    import io
+
+    import cv2
+    import numpy as np
+    from PIL import Image, TiffImagePlugin
+
+    from tools import variant_encoders as ve
+    h, w, _ = rgb.shape
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+
+    def pil(img, fmt, **kw):
+        buf = io.BytesIO()
+        img.save(buf, fmt, **kw)
+        return buf.getvalue()
+    if kind == "tiff_planar_tiled":
+        return ve.tiff_image(rgb, 2, planar=2, tile=(128, 128), compression=8, predictor=2)
+    if kind == "tiff_old_lzw":
+        return ve.tiff_image(rgb, 2, compression=-5, rows_per_strip=32)
+    if kind == "tiff_ycbcr_2x2":
+        f = rgb.astype(np.float64)
+        y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+        cb = 128 + (f[..., 2] - y) / 1.772
+        cr = 128 + (f[..., 0] - y) / 1.402
+        half = lambda v: v.reshape(h // 2, 2, w // 2, 2).mean((1, 3))  # noqa: E731
+        q = lambda v: np.clip(np.rint(v), 0, 255).astype(np.uint8)  # noqa: E731
+        return ve.tiff_ycbcr(q(y), q(half(cb)), q(half(cr)), 2, 2, rows_per_strip=16,
+                             compression=5)
+    if kind == "tiff_cmyk":
+        cmyk = np.asarray(Image.fromarray(rgb).convert("CMYK"))
+        return ve.tiff_image(cmyk, 5, compression=8, rows_per_strip=64)
+    if kind in ("jpeg_cmyk", "jpeg_ycck"):
+        data = pil(Image.fromarray(rgb).convert("CMYK"), "JPEG", quality=90)
+        return data if kind == "jpeg_cmyk" else ve.jpeg_set_adobe(data, 2)
+    if kind == "jpeg_lossless_rgb":
+        return ve.jpeg_lossless([rgb[..., k] for k in range(3)], 1, ids=(82, 71, 66))
+    if kind == "jpeg_arith":
+        return ve.jpeg_arith(cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 85])[1]
+                             .tobytes(), restart=64)
+    if kind == "jpeg_arith_progressive":
+        return ve.jpeg_arith(cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 85,
+                                                        cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1]
+                             .tobytes())
+    if kind == "tiff_jpeg_ycbcr":
+        def enc(block):
+            return cv2.imencode(".jpg", np.ascontiguousarray(block[..., ::-1]), [
+                cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])[1].tobytes()
+        return ve.tiff_jpeg(rgb, enc, 6, sampling=(2, 2), rows_per_strip=64)
+    if kind == "tiff_jpeg_pil":
+        return pil(Image.fromarray(rgb), "TIFF", compression="jpeg", quality=90)
+    if kind == "bmp_rle8":
+        p = Image.fromarray(rgb).quantize(64, dither=Image.Dither.NONE)
+        pal = np.asarray(p.getpalette()[:3 * 64], np.uint8).reshape(-1, 3)[:, ::-1]
+        return ve.bmp_file(ve.bmp_rle(np.asarray(p), 8), w, h, 8, 1, pal)
+    if kind == "bmp_565":
+        v = ((rgb[..., 0].astype(np.uint16) >> 3) << 11) | ((rgb[..., 1].astype(np.uint16) >> 2)
+                                                             << 5) | (rgb[..., 2] >> 3)
+        return ve.bmp_file(ve.bmp_rows(v.astype("<u2").view(np.uint8).reshape(h, -1)), w, h, 16,
+                           3, masks=(0xF800, 0x7E0, 0x1F, 0))
+    if kind == "bmp_os2":
+        return ve.bmp_file(ve.bmp_rows(bgr.reshape(h, -1)), w, h, 24, header=12)
+    if kind in ("tiff_group4", "tiff_group3_2d"):
+        ti = TiffImagePlugin.ImageFileDirectory_v2()
+        if kind == "tiff_group3_2d":
+            ti[292] = 5
+        grey = np.asarray(Image.fromarray(rgb).convert("L"))
+        return pil(Image.fromarray(grey > 96), "TIFF", tiffinfo=ti,
+                   compression="group4" if kind == "tiff_group4" else "group3")
+    raise ValueError(kind)
+
+
+def cv2_decodes(root: str, rels: list[str]) -> list[dict]:
+    """cv2's decode of each file in every mode, in RGB order: sha256,
+    shape and dtype, or None where cv2 returns None."""
+    import cv2
+    flags = {"color": cv2.IMREAD_COLOR, "gray": cv2.IMREAD_GRAYSCALE,
+             "unchanged": cv2.IMREAD_UNCHANGED}
+    out = []
+    for rel in rels:
+        for mode in MODES:
+            img = cv2.imread(os.path.join(root, rel), flags[mode])
+            if img is None:
+                out.append({"path": rel, "mode": mode, "sha256": None, "shape": None,
+                            "dtype": None})
+                continue
+            if img.ndim == 3:
+                img = cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA if img.shape[2] == 4
+                                   else cv2.COLOR_BGR2RGB)
+            out.append({"path": rel, "mode": mode, "sha256": sha(img),
+                        "shape": list(img.shape), "dtype": str(img.dtype)})
+    return out
+
+
+def kgtpu_runs(folder_dir: str, gt: dict, source: str) -> dict:
+    """kgtpu's own f32 and bf16 flagship runs over a folder (its ImageFolder,
+    loader and infer function, as test.py serves it): {labels_<dtype>,
+    counts_<dtype>, ids, metrics_json}."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from kgtpu import checkpoint, evaluate, native
+    from kgtpu.config import Config
+    from kgtpu.data.folder import ImageFolder
+    from kgtpu.data.loader import _prepare_sample
+    from kgtpu.infer import build_infer_fn
+    from kgtpu.models import KGNet
+    from tools.make_torch_eval_assets import BATCH, FLAGSHIP, _score
+    import cv2
+    native.label_map_iou = lambda pred, gt_: None          # kgtpu's NumPy IoU
+    params, extra = checkpoint.restore_bundle(FLAGSHIP, use_ema=True)
+    stored = checkpoint.decode_config(extra)
+    folder = ImageFolder(folder_dir)
+    result = {"ids": np.array([folder[i]["id"] for i in range(len(folder))])}
+    metrics = {"source": "tools/make_torch_format_assets.py", "jax": jax.__version__,
+               "cv2": cv2.__version__, "weights": "runs/kg_hard1024/model_99 (EMA)",
+               "data": source}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(Config(), model=dataclasses.replace(
+            stored.model, compute_dtype=dtype))
+        infer = build_infer_fn(KGNet(cfg=cfg.model), cfg)
+        rng = np.random.default_rng(0)
+        labels, counts, recs = [], [], []
+        for start in range(0, len(folder), BATCH):
+            raws = [folder[i] for i in range(start, min(start + BATCH, len(folder)))]
+            imgs = np.stack([_prepare_sample(r, cfg.data, augment=False, rng=rng,
+                                             image_only=True)["image"] for r in raws])
+            o = infer(params, jnp.asarray(imgs))
+            for k, raw in enumerate(raws):
+                lab = np.asarray(o["label_map"][k]).astype(np.uint16)
+                valid = np.asarray(o["valid"][k])
+                kept = np.asarray(o["scores"][k])[valid]
+                labels.append(lab)
+                counts.append(int(valid.sum()))
+                scores = np.zeros(max(int(lab.max()), len(kept), 1), np.float32)
+                scores[:len(kept)] = kept
+                recs.append({"pred_label": lab.astype(np.int32), "scores": scores,
+                             "gt_label": gt[raw["id"]].astype(np.int32)})
+        metrics[dtype] = _score(evaluate, recs)
+        result[f"labels_{dtype}"] = np.stack(labels)
+        result[f"counts_{dtype}"] = np.array(counts, np.int32)
+        print(source, dtype, counts, json.dumps(metrics[dtype]))
+    result["metrics_json"] = np.array(json.dumps(metrics))
+    return result
+
+
+def make_variants(out: str) -> int:
+    """formats/variants and its keys in kgtpu_reference_formats.npz, the
+    other keys kept (module docstring)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import cv2
+    import numpy as np
+    src = os.path.join(out, "synthetic_hard")
+    vdir = os.path.join(out, "formats", "variants")
+    shutil.rmtree(vdir, ignore_errors=True)
+    os.makedirs(vdir)
+    ids = sorted(f[:-4] for f in os.listdir(os.path.join(src, "images")))
+    gt = {i: cv2.imread(os.path.join(src, "labels", f"{i}.png"), cv2.IMREAD_UNCHANGED)
+          for i in ids}
+    kinds = {}
+    for i, (kind, ext) in zip(ids, VARIANTS):
+        rgb = cv2.imread(os.path.join(src, "images", f"{i}.png"), cv2.IMREAD_COLOR)[..., ::-1]
+        with open(os.path.join(vdir, i + ext), "wb") as f:
+            f.write(write_variant(kind, np.ascontiguousarray(rgb)))
+        kinds[i + ext] = kind
+    rels = sorted(kinds)
+    decodes = cv2_decodes(vdir, rels)
+    runs = kgtpu_runs(vdir, gt, "assets_torch/formats/variants")
+    path = os.path.join(out, "kgtpu_reference_formats.npz")
+    with np.load(path) as ref:
+        result = {k: ref[k] for k in ref.files if not k.startswith("variants_")
+                  and "_variants_" not in k}
+    result.update({"variants_decode_json": np.array(json.dumps(decodes)),
+                   "variants_kinds_json": np.array(json.dumps(kinds)),
+                   "variants_ids": runs["ids"],
+                   "variants_metrics_json": runs["metrics_json"]})
+    for dtype in ("bfloat16", "float32"):
+        result[f"labels_variants_{dtype}"] = runs[f"labels_{dtype}"]
+        result[f"counts_variants_{dtype}"] = runs[f"counts_{dtype}"]
+    np.savez_compressed(path, **result)
+    size = sum(os.path.getsize(os.path.join(vdir, f)) for f in rels)
+    print(f"{len(rels)} variant files, {len(decodes)} decodes "
+          f"({sum(d['sha256'] is None for d in decodes)} None), {size / 2**20:.2f} MiB; "
+          f"npz {os.path.getsize(path) / 2**20:.2f} MiB")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
+    p.add_argument("--only", choices=["variants"], default=None)
     a = p.parse_args(argv)
+    if a.only == "variants":
+        return make_variants(a.out)
 
     import jax
     jax.config.update("jax_platforms", "cpu")
     import cv2
-    import jax.numpy as jnp
     import numpy as np
     from PIL import Image
 
-    from kgtpu import checkpoint, evaluate, native
-    from kgtpu.config import Config
     from kgtpu.data.coco import CocoDataset
-    from kgtpu.data.folder import ImageFolder
-    from kgtpu.data.loader import _prepare_sample
     from kgtpu.data.neural_cells import NeuralCells
-    from kgtpu.infer import build_infer_fn
-    from kgtpu.models import KGNet
-    from tools.make_torch_eval_assets import BATCH, FLAGSHIP, _score
 
     src = os.path.join(a.out, "synthetic_hard")
     formats = os.path.join(a.out, "formats")
@@ -278,54 +495,9 @@ def main(argv: list[str] | None = None) -> int:
             f.write("not an image: the readers skip it\n")
 
     # cv2's decodes, in RGB order, as kgtpu's readers see them
-    flags = {"color": cv2.IMREAD_COLOR, "gray": cv2.IMREAD_GRAYSCALE,
-             "unchanged": cv2.IMREAD_UNCHANGED}
-    decode = []
-    for rel in fixtures(formats):
-        for mode in MODES:
-            img = cv2.imread(os.path.join(formats, rel), flags[mode])
-            if img.ndim == 3:
-                img = cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA if img.shape[2] == 4
-                                   else cv2.COLOR_BGR2RGB)
-            decode.append({"path": rel, "mode": mode, "sha256": sha(img),
-                           "shape": list(img.shape), "dtype": str(img.dtype)})
-
-    native.label_map_iou = lambda pred, gt_: None          # kgtpu's NumPy IoU
-    params, extra = checkpoint.restore_bundle(FLAGSHIP, use_ema=True)
-    stored = checkpoint.decode_config(extra)
-    folder = ImageFolder(os.path.join(formats, "jpeg"))
-    result = {"decode_json": np.array(json.dumps(decode)),
-              "ids": np.array([folder[i]["id"] for i in range(len(folder))])}
-    metrics = {"source": "tools/make_torch_format_assets.py", "jax": jax.__version__,
-               "cv2": cv2.__version__, "weights": "runs/kg_hard1024/model_99 (EMA)",
-               "data": "assets_torch/formats/jpeg"}
-    import dataclasses
-    for dtype in ("bfloat16", "float32"):
-        cfg = dataclasses.replace(Config(), model=dataclasses.replace(
-            stored.model, compute_dtype=dtype))
-        infer = build_infer_fn(KGNet(cfg=cfg.model), cfg)
-        rng = np.random.default_rng(0)
-        labels, counts, recs = [], [], []
-        for start in range(0, len(folder), BATCH):
-            raws = [folder[i] for i in range(start, min(start + BATCH, len(folder)))]
-            imgs = np.stack([_prepare_sample(r, cfg.data, augment=False, rng=rng,
-                                             image_only=True)["image"] for r in raws])
-            o = infer(params, jnp.asarray(imgs))
-            for k, raw in enumerate(raws):
-                lab = np.asarray(o["label_map"][k]).astype(np.uint16)
-                valid = np.asarray(o["valid"][k])
-                kept = np.asarray(o["scores"][k])[valid]
-                labels.append(lab)
-                counts.append(int(valid.sum()))
-                scores = np.zeros(max(int(lab.max()), len(kept), 1), np.float32)
-                scores[:len(kept)] = kept
-                recs.append({"pred_label": lab.astype(np.int32), "scores": scores,
-                             "gt_label": gt[raw["id"]].astype(np.int32)})
-        metrics[dtype] = _score(evaluate, recs)
-        result[f"labels_{dtype}"] = np.stack(labels)
-        result[f"counts_{dtype}"] = np.array(counts, np.int32)
-        print(dtype, counts, json.dumps(metrics[dtype]))
-    result["metrics_json"] = np.array(json.dumps(metrics))
+    decode = cv2_decodes(formats, fixtures(formats))
+    runs = kgtpu_runs(os.path.join(formats, "jpeg"), gt, "assets_torch/formats/jpeg")
+    result = {"decode_json": np.array(json.dumps(decode)), **runs}
 
     datasets = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -344,7 +516,7 @@ def main(argv: list[str] | None = None) -> int:
                 for f in fs) + os.path.getsize(os.path.join(a.out, "kgtpu_reference_formats.npz"))
     print(f"{len(decode)} decodes, datasets {[(k, len(v)) for k, v in datasets.items()]}, "
           f"{total / 2**20:.2f} MiB")
-    return 0
+    return make_variants(a.out)
 
 
 if __name__ == "__main__":

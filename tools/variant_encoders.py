@@ -1,0 +1,885 @@
+"""Writers of the image-format variants that neither cv2 nor PIL writes, for
+the port's reader tests and fixtures (tests/test_torch_format_variants.py,
+tools/make_torch_format_assets.py).  NumPy, zlib and struct only.
+
+  tiff_file / tiff_image   TIFF of any layout: strips or tiles, contiguous or
+                           separate planes, any sample type, YCbCr
+                           subsampling, JPEG tables, any tag
+  jpeg_coefficients,       re-encode a JPEG's quantised coefficients as an
+  jpeg_arith               arithmetic-coded JPEG (SOF9 sequential, SOF10
+                           progressive), as libjpeg's jcarith.c codes them
+  jpeg_lossless            SOF3 lossless JPEG (Huffman, predictors 1-7,
+                           point transform, restarts)
+  jpeg_set_adobe           an Adobe APP14 marker with a given transform
+  bmp_rle                  RLE8 / RLE4 BMP from index rows
+  bmp_file                 BMP with any header (12-byte OS/2 too) and depth
+  ccitt_encode             CCITT modified Huffman (RLE), Group 3 (1-D / 2-D)
+                           and Group 4 bilevel coding
+
+cv2 reading a written file is the check that it is valid; the tests hold
+the port's decoder against cv2's decode of it, never against these writers.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+# --- TIFF --------------------------------------------------------------------
+
+SHORT, LONG, RATIONAL, ASCII, UNDEFINED, DOUBLE = 3, 4, 5, 2, 7, 12
+
+
+def pack_bits(v: np.ndarray, bits: int) -> np.ndarray:
+    """[rows, n] samples of 1, 2 or 4 bits -> rows of bytes, MSB first."""
+    per = 8 // bits
+    v = np.concatenate([v, np.zeros((len(v), (-v.shape[1]) % per), v.dtype)], 1)
+    v = v.reshape(len(v), -1, per).astype(np.uint8)
+    return (v << (bits * np.arange(per - 1, -1, -1)).astype(np.uint8)).sum(-1).astype(np.uint8)
+
+
+def sample_rows(block: np.ndarray, bits: int, e: str, predictor: int = 1) -> list[bytes]:
+    """[rows, cols, spp] samples -> the bytes of each row, with predictor 2
+    (horizontal differencing) or 3 (floating point) applied."""
+    rows, cols, spp = block.shape
+    if bits < 8:
+        return [r.tobytes() for r in pack_bits(block.reshape(rows, -1).astype(np.uint8), bits)]
+    kind = block.dtype.kind
+    dt = np.dtype(f"{'f' if kind == 'f' else ('i' if kind == 'i' else 'u')}{bits // 8}")
+    b = block.astype(dt)
+    if predictor == 2:
+        u = b.view(f"u{bits // 8}")
+        d = u.copy()
+        d[:, 1:] = u[:, 1:] - u[:, :-1]
+        b = d.view(dt)
+    if predictor == 3:
+        nb = bits // 8
+        be = b.astype(dt.newbyteorder(">")).view(np.uint8).reshape(rows, cols * spp, nb)
+        planes = be.transpose(0, 2, 1).reshape(rows, -1).astype(np.int16)
+        d = planes.copy()
+        d[:, spp:] = planes[:, spp:] - planes[:, :-spp]
+        return [(r & 255).astype(np.uint8).tobytes() for r in d]
+    return [r.astype(dt.newbyteorder(e)).tobytes() for r in b]
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it (MSB-first codes, early change)."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+    table = {bytes([i]): i for i in range(256)}
+    nxt, width, w = 258, 9, b""
+    put(256, width)
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= 4094:
+            put(256, width)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        elif nxt > (1 << width) - 1:
+            width += 1
+        w = bytes([c])
+    if w:
+        put(table[w], width)
+        if nxt + 1 > (1 << width) - 1 and width < 12:
+            width += 1
+    put(257, width)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def lzw_encode_old(data: bytes) -> bytes:
+    """Old-style TIFF LZW (LSB-first codes, the width grows when the next
+    code reaches 2^width): what libtiff's compat decoder reads.  Starts
+    with a clear code, whose low byte 0x00 and next bit make the 0x00 0x01
+    libtiff sniffs."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+    table = {bytes([i]): i for i in range(256)}
+    nxt, width, w = 258, 9, b""
+    put(256, width)
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= 4094:
+            put(256, width)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        elif nxt > (1 << width):
+            width += 1
+        w = bytes([c])
+    if w:
+        put(table[w], width)
+        nxt += 1
+        if nxt > (1 << width) and width < 12:
+            width += 1
+    put(257, width)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1)]) + data[i:i + 1]
+        else:
+            while j + 1 < n and data[j + 1] != data[j] and j - i < 127:
+                j += 1
+            out += bytes([j - i]) + data[i:j + 1]
+        i = j + 1
+    return bytes(out)
+
+
+def compress(rows: list[bytes], compression: int) -> bytes:
+    raw = b"".join(rows)
+    if compression in (8, 32946):
+        return zlib.compress(raw)
+    if compression == 5:
+        return lzw_encode(raw)
+    if compression == -5:                       # old-style LZW, stored as 5
+        return lzw_encode_old(raw)
+    if compression == 32773:
+        return b"".join(packbits(r) for r in rows)
+    return raw
+
+
+def tiff_file(blocks: list[bytes], tags: dict, bo: str = "II", tiled: bool = False) -> bytes:
+    """A TIFF of one IFD: `blocks` (strips or tiles, already coded) and
+    `tags` {tag: (type, [values])}; the offsets and byte counts are added."""
+    e = "<" if bo == "II" else ">"
+    tags = dict(tags)
+    data = bytearray((b"II*\0" if bo == "II" else b"MM\0*") + b"\0\0\0\0")
+    offsets = []
+    for b in blocks:
+        offsets.append(len(data))
+        data += b + b"\0" * (len(b) % 2)
+    offk, cntk = (324, 325) if tiled else (273, 279)
+    tags[offk], tags[cntk] = (LONG, offsets), (LONG, [len(b) for b in blocks])
+    fmt = {SHORT: "H", LONG: "I", RATIONAL: "II", ASCII: "B", UNDEFINED: "B", DOUBLE: "d"}
+    packed = {}
+    for k, (t, vals) in sorted(tags.items()):
+        if t == RATIONAL:
+            flat = [int(x) for v in vals for x in (v if isinstance(v, tuple) else (v, 1))]
+            raw = struct.pack(e + "I" * len(flat), *flat)
+            count = len(flat) // 2
+        elif t == DOUBLE:
+            raw = struct.pack(e + "d" * len(vals), *map(float, vals))
+            count = len(vals)
+        else:
+            raw = struct.pack(e + fmt[t] * len(vals), *map(int, vals))
+            count = len(vals)
+        if len(raw) > 4:
+            packed[k] = (t, count, struct.pack(e + "I", len(data)))
+            data += raw + b"\0" * (len(raw) % 2)
+        else:
+            packed[k] = (t, count, raw.ljust(4, b"\0"))
+    data[4:8] = struct.pack(e + "I", len(data))
+    data += struct.pack(e + "H", len(tags))
+    for k, (t, count, val) in sorted(packed.items()):
+        data += struct.pack(e + "HHI", k, t, count) + val
+    return bytes(data + struct.pack(e + "I", 0))
+
+
+def tiff_image(px, photometric: int, bits: int = 8, compression: int = 1, predictor: int = 1,
+               tile=None, rows_per_strip=None, planar: int = 1, bo: str = "II",
+               sample_format: int | None = None, extra=None, tags=None) -> bytes:
+    """A TIFF of `px` ([H, W] or [H, W, spp]) in strips or tiles (edge tiles
+    zero-padded), contiguous (planar 1) or one plane after another (planar
+    2).  `compression` -5 writes old-style LZW under the code 5."""
+    px = np.asarray(px)
+    if px.ndim == 2:
+        px = px[..., None]
+    h, w, c = px.shape
+    e = "<" if bo == "II" else ">"
+    planes = [px] if planar == 1 else [px[..., k:k + 1] for k in range(c)]
+    blocks = []
+    for plane in planes:
+        if tile:
+            tw, th = tile
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    t = np.zeros((th, tw, plane.shape[2]), px.dtype)
+                    sub = plane[y:y + th, x:x + tw]
+                    t[:sub.shape[0], :sub.shape[1]] = sub
+                    blocks.append(compress(sample_rows(t, bits, e, predictor), compression))
+        else:
+            rps = rows_per_strip or h
+            blocks += [compress(sample_rows(plane[y:y + rps], bits, e, predictor), compression)
+                       for y in range(0, h, rps)]
+    t = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [bits] * c),
+         259: (SHORT, [abs(compression)]), 262: (SHORT, [photometric]), 277: (SHORT, [c]),
+         284: (SHORT, [planar])}
+    if predictor != 1:
+        t[317] = (SHORT, [predictor])
+    if sample_format is not None:
+        t[339] = (SHORT, [sample_format] * c)
+    if extra is not None:
+        t[338] = (SHORT, list(extra))
+    if tile:
+        t[322], t[323] = (SHORT, [tile[0]]), (SHORT, [tile[1]])
+    else:
+        t[278] = (LONG, [rows_per_strip or h])
+    t.update(tags or {})
+    return tiff_file(blocks, t, bo, tiled=bool(tile))
+
+
+def ycbcr_units(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """Contiguous YCbCr data of subsampling hs x vs: for each hs x vs block
+    of luma (the image padded to whole blocks by repeating its edge), its
+    hs*vs Y samples row by row, then Cb and Cr.  Returns [block rows,
+    bytes per block row]; cb and cr are [ceil(H/vs), ceil(W/hs)]."""
+    h, w = y.shape
+    bh, bw = -(-h // vs), -(-w // hs)
+    yp = np.pad(y, ((0, bh * vs - h), (0, bw * hs - w)), mode="edge")
+    units = yp.reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3).reshape(bh, bw, vs * hs)
+    return np.concatenate([units, cb[..., None], cr[..., None]], -1).reshape(bh, -1).astype(
+        np.uint8)
+
+
+def tiff_ycbcr(y, cb, cr, hs: int, vs: int, compression: int = 1, rows_per_strip=None,
+               tile=None, bo: str = "II", tags=None) -> bytes:
+    """A contiguous YCbCr TIFF with subsampling hs x vs, in strips (rows a
+    multiple of vs) or tiles."""
+    h, w = y.shape
+    units = ycbcr_units(y, cb, cr, hs, vs)
+    per = hs * vs + 2
+    blocks = []
+    if tile:
+        tw, th = tile
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw):
+                t = np.zeros((th // vs, (tw // hs) * per), np.uint8)
+                sub = units[y0 // vs:(y0 + th) // vs, (x0 // hs) * per:((x0 + tw) // hs) * per]
+                t[:sub.shape[0], :sub.shape[1]] = sub
+                blocks.append(compress([r.tobytes() for r in t], compression))
+    else:
+        rps = rows_per_strip or h
+        blocks = [compress([r.tobytes() for r in units[r0 // vs:-(-(r0 + rps) // vs)]],
+                           compression) for r0 in range(0, h, rps)]
+    t = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [8, 8, 8]),
+         259: (SHORT, [compression]), 262: (SHORT, [6]), 277: (SHORT, [3]), 284: (SHORT, [1]),
+         530: (SHORT, [hs, vs])}
+    if tile:
+        t[322], t[323] = (SHORT, [tile[0]]), (SHORT, [tile[1]])
+    else:
+        t[278] = (LONG, [rows_per_strip or h])
+    t.update(tags or {})
+    return tiff_file(blocks, t, bo, tiled=bool(tile))
+
+
+# --- JPEG --------------------------------------------------------------------
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+class _Bits:
+    """Huffman bit writer: MSB first, 0xFF stuffed, restarts padded with 1s."""
+
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, v: int, n: int) -> None:
+        self.acc = (self.acc << n) | (v & ((1 << n) - 1))
+        self.n += n
+        while self.n >= 8:
+            self.n -= 8
+            b = (self.acc >> self.n) & 0xFF
+            self.out.append(b)
+            if b == 0xFF:
+                self.out.append(0)
+        self.acc &= (1 << self.n) - 1
+
+    def flush(self) -> None:
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+
+
+# a DC table for the 17 lossless categories: lengths 2, 3 (x5), 4, ..., 14
+LOSSLESS_COUNTS = [0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0]
+
+
+def _huff_codes(counts: list[int], values: list[int]) -> dict:
+    code, k, out = 0, 0, {}
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            out[values[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return out
+
+
+def lossless_predict(x: np.ndarray, predictor: int, pt: int, first_rows) -> np.ndarray:
+    """The prediction of each sample of `x` ([h, w], after the point
+    transform) as libjpeg's lossless decoder forms it."""
+    h, w = x.shape
+    x = x.astype(np.int64)
+    pred = np.zeros_like(x)
+    for r in range(h):
+        if r in first_rows:
+            pred[r, 0] = 1 << (8 - pt - 1)
+            pred[r, 1:] = x[r, :-1]
+            continue
+        ra, rb = x[r, :-1], x[r - 1, 1:]
+        rc = x[r - 1, :-1]
+        pred[r, 0] = x[r - 1, 0]
+        pred[r, 1:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                       6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+    return pred
+
+
+def jpeg_lossless(planes, predictor: int = 1, pt: int = 0, restart_rows: int = 0,
+                  ids=None, adobe=None, interleaved: bool = True) -> bytes:
+    """A lossless (SOF3) JPEG of 8-bit planes ([h, w] each, sampling 1x1),
+    one interleaved scan, or one scan per component."""
+    planes = [np.asarray(p, np.int64) >> pt for p in planes]
+    h, w = planes[0].shape
+    n = len(planes)
+    ids = list(ids or range(1, n + 1))
+    values = list(range(17))
+    codes = _huff_codes(LOSSLESS_COUNTS, values)
+    first = set(range(0, h, restart_rows)) if restart_rows else {0}
+    diffs = []
+    for x in planes:
+        d = (x - lossless_predict(x, predictor, pt, first)) & 0xFFFF
+        diffs.append(np.where(d > 32768, d - 65536, d))
+    head = b"\xff\xd8"
+    if adobe is not None:
+        head += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe))
+    head += _segment(0xC3, struct.pack(">BHHB", 8, h, w, n) + b"".join(
+        struct.pack(">BBB", i, 0x11, 0) for i in ids))
+    head += _segment(0xC4, bytes([0x00] + LOSSLESS_COUNTS + values))
+    if restart_rows:
+        mcus = w if not interleaved or n == 1 else w
+        head += _segment(0xDD, struct.pack(">H", restart_rows * mcus))
+    groups = [list(range(n))] if interleaved else [[k] for k in range(n)]
+    body = b""
+    for group in groups:
+        bits = _Bits()
+        rst = 0
+        sos = _segment(0xDA, bytes([len(group)]) + b"".join(bytes([ids[k], 0]) for k in group)
+                       + bytes([predictor, 0, pt]))
+        for r in range(h):
+            if restart_rows and r and r % restart_rows == 0:
+                bits.flush()
+                bits.out += bytes([0xFF, 0xD0 + rst % 8])
+                rst += 1
+            for c in range(w):
+                for k in group:
+                    v = int(diffs[k][r, c])
+                    s = 16 if v == 32768 else abs(v).bit_length()
+                    bits.put(*codes[s])
+                    if 0 < s < 16:
+                        bits.put(v if v > 0 else v - 1, s)
+        bits.flush()
+        body += sos + bytes(bits.out)
+    return head + body + b"\xff\xd9"
+
+
+def jpeg_set_adobe(jpeg: bytes, transform: int) -> bytes:
+    """`jpeg` with its Adobe APP14 marker's transform set (a marker added
+    after SOI if there is none) and any JFIF APP0 removed."""
+    out, pos = bytearray(b"\xff\xd8"), 2
+    out += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, transform))
+    while pos < len(jpeg):
+        m = jpeg[pos + 1]
+        (length,) = struct.unpack(">H", jpeg[pos + 2:pos + 4])
+        if m == 0xDA:
+            return bytes(out + jpeg[pos:])
+        if not (m == 0xEE or m == 0xE0):
+            out += jpeg[pos:pos + 2 + length]
+        pos += 2 + length
+    return bytes(out)
+
+
+class _ArithEncoder:
+    """jcarith.c's arith_encode and finish_pass."""
+
+    def __init__(self):
+        from kgtpu_torch.data.jpeg_arith import AFTER_LPS, AFTER_MPS, QE
+        self.QE, self.LPS, self.MPS = QE, AFTER_LPS, AFTER_MPS
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+        self.out = bytearray()
+
+    def encode(self, st: list, i: int, val: int) -> None:
+        sv = st[i]
+        qe = self.QE[sv]
+        self.a -= qe
+        if val != (sv >> 7):
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = self.LPS[sv]
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = self.MPS[sv]
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self.out += b"\x00" * self.zc
+                        self.zc = 0
+                        self.out.append(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self.out.append(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self.out += b"\x00" * self.zc
+                        self.zc = 0
+                        self.out.append(self.buffer)
+                    if self.sc:
+                        self.out += b"\x00" * self.zc
+                        self.zc = 0
+                        self.out += b"\xff\x00" * self.sc
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self.out += b"\x00" * self.zc
+                self.zc = 0
+                self.out.append(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self.out.append(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self.out += b"\x00" * self.zc
+                self.zc = 0
+                self.out.append(self.buffer)
+            if self.sc:
+                self.out += b"\x00" * self.zc
+                self.zc = 0
+                self.out += b"\xff\x00" * self.sc
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self.out += b"\x00" * self.zc
+            self.zc = 0
+            b = (self.c >> 19) & 0xFF
+            self.out.append(b)
+            if b == 0xFF:
+                self.out.append(0)
+            if self.c & 0x7F800:
+                b = (self.c >> 11) & 0xFF
+                self.out.append(b)
+                if b == 0xFF:
+                    self.out.append(0)
+        return bytes(self.out)
+
+
+def _enc_dc(e, st, ctx, v, lo, hi) -> int:
+    """Figures F.4-F.9 for one DC difference; returns the next context."""
+    if v == 0:
+        e.encode(st, ctx, 0)
+        return 0
+    e.encode(st, ctx, 1)
+    if v > 0:
+        e.encode(st, ctx + 1, 0)
+        i, nctx = ctx + 2, 4
+    else:
+        v = -v
+        e.encode(st, ctx + 1, 1)
+        i, nctx = ctx + 3, 8
+    m = 0
+    v -= 1
+    if v:
+        e.encode(st, i, 1)
+        m = 1
+        v2 = v
+        i = 20
+        v2 >>= 1
+        while v2:
+            e.encode(st, i, 1)
+            m <<= 1
+            i += 1
+            v2 >>= 1
+    e.encode(st, i, 0)
+    if m < (1 << lo) >> 1:
+        nctx = 0
+    elif m > (1 << hi) >> 1:
+        nctx += 8
+    i += 14
+    m >>= 1
+    while m:
+        e.encode(st, i, 1 if m & v else 0)
+        m >>= 1
+    return nctx
+
+
+def _enc_ac_value(e, st, i, fixed, v, k, kx) -> None:
+    """Figures F.6-F.9 for a nonzero AC value whose sign is coded; st[i] is
+    its S0 bin."""
+    i += 2
+    m = 0
+    v -= 1
+    if v:
+        e.encode(st, i, 1)
+        m = 1
+        v2 = v >> 1
+        if v2:
+            e.encode(st, i, 1)
+            m <<= 1
+            i = 189 if k <= kx else 217
+            v2 >>= 1
+            while v2:
+                e.encode(st, i, 1)
+                m <<= 1
+                i += 1
+                v2 >>= 1
+    e.encode(st, i, 0)
+    i += 14
+    m >>= 1
+    while m:
+        e.encode(st, i, 1 if m & v else 0)
+        m >>= 1
+
+
+def _shift(v: int, al: int) -> int:
+    """|v| >> al with v's sign (jcarith's point transform of AC values)."""
+    return (v >> al) if v >= 0 else -((-v) >> al)
+
+
+def _arith_scan(comps, scomps, frame, restart, scan, L, U, K) -> bytes:
+    """One arithmetic-coded scan's entropy-coded data (with RST markers)."""
+    from kgtpu_torch.data.jpeg import ZIGZAG, _Scan
+    ss, se, ah, al = scan["ss"], scan["se"], scan["ah"], scan["al"]
+    progressive = frame["progressive"]
+    out = bytearray()
+    for n, interval in enumerate(_Scan(comps, scomps, frame, restart).intervals):
+        if n:
+            out += bytes([0xFF, 0xD0 + (n - 1) % 8])
+        e = _ArithEncoder()
+        dc_bins, ac_bins = [0] * 64, [0] * 256          # table 0, shared by every component
+        dc = {ci: dc_bins for ci in scomps}
+        acs = {ci: ac_bins for ci in scomps}
+        last = {ci: 0 for ci in scomps}
+        ctx = {ci: 0 for ci in scomps}
+        fixed = [113]
+        for mcu in interval:
+            for ci, base in mcu:
+                coef = comps[ci].coef
+                blk = [coef[base + ZIGZAG[k]] for k in range(64)]      # zigzag order
+                if not progressive or (ss == 0 and ah == 0):
+                    d = blk[0] >> al if progressive else blk[0]
+                    ctx[ci] = _enc_dc(e, dc[ci], ctx[ci], d - last[ci], L, U)
+                    last[ci] = d
+                elif ss == 0:
+                    e.encode(fixed, 0, (blk[0] >> al) & 1)
+                    continue
+                if progressive and ss == 0:
+                    continue
+                lo, hi = (1, 63) if not progressive else (ss, se)
+                vals = [_shift(v, al) for v in blk] if progressive else blk
+                ke = hi
+                while ke >= lo and not vals[ke]:
+                    ke -= 1
+                st = acs[ci]
+                if progressive and ah:
+                    kex = ke
+                    while kex >= lo and not _shift(blk[kex], ah):
+                        kex -= 1
+                    k = lo
+                    while k <= ke:
+                        i = 3 * (k - 1)
+                        if k > kex:
+                            e.encode(st, i, 0)
+                        while True:
+                            v = vals[k]
+                            if v:
+                                if abs(v) >> 1:
+                                    e.encode(st, i + 2, abs(v) & 1)
+                                else:
+                                    e.encode(st, i + 1, 1)
+                                    e.encode(fixed, 0, 1 if v < 0 else 0)
+                                break
+                            e.encode(st, i + 1, 0)
+                            i += 3
+                            k += 1
+                        k += 1
+                    if k <= hi:
+                        e.encode(st, 3 * (k - 1), 1)
+                    continue
+                k = lo
+                while k <= ke:
+                    i = 3 * (k - 1)
+                    e.encode(st, i, 0)
+                    while not vals[k]:
+                        e.encode(st, i + 1, 0)
+                        i += 3
+                        k += 1
+                    e.encode(st, i + 1, 1)
+                    v = vals[k]
+                    e.encode(fixed, 0, 1 if v < 0 else 0)
+                    _enc_ac_value(e, st, i, fixed, abs(v), k, K)
+                    k += 1
+                if k <= hi:
+                    e.encode(st, 3 * (k - 1), 1)
+        out += e.finish()
+    return bytes(out)
+
+
+def jpeg_arith(src: bytes, progressive: bool | None = None, restart: int | None = None,
+               dac=None, interleaved: bool = True) -> bytes:
+    """The JPEG `src` re-coded with arithmetic coding, coefficients
+    unchanged: SOF9 sequential (one interleaved scan, or one per
+    component), or SOF10 progressive with the scans of a progressive `src`
+    (or DC-only scans if `src` is sequential and `progressive` is True).
+    `dac`: (L, U, K) conditioning for table 0, written as a DAC marker."""
+    from kgtpu_torch.data.jpeg import ZIGZAG, _frame, parse
+    img = parse(src)
+    comps = img["components"]
+    prog = any(s["ah"] or s["al"] or s["ss"] or s["se"] != 63 for s in img["scans"]) \
+        if progressive is None else progressive
+    coefs = [c.coef for c in comps]
+    frame = _frame(img["width"], img["height"], comps, prog)      # (clears the grids)
+    for c, coef in zip(comps, coefs):
+        c.coef = coef
+    restart = restart or 0
+    L, U, K = dac or (0, 1, 5)
+    out = bytearray(b"\xff\xd8")
+    if img["color"] == "ycc":
+        out += _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    elif img["color"] in ("rgb", "cmyk", "ycck") and len(comps) > 1:
+        out += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0,
+                                                     {"rgb": 0, "cmyk": 0, "ycck": 2}[
+                                                         img["color"]]))
+    tables = {}
+    for c in comps:
+        tables[c.tq] = c.quant
+    for t, q in sorted(tables.items()):
+        zz = np.asarray(q)[ZIGZAG[:64]]
+        out += _segment(0xDB, bytes([t]) + bytes(zz.astype(np.uint8)))
+    out += _segment(0xCA if prog else 0xC9, struct.pack(">BHHB", 8, img["height"], img["width"],
+                                                        len(comps)) + b"".join(
+        struct.pack(">BBB", c.id, (c.h << 4) | c.v, c.tq) for c in comps))
+    if dac:
+        out += _segment(0xCC, bytes([0, (U << 4) | L, 16, K]))
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    ids = {c.id: i for i, c in enumerate(comps)}
+    if prog and progressive is None:
+        scans = img["scans"]
+    elif prog:
+        scans = [{"comps": [c.id for c in comps], "ss": 0, "se": 0, "ah": 0, "al": 1},
+                 {"comps": [c.id for c in comps], "ss": 0, "se": 0, "ah": 1, "al": 0}]
+    elif interleaved:
+        scans = [{"comps": [c.id for c in comps], "ss": 0, "se": 63, "ah": 0, "al": 0}]
+    else:
+        scans = [{"comps": [c.id], "ss": 0, "se": 63, "ah": 0, "al": 0} for c in comps]
+    for scan in scans:
+        scomps = [ids[i] for i in scan["comps"]]
+        out += _segment(0xDA, bytes([len(scomps)]) + b"".join(bytes([comps[ci].id, 0])
+                                                              for ci in scomps)
+                        + bytes([scan["ss"], scan["se"], (scan["ah"] << 4) | scan["al"]]))
+        out += _arith_scan(comps, scomps, frame, restart, scan, L, U, K)
+    return bytes(out + b"\xff\xd9")
+
+
+# --- BMP ---------------------------------------------------------------------
+
+def bmp_file(data: bytes, w: int, h: int, bpp: int, compression: int = 0, palette=None,
+             header: int = 40, masks=None, clrused: int | None = None) -> bytes:
+    """A BMP of already-laid-out pixel data (rows bottom-up unless h < 0):
+    header 12 (OS/2, palette entries of 3 bytes, 16-bit sizes) or 40-124
+    (masks after a 40-byte header, inside a longer one)."""
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)
+        pal = (p if header == 12 else np.concatenate([p, np.zeros((len(p), 1), np.uint8)], 1)
+               ).tobytes()
+    if header == 12:
+        info = struct.pack("<HhHH", w, h, 1, bpp)
+        extra = b""
+    else:
+        n_pal = 0 if palette is None else len(palette)
+        info = struct.pack("<iiHHIIiiII", w, h, 1, bpp, compression, len(data), 2835, 2835,
+                           n_pal if clrused is None else clrused, 0)
+        extra = b""
+        if header == 40 and masks is not None:
+            extra = struct.pack("<III", *masks[:3])
+        elif header > 40:
+            info += struct.pack("<4I", *(list(masks or (0, 0, 0, 0)) + [0] * 4)[:4])
+            info += b"\0" * (header - 4 - 40 - 16)
+    off = 14 + 4 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + struct.pack("<I", header)
+            + info + extra + pal + data)
+
+
+def bmp_rows(rows: np.ndarray) -> bytes:
+    """[h, bytes] rows, each padded to 4 bytes, bottom-up."""
+    h, n = rows.shape
+    pad = np.zeros((h, (-n) % 4), np.uint8)
+    return np.concatenate([rows.astype(np.uint8), pad], 1)[::-1].tobytes()
+
+
+def bmp_rle(idx: np.ndarray, bpp: int, deltas: bool = False, absolute: bool = True,
+            end: bool = True) -> bytes:
+    """RLE8 (bpp 8) or RLE4 (bpp 4) data of an index image ([h, w]),
+    bottom-up: runs of equal indices (RLE4: of alternating pairs), literal
+    stretches in absolute mode, an end of line after each row, an end of
+    bitmap last; `deltas` replaces each row's index-0 stretches of 6 or more
+    pixels at its end... by a delta jump."""
+    out = bytearray()
+    h, w = idx.shape
+    for r in range(h - 1, -1, -1):
+        row = [int(v) for v in idx[r]]
+        x = 0
+        while x < w:
+            n = 1
+            if bpp == 8:
+                while x + n < w and row[x + n] == row[x] and n < 255:
+                    n += 1
+            else:
+                while x + n < w and row[x + n] == row[x + (n % 2)] and n < 255:
+                    n += 1
+            if deltas and row[x] == 0 and n >= 6 and x + n < w:
+                out += bytes([0, 2, n, 0])
+                x += n
+                continue
+            if n >= 3 or not absolute:
+                val = row[x] if bpp == 8 else (row[x] << 4) | (row[x + 1] if n > 1 else 0)
+                out += bytes([n, val])
+                x += n
+                continue
+            m = 0
+            while x + m < w and m < 255:
+                k = 1
+                while x + m + k < w and row[x + m + k] == row[x + m] and k < 3:
+                    k += 1
+                if k >= 3:
+                    break
+                m += 1
+            if m < 3:
+                val = row[x] if bpp == 8 else (row[x] << 4)
+                out += bytes([1, val])
+                x += 1
+                continue
+            lit = row[x:x + m]
+            if bpp == 8:
+                body = bytes(lit)
+            else:
+                lit = lit + [0] * (m % 2)
+                body = bytes((a << 4) | b for a, b in zip(lit[0::2], lit[1::2]))
+            out += bytes([0, m]) + body + b"\0" * (len(body) % 2)
+            x += m
+        if r:
+            out += b"\0\0"
+    if end:
+        out += b"\0\1"
+    return bytes(out)
+
+
+def jpeg_split_tables(jpeg: bytes) -> tuple[bytes, bytes]:
+    """(abbreviated table stream: SOI, DQT, DHT, EOI; the rest: SOI and
+    every other marker and the data) of a JPEG stream."""
+    tables, rest, pos = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while pos < len(jpeg):
+        m = jpeg[pos + 1]
+        if m == 0xDA:
+            return bytes(tables + b"\xff\xd9"), bytes(rest + jpeg[pos:])
+        (length,) = struct.unpack(">H", jpeg[pos + 2:pos + 4])
+        (tables if m in (0xDB, 0xC4) else rest).extend(jpeg[pos:pos + 2 + length])
+        pos += 2 + length
+    raise ValueError("no scan")
+
+
+def tiff_jpeg(px, encode, photometric: int, rows_per_strip=None, tile=None, sampling=(1, 1),
+              tables: bool = True, tall_last: bool = False, bo: str = "II") -> bytes:
+    """A JPEG-compressed TIFF: each strip or tile (edge tiles padded by
+    repeating the edge) coded by `encode(block) -> JPEG bytes`, its tables
+    moved to JPEGTables when `tables`.  `tall_last`: the last strip's
+    stream keeps the full strip height."""
+    px = np.asarray(px, np.uint8)
+    if px.ndim == 2:
+        px = px[..., None]
+    h, w, c = px.shape
+    streams = []
+    if tile:
+        tw, th = tile
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                sub = px[y:y + th, x:x + tw]
+                streams.append(encode(np.pad(sub, ((0, th - sub.shape[0]),
+                                                   (0, tw - sub.shape[1]), (0, 0)), "edge")))
+    else:
+        rps = rows_per_strip or h
+        for y in range(0, h, rps):
+            sub = px[y:y + rps]
+            if tall_last and sub.shape[0] < rps:
+                sub = np.pad(sub, ((0, rps - sub.shape[0]), (0, 0), (0, 0)), "edge")
+            streams.append(encode(sub))
+    tags = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [8] * c), 259: (SHORT, [7]),
+            262: (SHORT, [photometric]), 277: (SHORT, [c]), 284: (SHORT, [1])}
+    if photometric == 6:
+        tags[530] = (SHORT, list(sampling))
+    if tables:
+        tabs = [jpeg_split_tables(s) for s in streams]
+        tags[347] = (UNDEFINED, list(tabs[0][0]))
+        streams = [s for _, s in tabs]
+    if tile:
+        tags[322], tags[323] = (SHORT, [tile[0]]), (SHORT, [tile[1]])
+    else:
+        tags[278] = (LONG, [rows_per_strip or h])
+    return tiff_file(streams, tags, bo, tiled=bool(tile))
+
