@@ -167,11 +167,21 @@
     with the port's readers: each equals cv2's sha256, shape and dtype
     (kgtpu_reference_formats.npz `variants_decode_json`), or raises
     UnreadableImage where cv2 returns None; times each variant (median of 3
-    reads, ms per image and per 512x512 of pixels) beside the card's name
-    and power limit.  (b) `cli.test --dataset folder` over that folder with
+    reads, or 1 read for a decoder over SLOW_DECODE_MS; ms per image and
+    per 512x512 of pixels) beside the card's name and power limit.  (b) `cli.test --dataset folder` over that folder with
     the flagship in f32 and bf16, held against kgtpu's committed runs on the
     same files with [8]'s gates, the GroupNorm kernel launched; the CLI's
     img/s beside [12]'s JPEG folder.  Budget VARIANTS_PHASE_S.
+[16] Image containers.  [15]'s (a) and (b) over assets_torch/formats/
+    containers: the 16 synthetic_hard images at 512x512, each in a
+    container cv2 5.0 sniffs by content, named with one of kgtpu's
+    extensions (.png, .jpg, .tif, .bmp): P6 PPM, P5 PGM, GRAYSCALE PAM, P4
+    PBM, 8-bit palette Sun raster, run-length Radiance HDR, plain,
+    interlaced, animated and transparent GIF, lossless, lossy (quality 90
+    and 50), lossy with alpha, animated and simple-loop-filter WebP
+    (`containers_decode_json` and `*_containers_*` of
+    kgtpu_reference_formats.npz).  A decoder over SLOW_DECODE_MS is timed
+    by one read.  Budget CONTAINERS_PHASE_S.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -314,6 +324,10 @@ DP_STEPS = 5
 # phase [15]: the image-format variants cv2 reads
 VARIANTS_DIR = os.path.join(FORMATS, "variants")
 VARIANTS_PHASE_S = 150      # phase [15]'s budget
+SLOW_DECODE_MS = 1000       # [15] / [16]: a decode over this is timed once, not 3 times
+# phase [16]: the image containers cv2 sniffs, under kgtpu's file names
+CONTAINERS_DIR = os.path.join(FORMATS, "containers")
+CONTAINERS_PHASE_S = 120    # phase [16]'s budget
 CAPTURE_PHASE_S = 180       # phase [14]'s budget
 GRAPH_PROFILE_FLAG = "--graph-profile"   # runs [14](b) alone, in a fresh process
 
@@ -2488,18 +2502,20 @@ def phase_capture(np, torch, gn, gauss) -> dict:
             "capture_cli": cli, "capture_dp": dp, "capture_phase_s": phase_s}
 
 
-def variant_decodes(np, smi: str) -> dict:
-    """[15] (a): every variant fixture in every mode against cv2's hash (or
-    UnreadableImage where cv2 returns None); the decode time of each."""
+def folder_decodes(np, smi: str, key: str, folder: str, stem: str) -> dict:
+    """[15] / [16] (a): every fixture of a folder in every mode against
+    cv2's hash (`<key>_decode_json`; UnreadableImage where cv2 returns
+    None); the decode time of each (median of 3 reads, 1 read for a
+    decoder over SLOW_DECODE_MS)."""
     from kgtpu_torch.data.imread import UnreadableImage, read_image
     from tools.make_torch_format_assets import sha
     ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
-    decodes = json.loads(str(ref["variants_decode_json"]))
-    kinds = json.loads(str(ref["variants_kinds_json"]))
+    decodes = json.loads(str(ref[f"{key}_decode_json"]))
+    kinds = json.loads(str(ref[f"{key}_kinds_json"]))
     t = time.perf_counter()
     bad, refused = [], 0
     for d in decodes:
-        path = os.path.join(VARIANTS_DIR, d["path"])
+        path = os.path.join(folder, d["path"])
         if d["sha256"] is None:
             try:
                 read_image(path, d["mode"])
@@ -2511,72 +2527,76 @@ def variant_decodes(np, smi: str) -> dict:
         if (sha(got), list(got.shape), str(got.dtype)) != (d["sha256"], d["shape"], d["dtype"]):
             bad.append((d["path"], d["mode"], list(got.shape)))
     check_s = time.perf_counter() - t
-    log(f"  {len(decodes) - len(bad)}/{len(decodes)} variant decodes equal cv2's (sha256, "
+    log(f"  {len(decodes) - len(bad)}/{len(decodes)} {stem} decodes equal cv2's (sha256, "
         f"shape, dtype; {refused} of them UnreadableImage where cv2 returns None) in "
         f"{check_s:.1f} s")
-    require(not bad, f"variant decodes off cv2's: {bad[:5]}")
+    require(not bad, f"{stem} decodes off cv2's: {bad[:5]}")
     timed = {}
     for f, kind in sorted(kinds.items(), key=lambda kv: kv[1]):
         reads = []
-        for _ in range(3):
+        while len(reads) < 3:
             t = time.perf_counter()
-            img = read_image(os.path.join(VARIANTS_DIR, f), "color")
+            img = read_image(os.path.join(folder, f), "color")
             reads.append((time.perf_counter() - t) * 1e3)
-        ms, pixels = sorted(reads)[1], img.shape[0] * img.shape[1]
-        timed[kind] = {"ms_per_image": ms, "pixels": pixels,
+            if reads[0] > SLOW_DECODE_MS:
+                break
+        ms, pixels = sorted(reads)[len(reads) // 2], img.shape[0] * img.shape[1]
+        timed[kind] = {"ms_per_image": ms, "reads": len(reads), "pixels": pixels,
                        "ms_per_512x512": ms * 512 * 512 / pixels,
-                       "bytes": os.path.getsize(os.path.join(VARIANTS_DIR, f))}
+                       "bytes": os.path.getsize(os.path.join(folder, f))}
         log(f"  decode {kind}: {ms:.1f} ms per {img.shape[0]}x{img.shape[1]} image (median of "
-            f"3 reads), {timed[kind]['ms_per_512x512']:.1f} ms per 512x512 of pixels, "
-            f"{timed[kind]['bytes']} bytes; {smi}")
-    return {"variant_decode_checks": len(decodes), "variant_decode_refused": refused,
-            "variant_decode_check_s": check_s, "variant_decode_ms": timed}
+            f"{len(reads)} read(s)), {timed[kind]['ms_per_512x512']:.1f} ms per 512x512 of "
+            f"pixels, {timed[kind]['bytes']} bytes; {smi}")
+    return {f"{stem}_decode_checks": len(decodes), f"{stem}_decode_refused": refused,
+            f"{stem}_decode_check_s": check_s, f"{stem}_decode_ms": timed}
 
 
-def variant_serving(np, torch, gn, gauss, xstats: dict) -> dict:
-    """[15] (b): the flagship over formats/variants (f32, bf16) against
-    kgtpu's run on the same files, with [8]'s gates."""
+def folder_serving(np, torch, gn, gauss, xstats: dict, key: str, folder: str) -> dict:
+    """[15] / [16] (b): the flagship over a folder (f32, bf16) against
+    kgtpu's run on the same files (`labels_<key>_<dtype>`, ...), with
+    [8]'s gates."""
     from kgtpu_torch.data.png import read_png
     ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
-    ref_metrics = json.loads(str(ref["variants_metrics_json"]))
-    ids = [str(i) for i in ref["variants_ids"]]
+    ref_metrics = json.loads(str(ref[f"{key}_metrics_json"]))
+    ids = [str(i) for i in ref[f"{key}_ids"]]
     gt = {i: read_png(os.path.join(ASSETS, "synthetic_hard", "labels", f"{i}.png"),
                       "unchanged").astype(np.int32) for i in ids}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for dtype in ("float32", "bfloat16"):
             short = "f32" if dtype == "float32" else "bf16"
-            r = folder_vs_kgtpu(np, torch, gn, gauss, VARIANTS_DIR, ids, gt,
-                                ref[f"labels_variants_{dtype}"],
-                                ref[f"counts_variants_{dtype}"], ref_metrics[dtype], dtype,
+            r = folder_vs_kgtpu(np, torch, gn, gauss, folder, ids, gt,
+                                ref[f"labels_{key}_{dtype}"],
+                                ref[f"counts_{key}_{dtype}"], ref_metrics[dtype], dtype,
                                 os.path.join(tmp, dtype))
             jpeg = xstats[f"jpeg_cli_img_per_s_{short}"]
-            log(f"  variants folder {dtype}: mAP_dsb2018 {r['mAP_dsb2018']:.6f} (kgtpu "
+            log(f"  {key} folder {dtype}: mAP_dsb2018 {r['mAP_dsb2018']:.6f} (kgtpu "
                 f"{ref_metrics[dtype]['mAP_dsb2018']:.6f}, diff {r['dmap']:+.6f}, tol "
                 f"{MAP_TOL[dtype]}); instances {r['counts']}, largest count diff "
                 f"{r['count_diff_max']}, label-map pixels off kgtpu's: max {max(r['off'])}, "
                 f"equal {r['off'].count(0)}/16; GroupNorm launches {r['launches']}; CLI "
                 f"{16 / r['wall']:.2f} img/s ({r['wall']:.2f} s; the JPEG folder of [12]: "
                 f"{jpeg:.2f} img/s)")
-            r.require("variants")
-            out.update({f"variants_mAP_dsb2018_{short}": r["mAP_dsb2018"],
-                        f"variants_mAP_diff_{short}": r["dmap"],
-                        f"variants_count_diff_max_{short}": r["count_diff_max"],
-                        f"variants_pixels_off_max_{short}": max(r["off"]),
-                        f"variants_cli_img_per_s_{short}": 16 / r["wall"],
-                        f"variants_gn_launches_{short}": r["launches"]})
+            r.require(key)
+            out.update({f"{key}_mAP_dsb2018_{short}": r["mAP_dsb2018"],
+                        f"{key}_mAP_diff_{short}": r["dmap"],
+                        f"{key}_count_diff_max_{short}": r["count_diff_max"],
+                        f"{key}_pixels_off_max_{short}": max(r["off"]),
+                        f"{key}_cli_img_per_s_{short}": 16 / r["wall"],
+                        f"{key}_gn_launches_{short}": r["launches"]})
     return out
 
 
-def phase_variants(np, torch, gn, gauss, smi: str, xstats: dict) -> dict:
-    """[15]: (a) and (b) of the module docstring."""
+def phase_folder(np, torch, gn, gauss, smi: str, xstats: dict, phase: str, key: str,
+                 folder: str, stem: str, budget_s: int) -> dict:
+    """[15] / [16]: (a) and (b) of the module docstring over one folder."""
     t_phase = time.perf_counter()
-    out = variant_decodes(np, smi)
-    out.update(variant_serving(np, torch, gn, gauss, xstats))
+    out = folder_decodes(np, smi, key, folder, stem)
+    out.update(folder_serving(np, torch, gn, gauss, xstats, key, folder))
     phase_s = time.perf_counter() - t_phase
-    log(f"  phase [15]: {phase_s:.1f} s (budget {VARIANTS_PHASE_S} s)")
-    require(phase_s <= VARIANTS_PHASE_S, f"phase [15] took {phase_s:.0f} s")
-    out["variants_phase_s"] = phase_s
+    log(f"  phase [{phase}]: {phase_s:.1f} s (budget {budget_s} s)")
+    require(phase_s <= budget_s, f"phase [{phase}] took {phase_s:.0f} s")
+    out[f"{key}_phase_s"] = phase_s
     return out
 
 
@@ -2791,7 +2811,16 @@ def main() -> int:
     log("[15] format variants: every variant fixture decoded as cv2 decodes it and timed, the "
         "flagship over formats/variants (f32, bf16) against kgtpu's run on them")
     torch.cuda.empty_cache()
-    vstats = phase_variants(np, torch, gn, gauss, smi, xstats)
+    vstats = phase_folder(np, torch, gn, gauss, smi, xstats, "15", "variants", VARIANTS_DIR,
+                          "variant", VARIANTS_PHASE_S)
+
+    # 16. the image containers cv2 sniffs under kgtpu's file names
+    log("[16] image containers: every container fixture (PNM / PAM, Sun raster, Radiance HDR, "
+        "GIF, WebP under .png / .jpg / .tif / .bmp names) decoded as cv2 decodes it and "
+        "timed, the flagship over formats/containers (f32, bf16) against kgtpu's run on them")
+    torch.cuda.empty_cache()
+    ctstats = phase_folder(np, torch, gn, gauss, smi, xstats, "16", "containers",
+                           CONTAINERS_DIR, "container", CONTAINERS_PHASE_S)
 
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
@@ -2810,7 +2839,7 @@ def main() -> int:
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
                **tstats, **fstats, **cstats, **ttastats, **bstats, **xstats, **estats,
-               **capstats, **vstats,
+               **capstats, **vstats, **ctstats,
                "device_ms_from_cuda_events": PROFILER_BLIND, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -2846,7 +2875,11 @@ def main() -> int:
                                         capstats["capture_dp"]["dp_serving_gn_launches"],
                                     "variants folder f32 [15]": vstats["variants_gn_launches_f32"],
                                     "variants folder bf16 [15]":
-                                        vstats["variants_gn_launches_bf16"]},
+                                        vstats["variants_gn_launches_bf16"],
+                                    "containers folder f32 [16]":
+                                        ctstats["containers_gn_launches_f32"],
+                                    "containers folder bf16 [16]":
+                                        ctstats["containers_gn_launches_bf16"]},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],

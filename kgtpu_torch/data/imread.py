@@ -1,5 +1,5 @@
 """`read_image`: the port's `cv2.imread`, for every format kgtpu's readers
-read (PNG, JPEG, TIFF, BMP), with NumPy, zlib and struct only.
+read, with NumPy, zlib and struct only.
 
     read_image(path, "color")     = cv2.imread(IMREAD_COLOR) + BGR->RGB:
                                     [H, W, 3] uint8 RGB
@@ -7,27 +7,31 @@ read (PNG, JPEG, TIFF, BMP), with NumPy, zlib and struct only.
     read_image(path, "unchanged") = cv2.imread(IMREAD_UNCHANGED): the stored
                                     samples ([H, W] grey, or colour in the
                                     file's order RGB / RGBA, where cv2 gives
-                                    BGR / BGRA), uint8 or uint16
+                                    BGR / BGRA), uint8 or uint16, or
+                                    float32 (PFM, Radiance HDR, float TIFF)
 
 The codec is picked from the file's first bytes, as cv2 sniffs content, not
-from its extension.  Each codec follows cv2 5.0 and the library cv2 hands it
-to (libpng, libjpeg-turbo, libtiff, cv2's own BMP reader): see the module of
-each.  EXIF orientation is applied as cv2 applies it: to JPEG and PNG in the
-"color" and "gray" modes, never in "unchanged"; TIFF applies its own
+from its extension: PNG, JPEG, TIFF and BMP, and the other containers cv2
+5.0 reads whatever the file is called (`_CONTAINER_DECODERS`: PNM / PAM /
+PFM, Sun raster, Radiance HDR, GIF, WebP).  Each codec follows cv2 5.0 and
+the library cv2 hands it to (libpng, libjpeg-turbo, libtiff, libwebp, cv2's
+own BMP, PxM, PAM, PFM, Sun raster, HDR and GIF readers): see the module of
+each.  EXIF orientation is applied as cv2 applies it: to JPEG, PNG and WebP
+in the "color" and "gray" modes, never in "unchanged"; TIFF applies its own
 Orientation tag in the decoder (see `data/tiff.py`).
 
 A file cv2 cannot read (its imread returns None) raises `UnreadableImage`, a
 FileNotFoundError as kgtpu's readers raise.  A file cv2 reads and the port
 does not yet raises `UnsupportedImage`, a ValueError naming the ROADMAP item
-that queues it: a variant of the four formats above (`QUEUED`), or another
-container cv2 5.0 sniffs and reads whatever the file's extension says
-(`CONTAINERS`: WebP, JPEG 2000, PNM / PAM / PFM, Sun raster, Radiance HDR,
-GIF, AVIF), recognised by the signature cv2's decoder checks.
+that queues it: a variant of the formats above (`QUEUED`), or JPEG 2000 or
+AVIF content (`CONTAINERS`), recognised by the signature cv2's decoder
+checks.
 """
 
 from __future__ import annotations
 
 import struct
+from importlib import import_module
 
 import numpy as np
 
@@ -123,6 +127,26 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+# The containers ported beyond PNG, JPEG, TIFF and BMP: each decoder returns
+# cv2's Mat for the mode, in cv2's channel order (BGR / BGRA).
+_CONTAINER_DECODERS = {
+    "PNM": ("kgtpu_torch.data.pnm", "decode_pnm"),
+    "PAM": ("kgtpu_torch.data.pnm", "decode_pam"),
+    "PFM": ("kgtpu_torch.data.pnm", "decode_pfm"),
+    "Sun raster": ("kgtpu_torch.data.sunras", "decode_sunras"),
+    "Radiance HDR": ("kgtpu_torch.data.hdr", "decode_hdr"),
+    "GIF": ("kgtpu_torch.data.gif", "decode_gif"),
+    "WebP": ("kgtpu_torch.data.webp", "decode_webp"),
+}
+
+
+def port_order(img: np.ndarray) -> np.ndarray:
+    """cv2's BGR / BGRA in the port's RGB / RGBA (other layouts as they are)."""
+    if img.ndim == 3 and img.shape[2] in (3, 4):
+        img = img[..., [2, 1, 0, 3][:img.shape[2]]]
+    return np.ascontiguousarray(img)
+
+
 def check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"read mode {mode!r} is not one of {MODES}")
@@ -150,6 +174,9 @@ def read_image(path: str, mode: str = "color") -> np.ndarray:
             from kgtpu_torch.data.bmp import decode_bmp
             return decode_bmp(data, mode)
         kind = other_container(data)
+        if kind in _CONTAINER_DECODERS:
+            module, name = _CONTAINER_DECODERS[kind]
+            return port_order(getattr(import_module(module), name)(data, mode))
         if kind is not None:
             raise unsupported(f"{kind} content", CONTAINERS)
         raise UnreadableImage("not an image format cv2 reads")

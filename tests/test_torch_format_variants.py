@@ -389,11 +389,28 @@ def _containers():
     return out
 
 
-@pytest.mark.parametrize("name", sorted(_containers()))
+PORTED_CONTAINERS = ("webp", "gif", "ppm", "pgm", "pgm_ascii", "pam", "pfm", "sun", "hdr")
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_CONTAINERS))
+def test_containers_cv2_sniffs_decode_like_cv2(tmp_path, name):
+    """cv2 5.0 reads WebP, PNM / PAM / PFM, Sun raster, Radiance HDR and GIF
+    content whatever the file is called; the port reads them as cv2 does
+    (data/webp.py, pnm.py, sunras.py, hdr.py, gif.py) in every mode, and
+    raises UnreadableImage where cv2 returns None (a colour PFM in
+    "gray")."""
+    path = str(tmp_path / "image.png")
+    with open(path, "wb") as f:
+        f.write(_containers()[name])
+    assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None
+    assert sum(check(path, mode) for mode in MODES) >= 2
+
+
+@pytest.mark.parametrize("name", sorted(set(_containers()) - set(PORTED_CONTAINERS)))
 def test_containers_cv2_sniffs_raise_unsupported(tmp_path, name):
-    """cv2 5.0 reads WebP, JPEG 2000, PNM / PAM / PFM, Sun raster, Radiance
-    HDR, GIF and AVIF content whatever the file is called; the port names
-    the ROADMAP item that queues them instead of saying cv2 cannot."""
+    """cv2 5.0 reads JPEG 2000 and AVIF content whatever the file is
+    called; the port names the ROADMAP item that queues them instead of
+    saying cv2 cannot."""
     path = str(tmp_path / "image.png")
     with open(path, "wb") as f:
         f.write(_containers()[name])

@@ -70,6 +70,9 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.utils.debug, kgtpu_torch.utils.profiling\n"
         "import kgtpu_torch.parallel.mesh, kgtpu_torch.parallel.multihost\n"
         "import kgtpu_torch.parallel.launch\n"
+        "import kgtpu_torch.data.pnm, kgtpu_torch.data.sunras, kgtpu_torch.data.hdr\n"
+        "import kgtpu_torch.data.gif, kgtpu_torch.data.webp, kgtpu_torch.data.vp8l\n"
+        "import kgtpu_torch.data.vp8, kgtpu_torch.data.vp8_pixels, kgtpu_torch.data.vp8_tables\n"
         "import importlib.util as u\n"
         "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "s.loader.exec_module(u.module_from_spec(s))\n"

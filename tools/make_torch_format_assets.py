@@ -2,7 +2,7 @@
 """Make the image-format and dataset fixtures of the PyTorch port under
 assets_torch/formats/, and kgtpu's references for them.
 
-    python tools/make_torch_format_assets.py [--out assets_torch] [--only variants]
+    python tools/make_torch_format_assets.py [--out assets_torch] [--only variants|containers]
 
 Runs on the CPU where cv2, PIL, jax and kgtpu are installed (after
 tools/make_torch_eval_assets.py, whose synthetic_hard images and flagship it
@@ -54,10 +54,23 @@ reads), and writes:
                                `counts_variants_<dtype>`, `variants_ids` and
                                `variants_metrics_json`.
 
-`--only variants` writes formats/variants alone and adds its keys to the
-existing kgtpu_reference_formats.npz, keeping every other array as it is.
-The fixtures and the reference together stay under 8 MiB (the variants
-under 8 MiB of their own).
+  formats/containers/<id>.<ext>  the 16 synthetic_hard test images at
+                               512x512, each in one of the containers of
+                               `CONTAINERS` that cv2 5.0 reads beyond PNG,
+                               JPEG, TIFF and BMP (PPM, PGM, PAM, PBM, Sun
+                               raster, Radiance HDR, plain / interlaced /
+                               animated / transparent GIF, lossless / lossy /
+                               alpha / animated / simple-filter WebP), each
+                               named with one of kgtpu's extensions (cv2 picks
+                               the decoder by content); and the
+                               `containers_*` / `*_containers_*` keys as for
+                               the variants.
+
+`--only variants` or `--only containers` writes that folder alone and adds
+its keys to the existing kgtpu_reference_formats.npz, keeping every other
+array as it is.  The fixtures and the reference together stay under 8 MiB
+(the variants under 8 MiB of their own, the containers and their keys under
+6 MiB).
 """
 
 from __future__ import annotations
@@ -310,6 +323,82 @@ def write_variant(kind: str, rgb) -> bytes:
     raise ValueError(kind)
 
 
+# formats/containers: the container of each of the 16 images, in id order,
+# each under one of kgtpu's extensions (cv2 picks its decoder by content)
+CONTAINERS = [
+    ("ppm_p6", ".png"), ("pgm_p5", ".jpg"), ("pam_grayscale", ".tif"),   # PNM / PAM
+    ("pbm_p4", ".bmp"), ("sun_palette", ".bmp"), ("hdr_rle", ".png"),   # Sun raster, HDR
+    ("gif", ".png"), ("gif_interlaced", ".jpg"), ("gif_animated", ".tif"),
+    ("gif_local_transparent", ".bmp"),
+    ("webp_lossless", ".png"), ("webp_lossy_q90", ".jpg"), ("webp_lossy_q50", ".jpg"),
+    ("webp_lossy_alpha", ".png"), ("webp_animated", ".tif"), ("webp_simple_filter", ".jpg"),
+]
+
+
+def write_container(kind: str, rgb) -> bytes:
+    """One 8-bit RGB image ([H, W, 3]) stored in the container `kind`."""
+    import io
+
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    from tools import variant_encoders as ve
+    h, w, _ = rgb.shape
+    grey = np.asarray(Image.fromarray(rgb).convert("L"))
+
+    def pil(img, fmt, **kw):
+        buf = io.BytesIO()
+        img.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    def quantised(n):
+        p = Image.fromarray(rgb).quantize(n, dither=Image.Dither.NONE)
+        pal = np.asarray(p.getpalette()[:3 * n], np.uint8).reshape(-1, 3)
+        return np.asarray(p), pal
+    frames = [Image.fromarray(rgb), Image.fromarray(np.ascontiguousarray(rgb[::-1])),
+              Image.fromarray(255 - rgb)]
+    if kind == "ppm_p6":
+        return cv2.imencode(".ppm", np.ascontiguousarray(rgb[..., ::-1]))[1].tobytes()
+    if kind == "pgm_p5":
+        return pil(Image.fromarray(grey), "PPM")
+    if kind == "pam_grayscale":
+        return ve.pam_file(grey, "GRAYSCALE", comment=b"# kgtpu container fixture\n")
+    if kind == "pbm_p4":
+        return ve.pbm_p4(grey < 96, comment=b"# threshold 96\n")
+    if kind == "sun_palette":
+        idx, pal = quantised(64)
+        return ve.sun_raster(idx, 8, 1, palette=pal)
+    if kind == "hdr_rle":
+        return ve.hdr_file(ve.rgbe(rgb.astype(np.float64) / 255.0), "rle")
+    if kind in ("gif", "gif_interlaced"):
+        idx, pal = quantised(256)
+        return ve.gif_file([{"idx": idx, "interlace": kind == "gif_interlaced"}], w, h, pal)
+    if kind == "gif_animated":
+        return pil(frames[0], "GIF", save_all=True, append_images=frames[1:], duration=100,
+                   loop=0)
+    if kind == "gif_local_transparent":
+        idx, pal = quantised(128)
+        rare = int(np.argmin(np.bincount(idx.reshape(-1), minlength=128)))
+        return ve.gif_file([{"idx": idx, "palette": pal, "transparent": rare, "disposal": 1}],
+                           w, h, pal[::-1], background=3)
+    if kind == "webp_lossless":
+        return pil(frames[0], "WEBP", lossless=True)
+    if kind in ("webp_lossy_q90", "webp_lossy_q50"):
+        return pil(frames[0], "WEBP", quality=int(kind[-2:]))
+    if kind == "webp_lossy_alpha":
+        alpha = (np.arange(w)[None, :] * 255 // max(w - 1, 1) + np.zeros((h, 1), int))
+        return pil(Image.fromarray(np.dstack([rgb, alpha.astype(np.uint8)])), "WEBP", quality=80)
+    if kind == "webp_animated":
+        return pil(frames[0], "WEBP", save_all=True, append_images=frames[1:], duration=100,
+                   quality=75)
+    if kind == "webp_simple_filter":
+        frame = dict(ve.webp_chunks(pil(frames[0], "WEBP", quality=75)))[b"VP8 "]
+        return ve.webp_riff([(b"VP8 ", ve.vp8_rewrite(frame, filt={"simple": 1, "level": 24,
+                                                                    "sharpness": 2}))])
+    raise ValueError(kind)
+
+
 def cv2_decodes(root: str, rels: list[str]) -> list[dict]:
     """cv2's decode of each file in every mode, in RGB order: sha256,
     shape and dtype, or None where cv2 returns None."""
@@ -387,55 +476,68 @@ def kgtpu_runs(folder_dir: str, gt: dict, source: str) -> dict:
     return result
 
 
-def make_variants(out: str) -> int:
-    """formats/variants and its keys in kgtpu_reference_formats.npz, the
-    other keys kept (module docstring)."""
+def make_folder(out: str, key: str, table: list, write) -> int:
+    """formats/<key>: the 16 synthetic_hard images, the i-th stored as
+    `table[i]` (kind, extension) by `write(kind, rgb)`, and the folder's
+    keys in kgtpu_reference_formats.npz (`<key>_decode_json`,
+    `<key>_kinds_json`, `<key>_ids`, `<key>_metrics_json`,
+    `labels_<key>_<dtype>`, `counts_<key>_<dtype>`), the other keys kept."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     import cv2
     import numpy as np
     src = os.path.join(out, "synthetic_hard")
-    vdir = os.path.join(out, "formats", "variants")
-    shutil.rmtree(vdir, ignore_errors=True)
-    os.makedirs(vdir)
+    fdir = os.path.join(out, "formats", key)
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.makedirs(fdir)
     ids = sorted(f[:-4] for f in os.listdir(os.path.join(src, "images")))
     gt = {i: cv2.imread(os.path.join(src, "labels", f"{i}.png"), cv2.IMREAD_UNCHANGED)
           for i in ids}
     kinds = {}
-    for i, (kind, ext) in zip(ids, VARIANTS):
+    for i, (kind, ext) in zip(ids, table):
         rgb = cv2.imread(os.path.join(src, "images", f"{i}.png"), cv2.IMREAD_COLOR)[..., ::-1]
-        with open(os.path.join(vdir, i + ext), "wb") as f:
-            f.write(write_variant(kind, np.ascontiguousarray(rgb)))
+        with open(os.path.join(fdir, i + ext), "wb") as f:
+            f.write(write(kind, np.ascontiguousarray(rgb)))
         kinds[i + ext] = kind
     rels = sorted(kinds)
-    decodes = cv2_decodes(vdir, rels)
-    runs = kgtpu_runs(vdir, gt, "assets_torch/formats/variants")
+    decodes = cv2_decodes(fdir, rels)
+    runs = kgtpu_runs(fdir, gt, f"assets_torch/formats/{key}")
     path = os.path.join(out, "kgtpu_reference_formats.npz")
     with np.load(path) as ref:
-        result = {k: ref[k] for k in ref.files if not k.startswith("variants_")
-                  and "_variants_" not in k}
-    result.update({"variants_decode_json": np.array(json.dumps(decodes)),
-                   "variants_kinds_json": np.array(json.dumps(kinds)),
-                   "variants_ids": runs["ids"],
-                   "variants_metrics_json": runs["metrics_json"]})
+        result = {k: ref[k] for k in ref.files if not k.startswith(f"{key}_")
+                  and f"_{key}_" not in k}
+    result.update({f"{key}_decode_json": np.array(json.dumps(decodes)),
+                   f"{key}_kinds_json": np.array(json.dumps(kinds)),
+                   f"{key}_ids": runs["ids"],
+                   f"{key}_metrics_json": runs["metrics_json"]})
     for dtype in ("bfloat16", "float32"):
-        result[f"labels_variants_{dtype}"] = runs[f"labels_{dtype}"]
-        result[f"counts_variants_{dtype}"] = runs[f"counts_{dtype}"]
+        result[f"labels_{key}_{dtype}"] = runs[f"labels_{dtype}"]
+        result[f"counts_{key}_{dtype}"] = runs[f"counts_{dtype}"]
     np.savez_compressed(path, **result)
-    size = sum(os.path.getsize(os.path.join(vdir, f)) for f in rels)
-    print(f"{len(rels)} variant files, {len(decodes)} decodes "
+    size = sum(os.path.getsize(os.path.join(fdir, f)) for f in rels)
+    print(f"{len(rels)} {key} files, {len(decodes)} decodes "
           f"({sum(d['sha256'] is None for d in decodes)} None), {size / 2**20:.2f} MiB; "
           f"npz {os.path.getsize(path) / 2**20:.2f} MiB")
     return 0
 
 
+def make_variants(out: str) -> int:
+    return make_folder(out, "variants", VARIANTS, write_variant)
+
+
+def make_containers(out: str) -> int:
+    return make_folder(out, "containers", CONTAINERS, write_container)
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
-    p.add_argument("--only", choices=["variants"], default=None)
+    p.add_argument("--only", choices=["variants", "containers"], default=None)
     a = p.parse_args(argv)
     if a.only == "variants":
         return make_variants(a.out)
+    if a.only == "containers":
+        return make_containers(a.out)
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -516,7 +618,7 @@ def main(argv: list[str] | None = None) -> int:
                 for f in fs) + os.path.getsize(os.path.join(a.out, "kgtpu_reference_formats.npz"))
     print(f"{len(decode)} decodes, datasets {[(k, len(v)) for k, v in datasets.items()]}, "
           f"{total / 2**20:.2f} MiB")
-    return make_variants(a.out)
+    return make_variants(a.out) or make_containers(a.out)
 
 
 if __name__ == "__main__":

@@ -883,3 +883,407 @@ def tiff_jpeg(px, encode, photometric: int, rows_per_strip=None, tile=None, samp
         tags[278] = (LONG, [rows_per_strip or h])
     return tiff_file(streams, tags, bo, tiled=bool(tile))
 
+
+
+# --- Sun raster --------------------------------------------------------------
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's byte-encoded RLE: a run of n + 1 (n < 256) equal bytes is 0x80 n
+    v, a lone 0x80 is 0x80 0x00, anything else itself."""
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        v = data[i]
+        n = 1
+        while i + n < len(data) and data[i + n] == v and n < 256:
+            n += 1
+        if n >= 3 or v == 0x80:
+            if n == 1:
+                out += b"\x80\x00"
+            else:
+                out += bytes([0x80, n - 1, v])
+        else:
+            out += bytes([v]) * n
+        i += n
+    return bytes(out)
+
+
+def sun_raster(px: np.ndarray, depth: int, ras_type: int = 1, palette=None,
+               rle_rows: bool = False) -> bytes:
+    """A Sun raster file.  `px`: [h, w] indices (1 or 8 bits) or [h, w, 3|4]
+    samples in the order they are stored (BGR(X) for type 1 / 2, RGB(X) for
+    type 3); `palette` [n, 3] RGB.  Rows are padded to 16 bits; type 2 codes
+    the padded data with `sun_rle` (`rle_rows`: each row coded alone)."""
+    h, w = px.shape[:2]
+    if depth == 1:
+        rows = pack_bits(px.reshape(h, w).astype(np.uint8), 1)
+    else:
+        rows = px.reshape(h, -1).astype(np.uint8)
+    if rows.shape[1] % 2:
+        rows = np.concatenate([rows, np.zeros((h, 1), np.uint8)], 1)
+    body = rows.tobytes()
+    if ras_type == 2:
+        body = (b"".join(sun_rle(r.tobytes()) for r in rows) if rle_rows
+                else sun_rle(body))
+    cmap = b""
+    if palette is not None:
+        cmap = np.ascontiguousarray(np.asarray(palette, np.uint8).T).tobytes()
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), ras_type,
+                       1 if palette is not None else 0, len(cmap))
+    return head + cmap + body
+
+
+# --- Radiance HDR --------------------------------------------------------------
+
+def rgbe(rgb: np.ndarray) -> np.ndarray:
+    """float [..., 3] RGB -> [..., 4] RGBE bytes as Radiance's float2rgbe."""
+    v = rgb.max(-1)
+    m, e = np.frexp(v)
+    scale = np.where(v > 1e-32, m * 256.0 / np.where(v > 0, v, 1), 0)
+    out = np.zeros(rgb.shape[:-1] + (4,), np.uint8)
+    out[..., :3] = np.clip(rgb * scale[..., None], 0, 255).astype(np.uint8)
+    out[..., 3] = np.where(v > 1e-32, e + 128, 0)
+    return out
+
+
+def _hdr_rle_channel(c: bytes) -> bytes:
+    out = bytearray()
+    i = 0
+    while i < len(c):
+        run = 1
+        while i + run < len(c) and c[i + run] == c[i] and run < 127:
+            run += 1
+        if run >= 4:
+            out += bytes([128 + run, c[i]])
+            i += run
+            continue
+        j = i
+        while j < len(c) and j - i < 128:
+            if j + 3 < len(c) and c[j] == c[j + 1] == c[j + 2] == c[j + 3]:
+                break
+            j += 1
+        out += bytes([j - i]) + c[i:j]
+        i = j
+    return bytes(out)
+
+
+def hdr_file(px: np.ndarray, coding: str = "rle", header: bytes | None = None,
+             size_line: bytes | None = None) -> bytes:
+    """A Radiance file of RGBE pixels `px` [h, w, 4] uint8.  `coding`:
+    "flat" (4 bytes a pixel), "rle" (new-style: 2 2 w>>8 w&255, then each
+    channel run-length coded) or "old" (old-style runs: 1 1 1 n repeats the
+    last pixel n times).  `header`: the lines before the blank line."""
+    h, w = px.shape[:2]
+    head = header if header is not None else b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n"
+    size = size_line if size_line is not None else f"-Y {h} +X {w}\n".encode()
+    body = bytearray()
+    for row in px.astype(np.uint8):
+        if coding == "rle":
+            body += bytes([2, 2, w >> 8, w & 255])
+            for c in range(4):
+                body += _hdr_rle_channel(row[:, c].tobytes())
+        elif coding == "old":
+            k = 0
+            while k < w:
+                body += row[k].tobytes()
+                n = 1
+                while k + n < w and (row[k + n] == row[k]).all() and n < 255:
+                    n += 1
+                if n > 1:
+                    body += bytes([1, 1, 1, n - 1])
+                k += n
+        else:
+            body += row.tobytes()
+    return head + b"\n" + size + bytes(body)
+
+
+# --- GIF -------------------------------------------------------------------------
+
+def gif_lzw(idx: bytes, min_size: int, clear_every: int = 0) -> bytes:
+    """GIF's variable-width LZW of palette indices, LSB-first codes, a clear
+    code first, when the table is full and (`clear_every` > 0) every that
+    many indices; the end code last."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    out = bytearray()
+    acc = nbits = 0
+
+    def put(code, width):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    def reset():
+        return {bytes([i]): i for i in range(min(1 << min_size, 256))}, end + 1, min_size + 1
+
+    table, nxt, width = reset()
+    put(clear, width)
+    cur = b""
+    since = 0
+    for k in range(len(idx)):
+        c = idx[k:k + 1]
+        if clear_every and since == clear_every:
+            if cur:
+                put(table[cur], width)
+                cur = b""
+            put(clear, width)
+            table, nxt, width = reset()
+            since = 0
+        since += 1
+        if cur + c in table:
+            cur += c
+            continue
+        put(table[cur], width)
+        if nxt < 4096:
+            table[cur + c] = nxt
+            nxt += 1
+            if nxt > (1 << width) and width < 12:
+                width += 1
+        else:
+            put(clear, width)
+            table, nxt, width = reset()
+        cur = c
+    if cur:
+        put(table[cur], width)
+    put(end, width)
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def gif_sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def gif_file(frames, w: int, h: int, palette=None, background: int = 0,
+             version: bytes = b"GIF89a", loop: bool = False) -> bytes:
+    """A GIF of `frames`: dicts of `idx` [fh, fw] palette indices and
+    optional `left`, `top`, `palette` (local, [n, 3] RGB, n a power of 2),
+    `interlace`, `transparent` (index), `disposal`, `delay`, `min_size`,
+    `clear_every`.  `palette`: the global one ([n, 3] RGB) or None."""
+    def table(p):
+        p = np.asarray(p, np.uint8)
+        bits = max(1, int(np.ceil(np.log2(len(p)))))
+        full = np.zeros((1 << bits, 3), np.uint8)
+        full[:len(p)] = p
+        return bits, full.tobytes()
+
+    flags, gct = 0, b""
+    if palette is not None:
+        bits, gct = table(palette)
+        flags = 0x80 | ((bits - 1) << 4) | (bits - 1)
+    out = bytearray(version + struct.pack("<HHBBB", w, h, flags, background, 0) + gct)
+    if loop:
+        out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    for f in frames:
+        idx = np.asarray(f["idx"], np.uint8)
+        fh, fw = idx.shape
+        if "transparent" in f or "disposal" in f or "delay" in f:
+            t = f.get("transparent")
+            packed = (f.get("disposal", 0) << 2) | (t is not None)
+            out += b"\x21\xf9\x04" + struct.pack("<BHB", packed, f.get("delay", 0), t or 0) + b"\0"
+        lflags, lct = 0, b""
+        if f.get("palette") is not None:
+            bits, lct = table(f["palette"])
+            lflags = 0x80 | (bits - 1)
+        if f.get("interlace"):
+            lflags |= 0x40
+            order = [*range(0, fh, 8), *range(4, fh, 8), *range(2, fh, 4), *range(1, fh, 2)]
+            idx = idx[order]
+        out += b"\x2c" + struct.pack("<HHHHB", f.get("left", 0), f.get("top", 0), fw, fh, lflags) + lct
+        size = f.get("min_size", max(2, int(np.ceil(np.log2(max(int(idx.max()) + 1, 2))))))
+        out += bytes([size]) + gif_sub_blocks(gif_lzw(idx.tobytes(), size, f.get("clear_every", 0)))
+    return bytes(out) + b"\x3b"
+
+
+# --- WebP --------------------------------------------------------------------------
+
+def webp_riff(chunks) -> bytes:
+    """A RIFF / WEBP file of (fourcc, payload) chunks, each padded to even."""
+    body = b"".join(tag + struct.pack("<I", len(p)) + p + b"\0" * (len(p) & 1)
+                    for tag, p in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def webp_chunks(data: bytes) -> list:
+    """The (fourcc, payload) chunks of a RIFF / WEBP file."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        tag = data[pos:pos + 4]
+        (size,) = struct.unpack("<I", data[pos + 4:pos + 8])
+        out.append((tag, data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def vp8x(w: int, h: int, flags: int) -> tuple:
+    return (b"VP8X", bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+            + (h - 1).to_bytes(3, "little"))
+
+
+def alpha_filter(a: np.ndarray, method: int) -> np.ndarray:
+    """libwebp's forward alpha filters (0 none, 1 horizontal, 2 vertical, 3
+    gradient): the residuals its unfilters undo."""
+    a = a.astype(np.int32)
+    h, w = a.shape
+    pred = np.zeros_like(a)
+    if method == 0:
+        return a.astype(np.uint8)
+    pred[0, 1:] = a[0, :-1]
+    pred[1:, 0] = a[:-1, 0]
+    if method == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    elif method == 2:
+        pred[1:, 1:] = a[:-1, 1:]
+    else:
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return ((a - pred) & 255).astype(np.uint8)
+
+
+def alph_chunk(a: np.ndarray, compression: int, filt: int, vp8l_encode=None,
+               preprocessing: int = 0) -> tuple:
+    """An ALPH chunk: raw (compression 0) or VP8L-coded (1: `vp8l_encode`
+    maps an [h, w, 3] uint8 RGB image to a whole VP8L chunk payload, whose
+    5-byte header is dropped; the residuals go in green)."""
+    r = alpha_filter(a, filt)
+    head = bytes([compression | (filt << 2) | (preprocessing << 4)])
+    if compression == 0:
+        return (b"ALPH", head + r.tobytes())
+    rgb = np.zeros(r.shape + (3,), np.uint8)
+    rgb[..., 1] = r
+    return (b"ALPH", head + vp8l_encode(rgb)[5:])
+
+
+def bool_encode(seq) -> bytes:
+    """VP8's boolean encoder (libvpx's vp8_encode_bool) over (prob, bit)
+    pairs, flushed with 32 zero bits at even odds."""
+    out = bytearray()
+    low, rng, count = 0, 255, -24
+    norm = [0] + [7 ^ (r.bit_length() - 1) for r in range(1, 256)]
+    for prob, bit in list(seq) + [(128, 0)] * 32:
+        split = 1 + (((rng - 1) * prob) >> 8)
+        if bit:
+            low += split
+            rng -= split
+        else:
+            rng = split
+        shift = norm[rng]
+        rng <<= shift
+        count += shift
+        if count >= 0:
+            offset = shift - count
+            if (low << (offset - 1)) & 0x80000000:
+                x = len(out) - 1
+                while x >= 0 and out[x] == 0xFF:
+                    out[x] = 0
+                    x -= 1
+                out[x] += 1
+            out.append((low >> (24 - offset)) & 0xFF)
+            low = (low << offset) & 0xFFFFFF
+            shift = count
+            count -= 8
+        low <<= shift
+    return bytes(out)
+
+
+def _flag(b) -> list:
+    return [(128, int(bool(b)))]
+
+
+def _bits(v: int, n: int) -> list:
+    return [(128, (v >> k) & 1) for k in range(n - 1, -1, -1)]
+
+
+def _opt_signed(v: int, n: int) -> list:
+    return _flag(v) + (_bits(abs(v), n) + _flag(v < 0) if v else [])
+
+
+def vp8_rewrite(frame: bytes, segment: dict | None = None, filt: dict | None = None,
+                quant: dict | None = None) -> bytes:
+    """A VP8 frame (a VP8 chunk's payload) whose first partition is coded
+    again with some header fields changed: `segment` (absolute, quant [4],
+    filter [4]; a frame whose segment header updates its data), `filt`
+    (simple, level, sharpness, ref [4], mode [4]: deltas on when given) or
+    `quant` (base, deltas [5]).  The macroblock modes and the token
+    partitions are kept, so the frame stays valid and decodes otherwise."""
+    from kgtpu_torch.data import vp8 as V
+    rec = []
+
+    class Rec(V.BoolDecoder):
+        def bit(self, prob):
+            b = super().bit(prob)
+            rec.append((prob, b))
+            return b
+
+    w, h, part0 = V._header(frame, len(frame))
+    br = Rec(frame[10:10 + part0])
+    br.bit(0x80)
+    br.bit(0x80)
+    a = len(rec)
+    seg = V._segment_header(br)
+    b = len(rec)
+    f = V._filter_header(br)
+    c = len(rec)
+    br.value_bits(2)
+    d = len(rec)
+    V._quant(br, seg)
+    e = len(rec)
+    br.bit(0x80)
+    V._probas(br)
+    skip_p = br.value_bits(8) if br.bit(0x80) else None
+    V._modes(br, (w + 15) >> 4, (h + 15) >> 4, seg, skip_p)
+    seg_bits = rec[a:b]
+    if segment is not None:
+        if not (seg["use"] and len(rec[a:b]) > 3 and rec[a + 2][1]):
+            raise ValueError("the frame's segment header carries no data to change")
+        seg_bits = _flag(1) + _flag(seg["update_map"]) + _flag(1) + _flag(segment["absolute"])
+        seg_bits += sum((_opt_signed(q, 7) for q in segment["quant"]), [])
+        seg_bits += sum((_opt_signed(q, 6) for q in segment["filter"]), [])
+        if seg["update_map"]:
+            seg_bits += sum((_flag(p != 255) + (_bits(p, 8) if p != 255 else [])
+                             for p in seg["proba"]), [])
+    filt_bits = rec[b:c]
+    if filt is not None:
+        g = {**{k: f[k] for k in ("simple", "level", "sharpness")}, **filt}
+        filt_bits = _flag(g["simple"]) + _bits(g["level"], 6) + _bits(g["sharpness"], 3)
+        if "ref" in filt or "mode" in filt:
+            filt_bits += _flag(1) + _flag(1)
+            filt_bits += sum((_opt_signed(v, 6) for v in filt.get("ref", [0] * 4)), [])
+            filt_bits += sum((_opt_signed(v, 6) for v in filt.get("mode", [0] * 4)), [])
+        else:
+            filt_bits += _flag(0)
+    quant_bits = rec[d:e]
+    if quant is not None:
+        quant_bits = _bits(quant["base"], 7) + sum((_opt_signed(v, 4) for v in quant["deltas"]), [])
+    seq = rec[:a] + seg_bits + filt_bits + rec[c:d] + quant_bits + rec[e:]
+    p0 = bool_encode(seq)
+    tag = (frame[0] | frame[1] << 8 | frame[2] << 16) & 0x1F
+    tag |= len(p0) << 5
+    return bytes([tag & 255, (tag >> 8) & 255, tag >> 16]) + frame[3:10] + p0 + frame[10 + part0:]
+
+
+# --- PNM / PAM ---------------------------------------------------------------------
+
+def pam_file(px: np.ndarray, tupltype: str | None, maxval: int = 255,
+             comment: bytes = b"") -> bytes:
+    """A P7 file of [h, w] or [h, w, depth] samples (big-endian words when
+    maxval > 255), with an optional TUPLTYPE line and comment lines."""
+    px = px.reshape(px.shape[0], px.shape[1], -1)
+    h, w, depth = px.shape
+    head = f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {depth}\nMAXVAL {maxval}\n".encode() + comment
+    if tupltype is not None:
+        head += f"TUPLTYPE {tupltype}\n".encode()
+    body = px.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    return head + b"ENDHDR\n" + body
+
+
+def pbm_p4(black: np.ndarray, comment: bytes = b"") -> bytes:
+    """A binary PBM of a [h, w] bool image (True black), rows padded to a
+    byte, with optional comment lines after the magic number."""
+    h, w = black.shape
+    return (b"P4\n" + comment + f"{w} {h}\n".encode()
+            + pack_bits(black.astype(np.uint8), 1).tobytes())
