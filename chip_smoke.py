@@ -182,6 +182,17 @@
     (`containers_decode_json` and `*_containers_*` of
     kgtpu_reference_formats.npz).  A decoder over SLOW_DECODE_MS is timed
     by one read.  Budget CONTAINERS_PHASE_S.
+[17] JPEG 2000.  [15]'s (a) and (b) over assets_torch/formats/jpeg2000: the
+    first 8 synthetic_hard images at 512x512, each in one JPEG 2000 kind,
+    named with kgtpu's extensions: cv2's lossless default (5/3, RCT) and
+    its IMWRITE_JPEG2000_COMPRESSION_X1000 200 and 50, PIL's raw codestream
+    with the 9/7 wavelet in three quality layers, grey in 128x128 tiles
+    with RPCL and 64x64 precincts, PCRL with 32x32 code-blocks, 3
+    resolutions and no colour transform, RGBA (cdef alpha) with CPRL and 7
+    resolutions, and 16-bit grey with RLCP (`jpeg2000_decode_json` and
+    `*_jpeg2000_*`).  The pure-Python decoder takes seconds per image, so
+    (a)'s check against cv2's hashes runs in JPEG2000_WORKERS processes;
+    each kind is then timed alone.  Budget JPEG2000_PHASE_S.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -328,6 +339,10 @@ SLOW_DECODE_MS = 1000       # [15] / [16]: a decode over this is timed once, not
 # phase [16]: the image containers cv2 sniffs, under kgtpu's file names
 CONTAINERS_DIR = os.path.join(FORMATS, "containers")
 CONTAINERS_PHASE_S = 120    # phase [16]'s budget
+# phase [17]: JPEG 2000 under kgtpu's file names
+JPEG2000_DIR = os.path.join(FORMATS, "jpeg2000")
+JPEG2000_PHASE_S = 150      # phase [17]'s budget
+JPEG2000_WORKERS = 8        # processes for [17] (a)'s decodes against cv2's hashes
 CAPTURE_PHASE_S = 180       # phase [14]'s budget
 GRAPH_PROFILE_FLAG = "--graph-profile"   # runs [14](b) alone, in a fresh process
 
@@ -2502,11 +2517,24 @@ def phase_capture(np, torch, gn, gauss) -> dict:
             "capture_cli": cli, "capture_dp": dp, "capture_phase_s": phase_s}
 
 
-def folder_decodes(np, smi: str, key: str, folder: str, stem: str) -> dict:
-    """[15] / [16] (a): every fixture of a folder in every mode against
-    cv2's hash (`<key>_decode_json`; UnreadableImage where cv2 returns
-    None); the decode time of each (median of 3 reads, 1 read for a
-    decoder over SLOW_DECODE_MS)."""
+def _read_or_refuse(path: str, mode: str):
+    """read_image, or the UnreadableImage it raises (a pool worker's job)."""
+    from kgtpu_torch.data.imread import UnreadableImage, read_image
+    try:
+        return read_image(path, mode)
+    except UnreadableImage as e:
+        return e
+
+
+def folder_decodes(np, smi: str, key: str, folder: str, stem: str, workers: int = 1) -> dict:
+    """[15] / [16] / [17] (a): every fixture of a folder in every mode
+    against cv2's hash (`<key>_decode_json`; UnreadableImage where cv2
+    returns None), in `workers` processes when more than 1; then the decode
+    time of each, alone (median of 3 reads, 1 read for a decoder over
+    SLOW_DECODE_MS)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     from kgtpu_torch.data.imread import UnreadableImage, read_image
     from tools.make_torch_format_assets import sha
     ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
@@ -2514,22 +2542,28 @@ def folder_decodes(np, smi: str, key: str, folder: str, stem: str) -> dict:
     kinds = json.loads(str(ref[f"{key}_kinds_json"]))
     t = time.perf_counter()
     bad, refused = [], 0
-    for d in decodes:
-        path = os.path.join(folder, d["path"])
-        if d["sha256"] is None:
-            try:
-                read_image(path, d["mode"])
-                bad.append((d["path"], d["mode"], "read where cv2 returns None"))
-            except UnreadableImage:
+    jobs = [(os.path.join(folder, d["path"]), d["mode"]) for d in decodes]
+    if workers > 1:
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+            results = list(ex.map(_read_or_refuse, *zip(*jobs)))
+    else:
+        results = [_read_or_refuse(*job) for job in jobs]
+    for d, got in zip(decodes, results):
+        if isinstance(got, UnreadableImage):
+            if d["sha256"] is None:
                 refused += 1
+            else:
+                bad.append((d["path"], d["mode"], f"UnreadableImage where cv2 reads: {got}"))
             continue
-        got = read_image(path, d["mode"])
-        if (sha(got), list(got.shape), str(got.dtype)) != (d["sha256"], d["shape"], d["dtype"]):
+        if d["sha256"] is None:
+            bad.append((d["path"], d["mode"], "read where cv2 returns None"))
+        elif (sha(got), list(got.shape), str(got.dtype)) != (d["sha256"], d["shape"],
+                                                              d["dtype"]):
             bad.append((d["path"], d["mode"], list(got.shape)))
     check_s = time.perf_counter() - t
     log(f"  {len(decodes) - len(bad)}/{len(decodes)} {stem} decodes equal cv2's (sha256, "
         f"shape, dtype; {refused} of them UnreadableImage where cv2 returns None) in "
-        f"{check_s:.1f} s")
+        f"{check_s:.1f} s ({workers} process(es))")
     require(not bad, f"{stem} decodes off cv2's: {bad[:5]}")
     timed = {}
     for f, kind in sorted(kinds.items(), key=lambda kv: kv[1]):
@@ -2552,7 +2586,7 @@ def folder_decodes(np, smi: str, key: str, folder: str, stem: str) -> dict:
 
 
 def folder_serving(np, torch, gn, gauss, xstats: dict, key: str, folder: str) -> dict:
-    """[15] / [16] (b): the flagship over a folder (f32, bf16) against
+    """[15] / [16] / [17] (b): the flagship over a folder (f32, bf16) against
     kgtpu's run on the same files (`labels_<key>_<dtype>`, ...), with
     [8]'s gates."""
     from kgtpu_torch.data.png import read_png
@@ -2574,24 +2608,25 @@ def folder_serving(np, torch, gn, gauss, xstats: dict, key: str, folder: str) ->
                 f"{ref_metrics[dtype]['mAP_dsb2018']:.6f}, diff {r['dmap']:+.6f}, tol "
                 f"{MAP_TOL[dtype]}); instances {r['counts']}, largest count diff "
                 f"{r['count_diff_max']}, label-map pixels off kgtpu's: max {max(r['off'])}, "
-                f"equal {r['off'].count(0)}/16; GroupNorm launches {r['launches']}; CLI "
-                f"{16 / r['wall']:.2f} img/s ({r['wall']:.2f} s; the JPEG folder of [12]: "
-                f"{jpeg:.2f} img/s)")
+                f"equal {r['off'].count(0)}/{len(ids)}; GroupNorm launches {r['launches']}; "
+                f"CLI {len(ids) / r['wall']:.2f} img/s ({r['wall']:.2f} s; the JPEG folder of "
+                f"[12]: {jpeg:.2f} img/s)")
             r.require(key)
             out.update({f"{key}_mAP_dsb2018_{short}": r["mAP_dsb2018"],
                         f"{key}_mAP_diff_{short}": r["dmap"],
                         f"{key}_count_diff_max_{short}": r["count_diff_max"],
                         f"{key}_pixels_off_max_{short}": max(r["off"]),
-                        f"{key}_cli_img_per_s_{short}": 16 / r["wall"],
+                        f"{key}_cli_img_per_s_{short}": len(ids) / r["wall"],
                         f"{key}_gn_launches_{short}": r["launches"]})
     return out
 
 
 def phase_folder(np, torch, gn, gauss, smi: str, xstats: dict, phase: str, key: str,
-                 folder: str, stem: str, budget_s: int) -> dict:
-    """[15] / [16]: (a) and (b) of the module docstring over one folder."""
+                 folder: str, stem: str, budget_s: int, workers: int = 1) -> dict:
+    """[15] / [16] / [17]: (a) and (b) of the module docstring over one
+    folder."""
     t_phase = time.perf_counter()
-    out = folder_decodes(np, smi, key, folder, stem)
+    out = folder_decodes(np, smi, key, folder, stem, workers)
     out.update(folder_serving(np, torch, gn, gauss, xstats, key, folder))
     phase_s = time.perf_counter() - t_phase
     log(f"  phase [{phase}]: {phase_s:.1f} s (budget {budget_s} s)")
@@ -2822,6 +2857,14 @@ def main() -> int:
     ctstats = phase_folder(np, torch, gn, gauss, smi, xstats, "16", "containers",
                            CONTAINERS_DIR, "container", CONTAINERS_PHASE_S)
 
+    # 17. JPEG 2000 under kgtpu's file names
+    log("[17] JPEG 2000: every JPEG 2000 fixture (JP2 and raw codestreams under .png / .jpg / "
+        ".tif / .bmp names) decoded as cv2 decodes it and timed, the flagship over "
+        "formats/jpeg2000 (f32, bf16) against kgtpu's run on them")
+    torch.cuda.empty_cache()
+    j2stats = phase_folder(np, torch, gn, gauss, smi, xstats, "17", "jpeg2000", JPEG2000_DIR,
+                           "jpeg2000", JPEG2000_PHASE_S, workers=JPEG2000_WORKERS)
+
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
                "e2e_img_per_s_all": e2e["img_per_s_all"], "e2e_batch": E2E_BATCH,
@@ -2839,7 +2882,7 @@ def main() -> int:
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
                **tstats, **fstats, **cstats, **ttastats, **bstats, **xstats, **estats,
-               **capstats, **vstats, **ctstats,
+               **capstats, **vstats, **ctstats, **j2stats,
                "device_ms_from_cuda_events": PROFILER_BLIND, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -2879,7 +2922,11 @@ def main() -> int:
                                     "containers folder f32 [16]":
                                         ctstats["containers_gn_launches_f32"],
                                     "containers folder bf16 [16]":
-                                        ctstats["containers_gn_launches_bf16"]},
+                                        ctstats["containers_gn_launches_bf16"],
+                                    "jpeg2000 folder f32 [17]":
+                                        j2stats["jpeg2000_gn_launches_f32"],
+                                    "jpeg2000 folder bf16 [17]":
+                                        j2stats["jpeg2000_gn_launches_bf16"]},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],

@@ -13,19 +13,20 @@ read, with NumPy, zlib and struct only.
 The codec is picked from the file's first bytes, as cv2 sniffs content, not
 from its extension: PNG, JPEG, TIFF and BMP, and the other containers cv2
 5.0 reads whatever the file is called (`_CONTAINER_DECODERS`: PNM / PAM /
-PFM, Sun raster, Radiance HDR, GIF, WebP).  Each codec follows cv2 5.0 and
-the library cv2 hands it to (libpng, libjpeg-turbo, libtiff, libwebp, cv2's
-own BMP, PxM, PAM, PFM, Sun raster, HDR and GIF readers): see the module of
-each.  EXIF orientation is applied as cv2 applies it: to JPEG, PNG and WebP
-in the "color" and "gray" modes, never in "unchanged"; TIFF applies its own
-Orientation tag in the decoder (see `data/tiff.py`).
+PFM, Sun raster, Radiance HDR, GIF, WebP, JPEG 2000).  Each codec follows
+cv2 5.0 and the library cv2 hands it to (libpng, libjpeg-turbo, libtiff,
+libwebp, OpenJPEG, cv2's own BMP, PxM, PAM, PFM, Sun raster, HDR and GIF
+readers): see the module of each.  EXIF orientation is applied as cv2
+applies it: to JPEG, PNG and WebP in the "color" and "gray" modes, never in
+"unchanged"; TIFF applies its own Orientation tag in the decoder (see
+`data/tiff.py`).
 
 A file cv2 cannot read (its imread returns None) raises `UnreadableImage`, a
 FileNotFoundError as kgtpu's readers raise.  A file cv2 reads and the port
 does not yet raises `UnsupportedImage`, a ValueError naming the ROADMAP item
-that queues it: a variant of the formats above (`QUEUED`), or JPEG 2000 or
-AVIF content (`CONTAINERS`), recognised by the signature cv2's decoder
-checks.
+that queues it: a variant of the formats above (`QUEUED`), or AVIF content,
+recognised by the signature cv2's decoder checks, and JPEG 2000 code-block
+styles (`CONTAINERS`).
 """
 
 from __future__ import annotations
@@ -137,6 +138,7 @@ _CONTAINER_DECODERS = {
     "Radiance HDR": ("kgtpu_torch.data.hdr", "decode_hdr"),
     "GIF": ("kgtpu_torch.data.gif", "decode_gif"),
     "WebP": ("kgtpu_torch.data.webp", "decode_webp"),
+    "JPEG 2000": ("kgtpu_torch.data.jpeg2000", "decode_jpeg2000"),
 }
 
 

@@ -43,7 +43,9 @@ cv2 returns None, so `UnreadableImage`: any precision but 8 bits (cv2
 calls the 8-bit jpeg_read_scanlines, which refuses 12- and 16-bit data),
 hierarchical frames (SOF5-7, SOF13-15), lossless arithmetic (SOF11), a
 height left to a DNL marker, two components, and the colour conversions
-libjpeg-turbo refuses in lossless mode (see `jpeg_pixels.to_pixels`).  An
+libjpeg-turbo refuses in lossless mode (see `jpeg_pixels.to_pixels`; grey
+from subsampled components too, which "color" and "unchanged" read and
+the port queues).  An
 EXIF APP1 Orientation turns the image in the "color" and "gray" modes, as
 cv2 does.
 """
@@ -426,10 +428,11 @@ def _ac_refine(scan, segs, comp, tabs, ss, se, al):
         short = short or p > limit
 
 
-def parse(data: bytes) -> dict:
+def parse(data: bytes, mode: str | None = None) -> dict:
     """Decode the markers and entropy-coded data: {"width", "height",
     "components": [Component], "color": "ycc" | "rgb" | "gray",
-    "orientation"}."""
+    "orientation"}.  `mode`, the read mode, decides a refusal that
+    depends on it."""
     pos, n = 2, len(data)
     qt: dict[int, np.ndarray] = {}
     dc: dict[int, tuple] = {}
@@ -532,6 +535,9 @@ def parse(data: bytes) -> dict:
             c.samples is None for c in comps) and frame["lossless"]:
         raise UnreadableImage("JPEG component without a scan")
     if frame["lossless"] and len({(c.h, c.v) for c in comps}) > 1:
+        if mode == "gray":
+            raise UnreadableImage("lossless JPEG with subsampled components in gray mode "
+                                  "(cv2 cannot read it)")
         raise unsupported("lossless JPEG with subsampled components")
     if frame["progressive"] and all(c.coef_bits[0] >= 0 for c in comps) and any(
             any(c.coef_bits[1:10]) for c in comps):
@@ -635,6 +641,6 @@ def _scan(data, pos, seg, frame, comps, qt, dc, ac, restart, cond) -> int:
 def decode_jpeg(data: bytes, mode: str) -> np.ndarray:
     """The bytes of a JPEG file as one of `imread.MODES`, in RGB order."""
     from kgtpu_torch.data.jpeg_pixels import to_pixels
-    img = parse(data)
+    img = parse(data, mode)
     out = to_pixels(img, mode)
     return out if mode == "unchanged" else orient(out, img["orientation"])

@@ -61,16 +61,31 @@ cv2's rules, each checked against it:
     each tile where it stands), and orientations 5-8 make cv2's read fail
     (`UnreadableImage`).
 
-cv2 cannot read, so `UnreadableImage`: grey of 2 or 4 bits and 2-bit
+cv2 cannot read, so `UnreadableImage` (each case held against cv2 in
+`tests/test_torch_format_variants.py`): grey of 2 or 4 bits and 2-bit
 palettes; codecs its libtiff was built without (old-style JPEG 6,
 PixarLog, LZMA, ZSTD, WebP, LERC, JBIG), so also ThunderScan and NeXT
-images, whose 4- and 2-bit grey cv2 does not read.  Raised as
-`UnsupportedImage`: CCITT RLEW (32771, see `data/ccitt.py`), ThunderScan
-and NeXT of a kind cv2 reads, SGILog, codes libtiff does not
-know (cv2 returns black for them), bit depths other than 1, 2, 4, 8, 16,
-32 and 64, and 16- to 64-bit samples in separate planes in "unchanged"
-(cv2 reads the first plane's blocks as if they were contiguous and leaves
-the rest of its buffer as it was, so its result is not defined).
+images, whose 4- and 2-bit grey cv2 does not read; BitsPerSample that
+differs between samples; bit depths other than 1, 2, 4, 8, 16, 32 and 64
+(10, 12 and 14 bits of grey or RGB in "color" and "gray" only: cv2 reads
+them in "unchanged"); with LZW or deflate, a Predictor other than 1, 2
+and 3, Predictor 2 below 8 bits and Predictor 3 on integer samples (the
+other codecs ignore the tag, as libtiff does); photometric kinds the RGBA
+reader does not know (4, 9, 10, 32844, ...); grey of other than 1, 8 or
+16 bits; RGB of fewer than three colour samples, more than four samples or
+other than 8 or 16 bits; 16-bit palettes with a ColorMap; CMYK of other
+than four samples or InkSet 1; YCbCr of other than three 8-bit samples,
+or subsampled other than 1x1, 2x1, 2x2, 4x1, 4x2, 1x2 and 4x4, or
+subsampled in separate planes; CIELab of other than three samples of 8 or
+16 bits.  Raised as `UnsupportedImage`, because cv2 reads them: CCITT
+RLEW (32771, see `data/ccitt.py`), ThunderScan and NeXT of a kind cv2
+reads, SGILog, codes libtiff does not know (cv2 returns black for them),
+10-, 12- and 14-bit grey and RGB in "unchanged", grey of more than two
+samples, palettes without a ColorMap or with an extra sample, JPEG in
+separate planes, 4x4 YCbCr, and 16- to 64-bit samples in separate planes
+in "unchanged" (cv2 reads the first plane's blocks as if they were
+contiguous and leaves the rest of its buffer as it was, so its result is
+not defined).
 """
 
 from __future__ import annotations
@@ -256,7 +271,7 @@ class _Dir:
         self.spp, self.comp = get(277)[0], get(259)[0]
         bits = get(258)
         if len(set(bits)) != 1:
-            raise unsupported(f"TIFF with mixed bit depths {bits}")
+            raise UnreadableImage(f"TIFF with mixed bit depths {bits} (cv2 cannot read it)")
         self.bits = bits[0]
         self.photo, self.planar, self.predictor = get(262)[0], get(284)[0], get(317)[0]
         self.extra, self.fmt, self.orientation = get(338), get(339)[0], get(274)[0]
@@ -294,7 +309,9 @@ def _check(d: _Dir, mode: str) -> None:
     if d.orientation in (5, 6, 7, 8):
         raise UnreadableImage(f"TIFF Orientation {d.orientation} (cv2 cannot read it)")
     if d.bits not in (1, 2, 4, 8, 16, 32, 64):
-        raise unsupported(f"{d.bits}-bit TIFF")
+        if d.bits in (10, 12, 14) and d.photo in (0, 1, 2) and mode == "unchanged":
+            raise unsupported(f"{d.bits}-bit TIFF in unchanged mode")
+        raise UnreadableImage(f"{d.bits}-bit TIFF in {mode} mode (cv2 cannot read it)")
     if d.fmt == 3 and d.bits < 32:
         raise UnreadableImage(f"TIFF of {d.bits}-bit sample format {d.fmt} (cv2 cannot read it)")
     if d.bits >= 32 and mode != "unchanged":
@@ -302,9 +319,10 @@ def _check(d: _Dir, mode: str) -> None:
                               "read it)")
     if d.photo == 5 and d.bits != 8:
         raise UnreadableImage(f"{d.bits}-bit CMYK TIFF (cv2 cannot read it)")
-    if d.predictor not in (1, 2, 3) or (d.predictor == 2 and d.bits < 8) or (
-            d.predictor == 3 and d.fmt != 3):
-        raise unsupported(f"TIFF predictor {d.predictor} at {d.bits} bits")
+    if d.comp in PREDICTED and (d.predictor not in (1, 2, 3) or (
+            d.predictor == 2 and d.bits < 8) or (d.predictor == 3 and d.fmt != 3)):
+        raise UnreadableImage(f"TIFF predictor {d.predictor} at {d.bits} bits of sample "
+                              f"format {d.fmt} (cv2 cannot read it)")
 
 
 def _kind(d: _Dir) -> str:
@@ -313,19 +331,19 @@ def _kind(d: _Dir) -> str:
     ok = {0: "gray", 1: "gray", 2: "rgb", 3: "palette", 5: "cmyk", 6: "ycbcr", 8: "lab"}
     kind = ok.get(d.photo)
     if kind is None:
-        raise unsupported(f"TIFF photometric {d.photo}")
-    if kind == "gray" and (d.bits not in (1, 8, 16) or d.spp > 2):
+        raise UnreadableImage(f"TIFF photometric {d.photo} (cv2 cannot read it)")
+    if kind == "gray" and d.spp > 2 and d.bits in (8, 16):
         raise unsupported(f"TIFF grey of {d.spp} samples of {d.bits} bits")
-    if kind == "rgb" and (colors < 3 or d.bits not in (8, 16) or d.spp > 4):
-        raise unsupported(f"TIFF RGB of {d.spp} samples of {d.bits} bits")
+    if (kind == "gray" and (d.bits not in (1, 8, 16) or d.spp > 2)
+            or kind == "rgb" and (colors < 3 or d.bits not in (8, 16) or d.spp > 4)
+            or kind == "palette" and d.bits == 16 and 320 in d.tags
+            or kind == "cmyk" and (d.spp != 4 or d.get(332)[0] != 1)
+            or kind == "ycbcr" and (d.bits != 8 or d.spp != 3)
+            or kind == "lab" and (d.spp != 3 or d.bits not in (8, 16))):
+        raise UnreadableImage(f"TIFF {kind} of {d.spp} samples of {d.bits} bits (cv2 "
+                              "cannot read it)")
     if kind == "palette" and (d.bits not in (1, 4, 8) or d.spp != 1 or 320 not in d.tags):
         raise unsupported(f"TIFF palette of {d.spp} samples of {d.bits} bits")
-    if kind == "cmyk" and (d.spp != 4 or d.get(332)[0] != 1):
-        raise unsupported(f"TIFF separated of {d.spp} samples, InkSet {d.get(332)[0]}")
-    if kind == "ycbcr" and (d.bits != 8 or d.spp != 3):
-        raise unsupported(f"TIFF YCbCr of {d.spp} samples of {d.bits} bits")
-    if kind == "lab" and (d.spp != 3 or d.bits not in (8, 16)):
-        raise unsupported(f"TIFF CIELab of {d.spp} samples of {d.bits} bits")
     return kind
 
 
@@ -436,8 +454,9 @@ def _ycbcr_subsampled(d: _Dir, data: bytes) -> np.ndarray:
     come back black or shifted in strips of one block row and in the last
     block row of an image whose height is not a multiple of 8."""
     hs, vs = d.get(530)[:2]
-    if hs not in (1, 2, 4) or vs not in (1, 2, 4) or vs > hs and (hs, vs) != (1, 2) or (
-            hs, vs) == (4, 4):
+    if hs not in (1, 2, 4) or vs not in (1, 2, 4) or vs > hs and (hs, vs) != (1, 2):
+        raise UnreadableImage(f"TIFF YCbCr subsampling {hs}x{vs} (cv2 cannot read it)")
+    if (hs, vs) == (4, 4):
         raise unsupported(f"TIFF YCbCr subsampling {hs}x{vs}")
     unit = hs * vs + 2
     px = np.zeros((d.h, d.w, 3), np.uint8)
@@ -528,7 +547,8 @@ def _rgba(d: _Dir, kind: str, px: np.ndarray) -> np.ndarray:
     elif kind == "ycbcr":
         from kgtpu_torch.data.tiff_color import ycbcr_to_rgb
         if separate and tuple(d.get(530)) != (1, 1):
-            raise unsupported("TIFF YCbCr in separate planes with subsampling")
+            raise UnreadableImage("TIFF YCbCr in separate planes with subsampling (cv2 "
+                                  "cannot read it)")
         rgb = ycbcr_to_rgb(px, d.get(529) if 529 in d.tags else None,
                            d.get(532) if 532 in d.tags else None)
     else:

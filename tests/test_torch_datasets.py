@@ -214,6 +214,30 @@ def test_folder_and_dsb2018_read_every_format_like_kgtpu(tmp_path):
             assert_same_samples(ours, theirs)
 
 
+def test_dsb2018_skips_a_mask_cv2_cannot_read(tmp_path):
+    """A sample whose masks are a PNG and a 16-bit palette TIFF with a
+    ColorMap, which cv2 cannot read: kgtpu's DSB2018 skips the TIFF, and so
+    does the port's (it raises UnreadableImage for it), giving one
+    instance."""
+    from tools import variant_encoders as ve
+    rng = np.random.default_rng(4)
+    root = tmp_path / "d"
+    os.makedirs(root / "a" / "images")
+    os.makedirs(root / "a" / "masks")
+    cv2.imwrite(str(root / "a" / "images" / "a.png"),
+                rng.integers(0, 256, (24, 20, 3)).astype(np.uint8))
+    lab = _blobs(rng, 24, 20, 2)
+    cv2.imwrite(str(root / "a" / "masks" / "m1.png"), ((lab == 1) * 255).astype(np.uint8))
+    cmap = {320: (ve.SHORT, rng.integers(0, 65536, 3 * 65536).tolist())}
+    (root / "a" / "masks" / "m2.tif").write_bytes(
+        ve.tiff_image(((lab == 2) * 65535).astype(np.uint16), 3, bits=16, tags=cmap))
+    assert cv2.imread(str(root / "a" / "masks" / "m2.tif"), cv2.IMREAD_GRAYSCALE) is None
+    ours, theirs = DSB2018(str(root), "train"), JaxDSB2018(str(root), "train")
+    assert ours.ids == theirs.ids == ["a"]
+    assert_same_samples(ours, theirs)
+    assert np.unique(ours[0]["label_map"]).tolist() == [0, 1]
+
+
 @pytest.fixture(scope="module")
 def reference():
     return np.load(REFERENCE)

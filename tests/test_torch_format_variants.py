@@ -389,16 +389,17 @@ def _containers():
     return out
 
 
-PORTED_CONTAINERS = ("webp", "gif", "ppm", "pgm", "pgm_ascii", "pam", "pfm", "sun", "hdr")
+PORTED_CONTAINERS = ("webp", "gif", "ppm", "pgm", "pgm_ascii", "pam", "pfm", "sun", "hdr",
+                     "jp2", "j2k")
 
 
 @pytest.mark.parametrize("name", sorted(PORTED_CONTAINERS))
 def test_containers_cv2_sniffs_decode_like_cv2(tmp_path, name):
-    """cv2 5.0 reads WebP, PNM / PAM / PFM, Sun raster, Radiance HDR and GIF
-    content whatever the file is called; the port reads them as cv2 does
-    (data/webp.py, pnm.py, sunras.py, hdr.py, gif.py) in every mode, and
-    raises UnreadableImage where cv2 returns None (a colour PFM in
-    "gray")."""
+    """cv2 5.0 reads WebP, PNM / PAM / PFM, Sun raster, Radiance HDR, GIF and
+    JPEG 2000 content whatever the file is called; the port reads them as
+    cv2 does (data/webp.py, pnm.py, sunras.py, hdr.py, gif.py,
+    jpeg2000.py) in every mode, and raises UnreadableImage where cv2
+    returns None (a colour PFM in "gray")."""
     path = str(tmp_path / "image.png")
     with open(path, "wb") as f:
         f.write(_containers()[name])
@@ -408,9 +409,8 @@ def test_containers_cv2_sniffs_decode_like_cv2(tmp_path, name):
 
 @pytest.mark.parametrize("name", sorted(set(_containers()) - set(PORTED_CONTAINERS)))
 def test_containers_cv2_sniffs_raise_unsupported(tmp_path, name):
-    """cv2 5.0 reads JPEG 2000 and AVIF content whatever the file is
-    called; the port names the ROADMAP item that queues them instead of
-    saying cv2 cannot."""
+    """cv2 5.0 reads AVIF content whatever the file is called; the port
+    names the ROADMAP item that queues it instead of saying cv2 cannot."""
     path = str(tmp_path / "image.png")
     with open(path, "wb") as f:
         f.write(_containers()[name])
@@ -430,6 +430,20 @@ def _patched_sof(marker: int, prec: int = 8, height: int | None = None) -> bytes
     return bytes(data)
 
 
+def _lossless_subsampled(a) -> bytes:
+    """A lossless (SOF3) JPEG whose first component is 2x2 subsampled
+    against the other two: one scan a component."""
+    import struct
+    y = ve.jpeg_lossless([a[..., 0]], 1, interleaved=False)
+    c = ve.jpeg_lossless([a[::2, ::2, 1], a[::2, ::2, 2]], 1, ids=[2, 3], interleaved=False)
+    h, w = a.shape[:2]
+    sof = b"\xff\xc3" + struct.pack(">HBHHB", 17, 8, h, w, 3) + bytes(
+        [1, 0x22, 0, 2, 0x11, 0, 3, 0x11, 0])
+    dht = y[y.index(b"\xff\xc4"):y.index(b"\xff\xda")]
+    return b"\xff\xd8" + sof + dht + y[y.index(b"\xff\xda"):-2] + \
+        c[c.index(b"\xff\xda"):-2] + b"\xff\xd9"
+
+
 def _unreadable():
     a = smooth(17, 21)
     out = {f"tiff_codec_{c}": ve.tiff_image(a, 2, compression=1,
@@ -446,19 +460,125 @@ def _unreadable():
     out["tiff_float16"] = ve.tiff_image(a.astype(np.float16), 2, bits=16, sample_format=3)
     out["tiff_thunderscan_4bit"] = ve.tiff_image(a[..., 0] >> 4, 1, bits=4,
                                                  tags={259: (ve.SHORT, [32809])})
+    out.update(_tiff_cv2_refuses())
     return out
+
+
+def _rand(shape, bits, seed=0):
+    return np.random.default_rng(seed).integers(0, 1 << bits, shape).astype(
+        np.uint16 if bits > 8 else np.uint8)
+
+
+def tiff_packed(px, bits: int, photometric: int, tags=None) -> bytes:
+    """A one-strip TIFF of `px` ([H, W, spp]) packed at `bits` bits a
+    sample, most significant first, each row byte-aligned (any depth)."""
+    h, w, c = px.shape
+    rows = []
+    for row in px.reshape(h, -1).astype(np.uint32):
+        b = ((row[:, None] >> np.arange(bits - 1, -1, -1)) & 1).astype(np.uint8)
+        rows.append(np.packbits(b.reshape(-1)).tobytes())
+    t = {256: (ve.LONG, [w]), 257: (ve.LONG, [h]), 258: (ve.SHORT, [bits] * c),
+         259: (ve.SHORT, [1]), 262: (ve.SHORT, [photometric]), 277: (ve.SHORT, [c]),
+         284: (ve.SHORT, [1]), 278: (ve.LONG, [h])}
+    t.update(tags or {})
+    return ve.tiff_file([b"".join(rows)], t)
+
+
+def _tiff_cv2_refuses():
+    """The TIFFs the reader once called queued though cv2 returns None for
+    them (24x20 files): (file, the modes where cv2 returns None)."""
+    h, w = 20, 24
+    cmap = {320: (ve.SHORT, _rand(3 * 65536, 16, seed=1).tolist())}
+    out = {
+        # the RGBA reader's kinds (tiff.py `_kind`)
+        "tiff_kind_grey_2_samples_4bit": ve.tiff_image(_rand((h, w, 2), 4), 1, bits=4),
+        "tiff_kind_rgb_2_samples": ve.tiff_image(_rand((h, w, 2), 8), 2),
+        "tiff_kind_rgb_5_samples": ve.tiff_image(_rand((h, w, 5), 8), 2),
+        "tiff_kind_rgb_1bit": ve.tiff_image(_rand((h, w, 3), 1), 2, bits=1),
+        "tiff_kind_rgb_4bit": ve.tiff_image(_rand((h, w, 3), 4), 2, bits=4),
+        "tiff_kind_palette_16bit": ve.tiff_image(_rand((h, w, 1), 16), 3, bits=16, tags=cmap),
+        "tiff_kind_photometric_4": ve.tiff_image(_rand((h, w, 1), 1), 4, bits=1),
+        "tiff_kind_photometric_9": ve.tiff_image(_rand((h, w, 3), 8), 9),
+        "tiff_kind_photometric_10": ve.tiff_image(_rand((h, w, 3), 8), 10),
+        "tiff_kind_photometric_32844": ve.tiff_image(_rand((h, w, 3), 8), 32844),
+        "tiff_kind_photometric_9_16bit": ve.tiff_image(_rand((h, w, 1), 16), 9, bits=16),
+        "tiff_kind_ycbcr_16bit": ve.tiff_image(_rand((h, w, 3), 16), 6, bits=16),
+        "tiff_kind_ycbcr_4_samples": ve.tiff_image(_rand((h, w, 4), 8), 6),
+        "tiff_kind_cmyk_3_samples": ve.tiff_image(_rand((h, w, 3), 8), 5),
+        "tiff_kind_cmyk_5_samples": ve.tiff_image(_rand((h, w, 5), 8), 5),
+        "tiff_kind_cmyk_inkset_2": ve.tiff_image(_rand((h, w, 4), 8), 5,
+                                                 tags={332: (ve.SHORT, [2])}),
+        "tiff_kind_lab_1_sample": ve.tiff_image(_rand((h, w, 1), 8), 8),
+        "tiff_kind_lab_4_samples": ve.tiff_image(_rand((h, w, 4), 8), 8),
+        # predictors (tiff.py `_check`); libtiff applies them with LZW / deflate
+        "tiff_check_predictor_4": ve.tiff_image(_rand((h, w, 3), 8), 2, compression=8,
+                                                tags={317: (ve.SHORT, [4])}),
+        "tiff_check_predictor_3_int8": ve.tiff_image(_rand((h, w, 3), 8), 2, compression=8,
+                                                     tags={317: (ve.SHORT, [3])}),
+        "tiff_check_predictor_3_int16": ve.tiff_image(_rand((h, w, 3), 16), 2, bits=16,
+                                                      compression=8,
+                                                      tags={317: (ve.SHORT, [3])}),
+        "tiff_check_predictor_2_1bit": ve.tiff_image(_rand((h, w, 1), 1), 1, bits=1,
+                                                     compression=5,
+                                                     tags={317: (ve.SHORT, [2])}),
+        # mixed BitsPerSample (tiff.py `_Dir.__init__`)
+        "tiff_dir_bits_8_8_16": ve.tiff_image(_rand((h, w, 3), 8), 2,
+                                              tags={258: (ve.SHORT, [8, 8, 16])}),
+        "tiff_dir_bits_8_8_4": ve.tiff_image(_rand((h, w, 3), 8), 2,
+                                             tags={258: (ve.SHORT, [8, 8, 4])}),
+        # YCbCr subsampling and planes (tiff.py `_ycbcr_subsampled`, `_rgba`)
+        "tiff_ycbcr_subsampling_3x1": ve.tiff_ycbcr(*(_rand(s, 8) for s in ((h, w), (h, 8),
+                                                                            (h, 8))), 3, 1,
+                                                    rows_per_strip=8),
+        "tiff_ycbcr_subsampling_2x4": ve.tiff_ycbcr(*(_rand(s, 8) for s in ((h, w), (5, 12),
+                                                                            (5, 12))), 2, 4,
+                                                    rows_per_strip=8),
+        "tiff_ycbcr_planar_subsampled": ve.tiff_image(_rand((h, w, 3), 8), 6, planar=2,
+                                                      tags={530: (ve.SHORT, [2, 2])}),
+    }
+    out = {k: (v, MODES) for k, v in out.items()}
+    # bit depths libtiff's RGBA reader refuses (tiff.py `_check`); 10-, 12-
+    # and 14-bit grey and RGB read in "unchanged" (`_queued`)
+    for bits in (3, 5, 6, 7, 10, 12, 14, 24):
+        modes = ("color", "gray") if bits in (10, 12, 14) else MODES
+        out[f"tiff_check_grey_{bits}bit"] = (tiff_packed(_rand((h, w, 1), min(bits, 16)),
+                                                         bits, 1), modes)
+        out[f"tiff_check_rgb_{bits}bit"] = (tiff_packed(_rand((h, w, 3), min(bits, 16)),
+                                                        bits, 2), modes)
+    out["jpeg_lossless_subsampled_gray"] = (_lossless_subsampled(smooth(24, 32)), ("gray",))
+    out["tiff_check_palette_12bit"] = (tiff_packed(
+        _rand((h, w, 1), 12), 12, 3, {320: (ve.SHORT, _rand(3 * 4096, 16).tolist())}), MODES)
+    return out
+
+
+@pytest.mark.parametrize("compression", [1, 32773])
+def test_predictor_of_a_codec_without_one_reads_like_cv2(tmp_path, compression):
+    """libtiff applies the Predictor tag with LZW and deflate only: with no
+    compression or PackBits, predictor 4 and predictor 3 on integers are
+    ignored and cv2 reads the samples as stored."""
+    a = smooth(20, 24)
+    for pred in (3, 4):
+        path = str(tmp_path / f"p{pred}.tif")
+        with open(path, "wb") as f:
+            f.write(ve.tiff_image(a, 2, compression=compression,
+                                  tags={317: (ve.SHORT, [pred])}))
+        assert all(check(path, mode) for mode in MODES)
 
 
 @pytest.mark.parametrize("name", sorted(_unreadable()))
 def test_what_cv2_cannot_read_raises_unreadable(tmp_path, name):
     """Codecs cv2's libtiff lacks, hierarchical and lossless-arithmetic JPEG,
     12-bit JPEG (baseline, extended and lossless), a DNL height and 16-bit
-    float TIFF: cv2 returns None in every mode, the port raises
-    UnreadableImage (a FileNotFoundError)."""
+    float TIFF, and the TIFF kinds, predictors, bit depths and YCbCr layouts
+    that libtiff refuses: cv2 returns None in each mode tested (every mode,
+    or "color" and "gray" for 10-, 12- and 14-bit samples), the port raises
+    UnreadableImage (a FileNotFoundError) there."""
     path = str(tmp_path / ("f.tif" if name.startswith("tiff") else "f.jpg"))
+    data = _unreadable()[name]
+    data, modes = data if isinstance(data, tuple) else (data, MODES)
     with open(path, "wb") as f:
-        f.write(_unreadable()[name])
-    for mode in MODES:
+        f.write(data)
+    for mode in modes:
         assert cv2.imread(path, _CV[mode]) is None
         with pytest.raises(UnreadableImage):
             read_image(path, mode)
@@ -468,13 +588,79 @@ def _queued():
     a = smooth(24, 32)
     y, cb, cr = _ycbcr(np.random.default_rng(0), 24, 32, 4, 4)
     prog = _jpeg(a, quality=90)
-    return {
+    out = {
         "tiff_ycbcr_4x4": (ve.tiff_ycbcr(y, cb, cr, 4, 4, rows_per_strip=8), MODES),
         "tiff_planar16_unchanged": (ve.tiff_image(np.zeros((24, 32, 3), np.uint16) + 7, 2,
                                                   bits=16, planar=2), ("unchanged",)),
         "jpeg_arith_dc_only": (ve.jpeg_arith(prog, progressive=True), MODES),
         "tiff_sgilog": (ve.tiff_image(a, 32845, compression=1, tags={259: (ve.SHORT, [34677])}),
                         ()),
+    }
+    h, w = 20, 24
+    for bits in (10, 12, 14):
+        out[f"tiff_grey_{bits}bit_unchanged"] = (tiff_packed(_rand((h, w, 1), bits), bits, 1),
+                                                 ("unchanged",))
+        out[f"tiff_rgb_{bits}bit_unchanged"] = (tiff_packed(_rand((h, w, 3), bits), bits, 2),
+                                                ("unchanged",))
+    out.update({
+        "tiff_palette_16bit_without_colormap": (ve.tiff_image(_rand((h, w, 1), 16), 3, bits=16),
+                                                MODES),
+        "tiff_grey_3_samples_16bit": (ve.tiff_image(_rand((h, w, 3), 16), 1, bits=16), MODES),
+        "tiff_unknown_compression": (ve.tiff_image(_rand((h, w, 3), 8), 2,
+                                                   tags={259: (ve.SHORT, [12345])}), MODES),
+        "tiff_ccitt_rlew": (ve.tiff_image(_rand((h, w, 1), 1), 1, bits=1,
+                                          tags={259: (ve.SHORT, [32771])}), MODES),
+        "tiff_jpeg_separate_planes": (_jpeg_tiff_planar(_rand((h, w, 3), 8)), MODES),
+        "jpeg_lossless_subsampled": (_lossless_subsampled(smooth(24, 32)),
+                                     ("color", "unchanged")),
+    })
+    out.update({k: (v, MODES) for k, v in _ccitt_undecodable().items()})
+    return out
+
+
+def _jpeg_tiff_planar(px) -> bytes:
+    """A JPEG-compressed RGB TIFF in separate planes, one stream a plane."""
+    h, w, _ = px.shape
+    streams = [_jpeg(np.ascontiguousarray(px[..., k]), quality=90) for k in range(3)]
+    t = {256: (ve.LONG, [w]), 257: (ve.LONG, [h]), 258: (ve.SHORT, [8] * 3),
+         259: (ve.SHORT, [7]), 262: (ve.SHORT, [2]), 277: (ve.SHORT, [3]),
+         284: (ve.SHORT, [2]), 278: (ve.LONG, [h])}
+    return ve.tiff_file(streams, t)
+
+
+def _ccitt_undecodable():
+    """CCITT strips with a byte flipped or zeroed, one per refusal of
+    `data/ccitt.py` (libtiff recovers from bad lines; cv2 reads them)."""
+    from PIL import TiffImagePlugin
+
+    from kgtpu_torch.data.tiff import _Dir
+    rng = np.random.default_rng(1)
+    a = rng.random((20, 24)) < 0.3
+
+    def encode(comp):
+        buf = io.BytesIO()
+        Image.fromarray(a).save(buf, "TIFF", compression=comp,
+                                tiffinfo=TiffImagePlugin.ImageFileDirectory_v2())
+        return buf.getvalue()
+
+    def mutate(data, fn):
+        d = _Dir(data)
+        off, cnt = d.offsets[0], d.counts[0]
+        return data[:off] + bytes(fn(bytearray(data[off:off + cnt]))) + data[off + cnt:]
+
+    def flip(seed):
+        def fn(s):
+            r = np.random.default_rng(seed)
+            s[int(r.integers(len(s) // 4, len(s)))] ^= int(r.integers(1, 256))
+            return s
+        return fn
+    zero_tail = lambda s: s[:len(s) // 2] + bytearray(len(s) - len(s) // 2)  # noqa: E731
+    return {
+        "tiff_ccitt_code_that_does_not_decode": mutate(encode("tiff_ccitt"), zero_tail),
+        "tiff_ccitt_1d_runs_off_the_width": mutate(encode("tiff_ccitt"), flip(0)),
+        "tiff_ccitt_2d_code_off_the_row": mutate(encode("group4"), flip(2)),
+        "tiff_ccitt_2d_runs_off_the_width": mutate(encode("group4"), flip(1)),
+        "tiff_ccitt_group3_ends_early": mutate(encode("group3"), flip(1)),
     }
 
 
@@ -483,8 +669,11 @@ def test_queued_variants_raise_unsupported(tmp_path, name):
     """Variants cv2 reads and the port still queues (ROADMAP §1's image-format
     variants): 4x4-subsampled YCbCr TIFF, 16-bit separate planes in
     "unchanged" (cv2's result is not defined there), a progressive JPEG
-    whose AC coefficients never arrive (libjpeg smooths its blocks), and
-    SGILog."""
+    whose AC coefficients never arrive (libjpeg smooths its blocks), SGILog,
+    10- to 14-bit TIFF in "unchanged", a 16-bit palette without a ColorMap,
+    grey of three samples, unknown codecs, CCITT RLEW and CCITT data that
+    does not decode (libtiff recovers), JPEG TIFF in separate planes and
+    lossless JPEG with subsampled components."""
     data, modes = _queued()[name]
     path = str(tmp_path / ("f.tif" if name.startswith("tiff") else "f.jpg"))
     with open(path, "wb") as f:

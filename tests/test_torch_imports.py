@@ -73,6 +73,8 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.data.pnm, kgtpu_torch.data.sunras, kgtpu_torch.data.hdr\n"
         "import kgtpu_torch.data.gif, kgtpu_torch.data.webp, kgtpu_torch.data.vp8l\n"
         "import kgtpu_torch.data.vp8, kgtpu_torch.data.vp8_pixels, kgtpu_torch.data.vp8_tables\n"
+        "import kgtpu_torch.data.jpeg2000, kgtpu_torch.data.j2k_t2, kgtpu_torch.data.j2k_t1\n"
+        "import kgtpu_torch.data.j2k_dwt\n"
         "import importlib.util as u\n"
         "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "s.loader.exec_module(u.module_from_spec(s))\n"

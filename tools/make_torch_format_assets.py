@@ -2,7 +2,8 @@
 """Make the image-format and dataset fixtures of the PyTorch port under
 assets_torch/formats/, and kgtpu's references for them.
 
-    python tools/make_torch_format_assets.py [--out assets_torch] [--only variants|containers]
+    python tools/make_torch_format_assets.py [--out assets_torch]
+        [--only variants|containers|jpeg2000]
 
 Runs on the CPU where cv2, PIL, jax and kgtpu are installed (after
 tools/make_torch_eval_assets.py, whose synthetic_hard images and flagship it
@@ -66,11 +67,23 @@ reads), and writes:
                                `containers_*` / `*_containers_*` keys as for
                                the variants.
 
-`--only variants` or `--only containers` writes that folder alone and adds
-its keys to the existing kgtpu_reference_formats.npz, keeping every other
-array as it is.  The fixtures and the reference together stay under 8 MiB
-(the variants under 8 MiB of their own, the containers and their keys under
-6 MiB).
+  formats/jpeg2000/<id>.<ext>  the first 8 synthetic_hard test images at
+                               512x512, each in one JPEG 2000 kind of
+                               `JPEG2000` (cv2's lossless default and two
+                               of its rates; PIL's raw codestream with the
+                               9/7 wavelet and three layers, tiles with
+                               RPCL and precincts, PCRL with 32x32
+                               code-blocks, 3 resolutions and no colour
+                               transform, RGBA with CPRL and 7 resolutions,
+                               16-bit grey with RLCP), named with kgtpu's
+                               extensions; and the `jpeg2000_*` /
+                               `*_jpeg2000_*` keys as for the variants.
+
+`--only variants`, `--only containers` or `--only jpeg2000` writes that
+folder alone and adds its keys to the existing kgtpu_reference_formats.npz,
+keeping every other array as it is.  The fixtures and the reference together
+stay under 8 MiB (the variants under 8 MiB of their own, the containers and
+the JPEG 2000 folder, each with their keys, under 6 MiB).
 """
 
 from __future__ import annotations
@@ -399,6 +412,62 @@ def write_container(kind: str, rgb) -> bytes:
     raise ValueError(kind)
 
 
+# formats/jpeg2000: the JPEG 2000 kind of each of the first 8 images, in id
+# order, under kgtpu's extensions (cv2 5.0 reads JPEG 2000 whatever the file
+# is called).  A tile offset needs an image offset (XTOsiz <= XOsiz), which
+# cv2 refuses, so the tiled kind has none (tests/test_torch_jpeg2000.py holds
+# an offset file against cv2).
+JPEG2000 = [
+    ("cv2_lossless", ".png"), ("cv2_x1000_200", ".jpg"), ("cv2_x1000_50", ".tif"),
+    ("pil_codestream_97_3layers", ".bmp"), ("pil_grey_tiles128_rpcl_precincts", ".png"),
+    ("pil_pcrl_cblk32_res3_mct0", ".jpg"), ("pil_rgba_cprl_res7", ".tif"),
+    ("pil_grey16_rlcp", ".bmp"),
+]
+
+
+def write_jpeg2000(kind: str, rgb) -> bytes:
+    """One 8-bit RGB image ([H, W, 3]) as the JPEG 2000 kind `kind`: cv2's
+    writer (OpenJPEG, lossless 5/3 and RCT by default, or at
+    IMWRITE_JPEG2000_COMPRESSION_X1000) or PIL's (rates are compression
+    ratios, one per quality layer)."""
+    import io
+
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    def pil(img, **kw):
+        buf = io.BytesIO()
+        img.save(buf, "JPEG2000", **kw)
+        return buf.getvalue()
+    h, w, _ = rgb.shape
+    grey = Image.fromarray(rgb).convert("L")
+    if kind == "cv2_lossless":
+        return cv2.imencode(".jp2", np.ascontiguousarray(rgb[..., ::-1]))[1].tobytes()
+    if kind.startswith("cv2_x1000_"):
+        q = int(kind.rsplit("_", 1)[1])
+        return cv2.imencode(".jp2", np.ascontiguousarray(rgb[..., ::-1]),
+                            [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, q])[1].tobytes()
+    if kind == "pil_codestream_97_3layers":
+        return pil(Image.fromarray(rgb), no_jp2=True, irreversible=True, quality_mode="rates",
+                   quality_layers=[40, 20, 10])
+    if kind == "pil_grey_tiles128_rpcl_precincts":
+        return pil(grey, tile_size=(128, 128), progression="RPCL", precinct_size=(64, 64),
+                   quality_mode="rates", quality_layers=[8])
+    if kind == "pil_pcrl_cblk32_res3_mct0":
+        return pil(Image.fromarray(rgb), progression="PCRL", codeblock_size=(32, 32),
+                   num_resolutions=3, mct=0, quality_mode="rates", quality_layers=[16])
+    if kind == "pil_rgba_cprl_res7":
+        alpha = (np.arange(w)[None, :] * 255 // max(w - 1, 1) + np.zeros((h, 1), int))
+        return pil(Image.fromarray(np.dstack([rgb, alpha.astype(np.uint8)])), progression="CPRL",
+                   num_resolutions=7, quality_mode="rates", quality_layers=[16])
+    if kind == "pil_grey16_rlcp":
+        g16 = np.asarray(grey).astype(np.uint16) * 257
+        return pil(Image.fromarray(g16), progression="RLCP", quality_mode="rates",
+                   quality_layers=[8])
+    raise ValueError(kind)
+
+
 def cv2_decodes(root: str, rels: list[str]) -> list[dict]:
     """cv2's decode of each file in every mode, in RGB order: sha256,
     shape and dtype, or None where cv2 returns None."""
@@ -529,15 +598,21 @@ def make_containers(out: str) -> int:
     return make_folder(out, "containers", CONTAINERS, write_container)
 
 
+def make_jpeg2000(out: str) -> int:
+    return make_folder(out, "jpeg2000", JPEG2000, write_jpeg2000)
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
-    p.add_argument("--only", choices=["variants", "containers"], default=None)
+    p.add_argument("--only", choices=["variants", "containers", "jpeg2000"], default=None)
     a = p.parse_args(argv)
     if a.only == "variants":
         return make_variants(a.out)
     if a.only == "containers":
         return make_containers(a.out)
+    if a.only == "jpeg2000":
+        return make_jpeg2000(a.out)
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -618,7 +693,7 @@ def main(argv: list[str] | None = None) -> int:
                 for f in fs) + os.path.getsize(os.path.join(a.out, "kgtpu_reference_formats.npz"))
     print(f"{len(decode)} decodes, datasets {[(k, len(v)) for k, v in datasets.items()]}, "
           f"{total / 2**20:.2f} MiB")
-    return make_variants(a.out) or make_containers(a.out)
+    return make_variants(a.out) or make_containers(a.out) or make_jpeg2000(a.out)
 
 
 if __name__ == "__main__":

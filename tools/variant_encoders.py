@@ -15,6 +15,10 @@ tools/make_torch_format_assets.py).  NumPy, zlib and struct only.
   bmp_file                 BMP with any header (12-byte OS/2 too) and depth
   ccitt_encode             CCITT modified Huffman (RLE), Group 3 (1-D / 2-D)
                            and Group 4 bilevel coding
+  jpeg2000_random          a random JPEG 2000 file from PIL (size, mode,
+                           content and every encoder option PIL has)
+  jpeg2000_packed_headers  a JPEG 2000 codestream's packet headers moved into
+                           PPT or PPM markers
 
 cv2 reading a written file is the check that it is valid; the tests hold
 the port's decoder against cv2's decode of it, never against these writers.
@@ -1287,3 +1291,102 @@ def pbm_p4(black: np.ndarray, comment: bytes = b"") -> bytes:
     h, w = black.shape
     return (b"P4\n" + comment + f"{w} {h}\n".encode()
             + pack_bits(black.astype(np.uint8), 1).tobytes())
+
+
+# --- JPEG 2000 ----------------------------------------------------------------
+
+def jpeg2000_random(rng, maxsize: int = 64):
+    """A random JPEG 2000 file written by PIL (OpenJPEG): size 1..maxsize,
+    mode (RGB, L, RGBA, LA, 16-bit grey), random or smooth content, the 5/3
+    or 9/7 wavelet, resolutions, code-block and precinct sizes, tiles, the
+    progression, rated quality layers, the colour transform, JP2 or a raw
+    codestream, PLT markers; and its description.  (None, None) when PIL
+    refuses the options."""
+    import io
+
+    from PIL import Image
+    h, w = (int(v) for v in rng.integers(1, maxsize + 1, 2))
+    mode = str(rng.choice(["RGB", "L", "RGBA", "LA", "I;16", "RGB", "RGB"]))
+    y, x = np.mgrid[:h, :w]
+    if rng.random() < 0.5:
+        base = rng.integers(0, 256, (h, w, 4))
+    else:
+        f = rng.uniform(0.05, 0.5, 4)
+        base = np.stack([128 + 120 * np.sin(x * f[k] + y * f[(k + 1) % 4] + k)
+                         for k in range(4)], -1)
+    base = np.clip(base, 0, 255).astype(np.uint8)
+    arr = {"RGB": base[..., :3], "L": base[..., 0], "RGBA": base, "LA": base[..., :2],
+           "I;16": base[..., 0].astype(np.uint16) * 256 + base[..., 1]}[mode]
+    kw: dict = {}
+    if rng.random() < 0.5:
+        kw["irreversible"] = True
+    if rng.random() < 0.5:
+        kw["num_resolutions"] = int(rng.integers(1, 8))
+    if rng.random() < 0.3:
+        kw["codeblock_size"] = tuple(int(2 ** rng.integers(2, 7)) for _ in range(2))
+    if rng.random() < 0.3:
+        kw["precinct_size"] = tuple(int(2 ** rng.integers(4, 8)) for _ in range(2))
+    if rng.random() < 0.3:
+        kw["tile_size"] = tuple(int(rng.integers(8, max(9, maxsize + 1))) for _ in range(2))
+    if rng.random() < 0.5:
+        kw["progression"] = str(rng.choice(["LRCP", "RLCP", "RPCL", "PCRL", "CPRL"]))
+    if rng.random() < 0.5:
+        kw["quality_mode"] = "rates"
+        kw["quality_layers"] = sorted([float(rng.uniform(2, 60))
+                                       for _ in range(int(rng.integers(1, 4)))], reverse=True)
+    if rng.random() < 0.2:
+        kw["mct"] = 0
+    if rng.random() < 0.3:
+        kw["no_jp2"] = True
+    if rng.random() < 0.2:
+        kw["plt"] = True
+    if kw.get("irreversible"):
+        # OpenJPEG's 9/7 encoder asserts on a signal of one sample: keep
+        # every tile's sides above 2^(levels - 1)
+        tw, th = kw.get("tile_size", (w, h))
+        sides = [min(h, th), min(w, tw), (h % th) or th, (w % tw) or tw]
+        levels = int(np.floor(np.log2(min(sides))))
+        kw["num_resolutions"] = max(1, min(kw.get("num_resolutions", 6), levels + 1))
+    buf = io.BytesIO()
+    try:
+        Image.fromarray(arr, "LA" if mode == "LA" else None).save(buf, "JPEG2000", **kw)
+    except OSError:
+        return None, None
+    return buf.getvalue(), (h, w, mode, kw)
+
+
+def jpeg2000_packed_headers(cs: bytes, marker: str = "ppt") -> bytes:
+    """A raw codestream (one tile-part a tile, no SOP / EPH) rewritten with
+    its packet headers moved out of the tile data into PPT markers (one
+    set a tile) or PPM markers (the main header's, one Nppm record a
+    tile-part); the packets are found with the port's tier-2
+    (`kgtpu_torch.data.jpeg2000.tile_packets`), and cv2 reading the result
+    as it reads `cs` is the check that they were."""
+    from kgtpu_torch.data.jpeg2000 import SOT, Codestream, tile_packets
+    c = Codestream(cs)
+    main_end = cs.index(struct.pack(">H", SOT))
+    parts = []
+    for tno in c.parts:
+        data = c.tiles[tno]["data"][0]
+        spans: list = []
+        tile_packets(c, tno, {}, spans)
+        heads = b"".join(data[a:b] for a, b, _ in spans)
+        bodies = b"".join(data[b:e] for _, b, e in spans)
+        parts.append((tno, heads, bodies))
+
+    def segments(code: int, body: bytes, index_bytes: int = 1) -> bytes:
+        out, k = b"", 0
+        for at in range(0, max(len(body), 1), 60000):
+            chunk = body[at:at + 60000]
+            out += struct.pack(">HHB", code, 3 + len(chunk), k) + chunk
+            k += 1
+        return out
+    head = cs[:main_end]
+    if marker == "ppm":
+        head += segments(0xFF60, b"".join(struct.pack(">I", len(h)) + h for _, h, _ in parts))
+    out = head
+    for tno, heads, bodies in parts:
+        tile_head = segments(0xFF61, heads) if marker == "ppt" else b""
+        psot = 12 + len(tile_head) + 2 + len(bodies)
+        out += struct.pack(">HHHIBB", SOT, 10, tno, psot, 0, 1) + tile_head + b"\xff\x93" + bodies
+    return out + b"\xff\xd9"
