@@ -171,7 +171,21 @@
     per 512x512 of pixels) beside the card's name and power limit.  (b) `cli.test --dataset folder` over that folder with
     the flagship in f32 and bf16, held against kgtpu's committed runs on the
     same files with [8]'s gates, the GroupNorm kernel launched; the CLI's
-    img/s beside [12]'s JPEG folder.  Budget VARIANTS_PHASE_S.
+    img/s beside [12]'s JPEG folder.  Budget VARIANTS_PHASE_S.  Then (a) and
+    (b) over assets_torch/formats/variants2 (the 16 images in the damaged
+    files and the variants ported since: a progressive JPEG cut at 30% of
+    its scans and a progressive arithmetic JPEG of its DC scans only (block
+    smoothing), a baseline JPEG with a Huffman code in no table, LZW TIFF
+    with a byte changed, damaged Group 3 and Group 4 TIFF, CCITT RLEW,
+    lossless JPEG with subsampled chroma, 16-bit grey of three samples, a
+    palette with an extra sample and a 16-bit one without a ColorMap, a
+    codec libtiff does not know, JPEG TIFF in separate planes, 4x4 YCbCr,
+    SGILog LogL and ThunderScan; `variants2_*` keys), its (a) in
+    VARIANTS_WORKERS processes, and (a) alone over
+    assets_torch/formats/variants2_extra (256x256 files cv2 reads in
+    "unchanged" only, or not at all: 10-, 12- and 14-bit grey, 12-bit RGB,
+    a PNG cut mid-file, SGILog24 LogLuv; `variants2_extra_*`).  Budget
+    VARIANTS2_PHASE_S.
 [16] Image containers.  [15]'s (a) and (b) over assets_torch/formats/
     containers: the 16 synthetic_hard images at 512x512, each in a
     container cv2 5.0 sniffs by content, named with one of kgtpu's
@@ -334,7 +348,11 @@ CAPTURE_CLI_STEPS, CAPTURE_CLI_K = 6, 4   # 6 cut from 10 for the run's time
 DP_STEPS = 5
 # phase [15]: the image-format variants cv2 reads
 VARIANTS_DIR = os.path.join(FORMATS, "variants")
-VARIANTS_PHASE_S = 150      # phase [15]'s budget
+VARIANTS_PHASE_S = 150      # phase [15]'s budget for formats/variants
+VARIANTS2_DIR = os.path.join(FORMATS, "variants2")
+VARIANTS2_EXTRA_DIR = os.path.join(FORMATS, "variants2_extra")
+VARIANTS2_PHASE_S = 150     # ... and for formats/variants2 and variants2_extra
+VARIANTS_WORKERS = 8        # processes of formats/variants2's decode check
 SLOW_DECODE_MS = 1000       # [15] / [16]: a decode over this is timed once, not 3 times
 # phase [16]: the image containers cv2 sniffs, under kgtpu's file names
 CONTAINERS_DIR = os.path.join(FORMATS, "containers")
@@ -2567,18 +2585,23 @@ def folder_decodes(np, smi: str, key: str, folder: str, stem: str, workers: int 
     require(not bad, f"{stem} decodes off cv2's: {bad[:5]}")
     timed = {}
     for f, kind in sorted(kinds.items(), key=lambda kv: kv[1]):
+        # timed in the first mode cv2 reads ("color" for a served folder)
+        mode = next((d["mode"] for d in decodes if d["path"] == f and d["sha256"]), None)
+        if mode is None:
+            continue
         reads = []
         while len(reads) < 3:
             t = time.perf_counter()
-            img = read_image(os.path.join(folder, f), "color")
+            img = read_image(os.path.join(folder, f), mode)
             reads.append((time.perf_counter() - t) * 1e3)
             if reads[0] > SLOW_DECODE_MS:
                 break
         ms, pixels = sorted(reads)[len(reads) // 2], img.shape[0] * img.shape[1]
-        timed[kind] = {"ms_per_image": ms, "reads": len(reads), "pixels": pixels,
+        timed[kind] = {"ms_per_image": ms, "reads": len(reads), "pixels": pixels, "mode": mode,
                        "ms_per_512x512": ms * 512 * 512 / pixels,
                        "bytes": os.path.getsize(os.path.join(folder, f))}
-        log(f"  decode {kind}: {ms:.1f} ms per {img.shape[0]}x{img.shape[1]} image (median of "
+        log(f"  decode {kind} ({mode}): {ms:.1f} ms per {img.shape[0]}x{img.shape[1]} image "
+            f"(median of "
             f"{len(reads)} read(s)), {timed[kind]['ms_per_512x512']:.1f} ms per 512x512 of "
             f"pixels, {timed[kind]['bytes']} bytes; {smi}")
     return {f"{stem}_decode_checks": len(decodes), f"{stem}_decode_refused": refused,
@@ -2848,6 +2871,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     vstats = phase_folder(np, torch, gn, gauss, smi, xstats, "15", "variants", VARIANTS_DIR,
                           "variant", VARIANTS_PHASE_S)
+    log("[15] damaged files and the variants ported since: formats/variants2 decoded as cv2 "
+        "decodes it, timed and served (f32, bf16) against kgtpu's run on them; "
+        "formats/variants2_extra decoded and timed")
+    t = time.perf_counter()
+    vstats.update(phase_folder(np, torch, gn, gauss, smi, xstats, "15", "variants2",
+                               VARIANTS2_DIR, "variant2", VARIANTS2_PHASE_S,
+                               workers=VARIANTS_WORKERS))
+    vstats.update(folder_decodes(np, smi, "variants2_extra", VARIANTS2_EXTRA_DIR,
+                                 "variant2_extra", workers=VARIANTS_WORKERS))
+    vstats["variants2_all_s"] = time.perf_counter() - t
+    require(vstats["variants2_all_s"] <= VARIANTS2_PHASE_S,
+            f"[15] variants2 took {vstats['variants2_all_s']:.0f} s")
 
     # 16. the image containers cv2 sniffs under kgtpu's file names
     log("[16] image containers: every container fixture (PNM / PAM, Sun raster, Radiance HDR, "
@@ -2919,6 +2954,10 @@ def main() -> int:
                                     "variants folder f32 [15]": vstats["variants_gn_launches_f32"],
                                     "variants folder bf16 [15]":
                                         vstats["variants_gn_launches_bf16"],
+                                    "variants2 folder f32 [15]":
+                                        vstats["variants2_gn_launches_f32"],
+                                    "variants2 folder bf16 [15]":
+                                        vstats["variants2_gn_launches_bf16"],
                                     "containers folder f32 [16]":
                                         ctstats["containers_gn_launches_f32"],
                                     "containers folder bf16 [16]":

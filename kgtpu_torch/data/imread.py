@@ -22,9 +22,16 @@ applies it: to JPEG, PNG and WebP in the "color" and "gray" modes, never in
 `data/tiff.py`).
 
 A file cv2 cannot read (its imread returns None) raises `UnreadableImage`, a
-FileNotFoundError as kgtpu's readers raise.  A file cv2 reads and the port
-does not yet raises `UnsupportedImage`, a ValueError naming the ROADMAP item
-that queues it: a variant of the formats above (`QUEUED`), or AVIF content,
+FileNotFoundError as kgtpu's readers raise, from the decoder that meets the
+fault: a damaged or cut file too (each decoder checks what its library
+checks; no other exception class is meant to escape).  A damaged file cv2
+reads reads the same: what each library keeps of it (libjpeg's block
+smoothing and fake EOI, libtiff's codecs keeping the rows they decoded,
+its CCITT recovery).  A file cv2 reads and the port does not yet raises
+`UnsupportedImage`, a ValueError naming the ROADMAP item that queues it: of
+the variants (`QUEUED`) only 16- to 64-bit separate-plane TIFF in
+"unchanged" (cv2's result not defined) and a Group 3 CCITT strip whose data
+ends before its last row (libtiff reads on past the end); or AVIF content,
 recognised by the signature cv2's decoder checks, and JPEG 2000 code-block
 styles (`CONTAINERS`).
 """

@@ -31,21 +31,30 @@ symbol and, where the code and its magnitude bits fit in those 16 bits, to
 the decoded coefficient too (libjpeg's HUFF_LOOKAHEAD table, widened), so
 a coefficient costs one lookup.
 
-Lossless files whose components are sampled differently raise
-`UnsupportedImage` (libjpeg-turbo's lossless upsampling is not checked
-here).  A progressive file whose scans leave any of the first nine AC coefficients
-of a component incomplete (a scan missing, or a last scan with Al > 0)
-raises `UnsupportedImage`: libjpeg then estimates them from the
-neighbouring blocks' DC values (`jdcoefct.c`'s block smoothing), which
-this port does not do yet.
+Lossless files whose components are sampled differently read with the box
+upsampling libjpeg-turbo takes there (its fancy upsampling needs blocks
+wider than one sample).  A progressive file whose scans leave any of the
+first nine AC coefficients of a component incomplete (a scan missing or
+cut, or a last scan with Al > 0) is block-smoothed as `jdcoefct.c` does it
+(`jpeg_pixels.smooth`).
+
+Damaged data reads as libjpeg-turbo 3.1 reads it: a Huffman code in no
+table is warned of and read on (17 bits, symbol 0); a file that ends inside
+a marker segment reads on in the 0xFF 0xD9 its source manager hands out
+(`FAKE_EOI`); tables, frame and scan headers are checked as get_dht /
+get_dqt (a table of 64 entries) / get_sof / get_sos / get_dri and
+jpeg_make_d_derived_tbl check them, scans that name DC or AC table 0 or 1
+of a sequential Huffman frame without one get the standard tables, an SOI
+or a marker libjpeg does not know fails, and so does a marker code below
+0xC0 left after a scan; a sequential scan of every component is output as
+it decodes, so what follows it is not read.
 
 cv2 returns None, so `UnreadableImage`: any precision but 8 bits (cv2
 calls the 8-bit jpeg_read_scanlines, which refuses 12- and 16-bit data),
 hierarchical frames (SOF5-7, SOF13-15), lossless arithmetic (SOF11), a
 height left to a DNL marker, two components, and the colour conversions
 libjpeg-turbo refuses in lossless mode (see `jpeg_pixels.to_pixels`; grey
-from subsampled components too, which "color" and "unchanged" read and
-the port queues).  An
+from subsampled components too).  An
 EXIF APP1 Orientation turns the image in the "color" and "gray" modes, as
 cv2 does.
 """
@@ -58,7 +67,7 @@ import struct
 
 import numpy as np
 
-from kgtpu_torch.data.imread import UnreadableImage, exif_orientation, orient, unsupported
+from kgtpu_torch.data.imread import UnreadableImage, exif_orientation, orient
 
 # zigzag index -> natural (row-major) index; 16 spare entries catch a run
 # past the end of a corrupt block, as libjpeg's jpeg_natural_order does
@@ -66,6 +75,11 @@ ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33
           41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22,
           15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55,
           62, 63] + [63] * 16
+
+
+# the natural positions of the DC and of zigzag coefficients 1-9: block
+# smoothing needs them all nonzero in every component's table
+_SMOOTH_Q = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24]
 
 
 class Component:
@@ -82,10 +96,52 @@ class Component:
         self.samples = None                    # lossless: [blocks_h, blocks_w] samples
         self.pt = 0                            # lossless: the scan's point transform
         self.coef_bits = [-1] * 64             # progressive: Al of each coefficient's last scan
+        self.prev_coef_bits = [-1] * 64        # coef_bits before the component's last scan
 
     def coefficients(self) -> np.ndarray:
         """[grid_h, grid_w, 64] int32, natural order."""
         return np.asarray(self.coef, np.int32).reshape(self.grid_h, self.grid_w, 64)
+
+
+# The tables libjpeg-turbo installs for a scan that names DC or AC table 0
+# or 1 when the file defines none (`jstdhuff.c`, the tables of T.81 K.3).
+STD_TABLES = {
+    (0, 0): bytes.fromhex("00010501010101010100000000000000000102030405060708090a0b"),
+    (0, 1): bytes.fromhex("00030101010101010101010000000000000102030405060708090a0b"),
+    (1, 0): bytes.fromhex(
+        "0002010303020403050504040000017d01020300041105122131410613516107227114328191a10823"
+        "42b1c11552d1f02433627282090a161718191a25262728292a3435363738393a434445464748494a53"
+        "5455565758595a636465666768696a737475767778797a838485868788898a92939495969798999aa2"
+        "a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6"
+        "e7e8e9eaf1f2f3f4f5f6f7f8f9fa"),
+    (1, 1): bytes.fromhex(
+        "00020102040403040705040400010277000102031104052131061241510761711322328108144291a1"
+        "b1c109233352f0156272d10a162434e125f11718191a262728292a35363738393a434445464748494a"
+        "535455565758595a636465666768696a737475767778797a82838485868788898a9293949596979899"
+        "9aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5"
+        "e6e7e8e9eaf2f3f4f5f6f7f8f9fa"),
+}
+# libjpeg's source manager, out of data, hands out 0xFF 0xD9 (a fake EOI)
+# on every refill: a marker segment cut short reads on in these bytes
+FAKE_EOI = b"\xff\xd9" * 32800
+
+
+def table(spec: bytes | None, ac: bool, dc_max: int = 15) -> tuple[list, list]:
+    """The lookups of a scan's table, checked as `jdhuff.c`'s
+    jpeg_make_d_derived_tbl checks it when a scan starts: no table, more
+    than 256 codes, a code length over-subscribed (or an all-ones code), or
+    a DC symbol above `dc_max` (15; 16 in lossless frames) fail."""
+    if spec is None:
+        raise UnreadableImage("JPEG Huffman table missing")
+    code = 0
+    for length in range(1, 17):
+        code += spec[length - 1]
+        if code >= 1 << length:
+            raise UnreadableImage("bogus JPEG Huffman table")
+        code <<= 1
+    if not ac and any(v > dc_max for v in spec[16:]):
+        raise UnreadableImage("bogus JPEG Huffman table")
+    return _tables(spec, ac)
 
 
 @functools.lru_cache(maxsize=32)
@@ -182,6 +238,18 @@ def restart_data(segs: list, intervals: int) -> list:
     interval without data (None) and is kept for the next; RSTn one or two
     behind, or an unknown code, is skipped with its data; any other RSTn is
     taken as expected."""
+    return _restart_walk(segs, intervals)[0]
+
+
+def unknown_marker_after(segs: list, intervals: int) -> bool:
+    """Whether a marker code below 0xC0 follows the scan's last interval:
+    libjpeg's read_markers meets it after the scan and fails (an RSTn
+    there is passed over)."""
+    j = _restart_walk(segs, intervals)[1]
+    return any(m == -1 for m, _ in segs[j:])
+
+
+def _restart_walk(segs: list, intervals: int) -> tuple[list, int]:
     out = [segs[0][1]]
     j, want = 1, 0
     while len(out) < intervals:
@@ -204,7 +272,7 @@ def restart_data(segs: list, intervals: int) -> list:
             j += 1
             break
         want = (want + 1) & 7
-    return out
+    return out, j
 
 
 def _bits(W: list[int], p: int, n: int) -> int:
@@ -216,10 +284,12 @@ def _extend(v: int, n: int) -> int:
 
 
 def _decode(W: list[int], p: int, symbols: list) -> tuple[int, int]:
-    """(symbol, position after it)."""
+    """(symbol, position after it).  Bits that start no code are what
+    libjpeg-turbo's jpeg_huff_decode warns of (JWRN_HUFF_BAD_CODE) and
+    reads on after: 17 bits taken, symbol 0."""
     n, s = symbols[((W[p >> 3] << (p & 7)) >> 8) & 0xFFFF]
     if not n:
-        raise UnreadableImage("corrupt JPEG data: bad Huffman code")
+        return 0, p + 17
     return s, p + n
 
 
@@ -245,6 +315,32 @@ class _Scan:
                     mcus.append(mcu)
         step = restart or len(mcus) or 1
         self.intervals = [mcus[i:i + step] for i in range(0, len(mcus), step)]
+        # the iMCU row of each MCU, and per interval the first MCU after
+        # which the Huffman decoder is out of data (libjpeg's
+        # insufficient_data; None: never)
+        if len(scomps) == 1:
+            c = comps[scomps[0]]
+            self.imcu_row = [(by // c.v) for by in range(c.blocks_h) for _ in range(c.blocks_w)]
+        else:
+            self.imcu_row = [my for my in range(frame["mcu_rows"])
+                             for _ in range(frame["mcu_cols"])]
+        self.first_short = [None] * len(self.intervals)
+
+    def last_good(self, before: int) -> int:
+        """The last iMCU row after which the decoder still had data
+        (`before` if none): block smoothing reads the rows below it with
+        the coefficient precisions from before this scan."""
+        short_after = np.zeros(len(self.imcu_row), bool)
+        at = 0
+        for interval, first in zip(self.intervals, self.first_short):
+            if first is not None:
+                short_after[at + first:at + len(interval)] = True
+            at += len(interval)
+        rows = np.asarray(self.imcu_row)
+        starts = np.flatnonzero(np.append(True, rows[1:] != rows[:-1]))
+        short_before = np.append(False, short_after[:-1])[starts]
+        good = rows[starts][~short_before]
+        return int(good.max()) if good.size else before
 
 
 def _baseline(scan: _Scan, segs: list[bytes], comps, dc_tabs, ac_tabs) -> None:
@@ -295,13 +391,14 @@ def _baseline(scan: _Scan, segs: list[bytes], comps, dc_tabs, ac_tabs) -> None:
 
 def _dc_first(scan, segs, comps, dc_tabs, al):
     short = False
-    for interval, seg in zip(scan.intervals, segs):
+    for i, (interval, seg) in enumerate(zip(scan.intervals, segs)):
         short = short and seg is None
         W, limit = _windows(seg or b""), 8 * len(seg or b"")
         p = 0
         pred = [0] * len(comps)
-        for mcu in interval:
+        for j, mcu in enumerate(interval):
             if short or p > limit:
+                scan.first_short[i] = j - 1 if p > limit else j
                 short = True
                 break
             for ci, base in mcu:
@@ -309,24 +406,29 @@ def _dc_first(scan, segs, comps, dc_tabs, al):
                 pred[ci] += _extend(_bits(W, p, s), s)
                 p += s
                 comps[ci].coef[base] = pred[ci] << al
+        if not short and p > limit:
+            scan.first_short[i] = len(interval) - 1
         short = short or p > limit
 
 
 def _dc_refine(scan, segs, comps, al):
     bit = 1 << al
     short = False
-    for interval, seg in zip(scan.intervals, segs):
+    for i, (interval, seg) in enumerate(zip(scan.intervals, segs)):
         short = short and seg is None
         W, limit = _windows(seg or b""), 8 * len(seg or b"")
         p = 0
-        for mcu in interval:
+        for j, mcu in enumerate(interval):
             if short or p > limit:
+                scan.first_short[i] = j - 1 if p > limit else j
                 short = True
                 break
             for ci, base in mcu:
                 if (W[p >> 3] << (p & 7)) & 0x800000:
                     comps[ci].coef[base] |= bit
                 p += 1
+        if not short and p > limit:
+            scan.first_short[i] = len(interval) - 1
         short = short or p > limit
 
 
@@ -334,13 +436,14 @@ def _ac_first(scan, segs, comp, tabs, ss, se, al):
     asym, acoef = tabs
     coef = comp.coef
     short = False
-    for interval, seg in zip(scan.intervals, segs):
+    for i, (interval, seg) in enumerate(zip(scan.intervals, segs)):
         short = short and seg is None
         W, limit = _windows(seg or b""), 8 * len(seg or b"")
         p = 0
         eobrun = 0
-        for mcu in interval:
+        for j, mcu in enumerate(interval):
             if short or p > limit:
+                scan.first_short[i] = j - 1 if p > limit else j
                 short = True
                 break
             base = mcu[0][1]
@@ -370,6 +473,8 @@ def _ac_first(scan, segs, comp, tabs, ss, se, al):
                     p += r
                     break
                 k += 1
+        if not short and p > limit:
+            scan.first_short[i] = len(interval) - 1
         short = short or p > limit
 
 
@@ -378,13 +483,14 @@ def _ac_refine(scan, segs, comp, tabs, ss, se, al):
     coef = comp.coef
     p1, m1 = 1 << al, -1 << al
     short = False
-    for interval, seg in zip(scan.intervals, segs):
+    for i, (interval, seg) in enumerate(zip(scan.intervals, segs)):
         short = short and seg is None
         W, limit = _windows(seg or b""), 8 * len(seg or b"")
         p = 0
         eobrun = 0
-        for mcu in interval:
+        for j, mcu in enumerate(interval):
             if short or p > limit:
+                scan.first_short[i] = j - 1 if p > limit else j
                 short = True
                 break
             base = mcu[0][1]
@@ -425,6 +531,8 @@ def _ac_refine(scan, segs, comp, tabs, ss, se, al):
                         p += 1
                     k += 1
                 eobrun -= 1
+        if not short and p > limit:
+            scan.first_short[i] = len(interval) - 1
         short = short or p > limit
 
 
@@ -433,50 +541,57 @@ def parse(data: bytes, mode: str | None = None) -> dict:
     "components": [Component], "color": "ycc" | "rgb" | "gray",
     "orientation"}.  `mode`, the read mode, decides a refusal that
     depends on it."""
+    data = data + FAKE_EOI
     pos, n = 2, len(data)
     qt: dict[int, np.ndarray] = {}
-    dc: dict[int, tuple] = {}
-    ac: dict[int, tuple] = {}
+    huff: dict[tuple[int, int], bytes] = {}
     restart = 0
     frame = None
     comps: list[Component] = []
     jfif = adobe = False
     transform, orientation = None, 1
     cond: dict = {"L": {}, "U": {}, "K": {}}
-    while pos < n:
-        if data[pos] != 0xFF:
-            pos += 1                        # libjpeg skips junk before a marker
-            continue
-        while pos < n and data[pos] == 0xFF:
+    while True:
+        # libjpeg's next_marker: junk before 0xFF is skipped, and so is
+        # 0xFF 0x00 (after any run of 0xFF)
+        while data[pos] != 0xFF:
             pos += 1
-        if pos >= n:
-            break
+        while data[pos] == 0xFF:
+            pos += 1
         m = data[pos]
         pos += 1
+        if m == 0x00:
+            continue
         if m == 0xD9:
             break
-        if m in (0xD8, 0x01) or 0xD0 <= m <= 0xD7:
+        if m == 0xD8:
+            raise UnreadableImage("JPEG with a second SOI marker")
+        if m == 0x01 or 0xD0 <= m <= 0xD7:
             continue
-        if pos + 2 > n:
-            break
+        if m in (0xC8, 0xDE, 0xDF) or m < 0xC0 or 0xF0 <= m <= 0xFD:
+            raise UnreadableImage(f"JPEG marker 0x{m:02X} libjpeg does not know")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
-        seg = data[pos + 2:pos + length]
-        pos += length
+        seg = data[pos + 2:pos + max(length, 2)]
+        pos += max(length, 2)
         if m in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
             if frame is not None:
                 raise UnreadableImage("JPEG with two frames")
-            prec, hgt, wid, nf = struct.unpack(">BHHB", seg[:6])
+            prec, hgt, wid, nf = struct.unpack(">BHHB", (seg + bytes(6))[:6])
+            if hgt == 0 or wid == 0 or nf == 0:
+                raise UnreadableImage("empty JPEG image (a height of 0 is left to a DNL "
+                                      "marker, which libjpeg does not read)")
+            if len(seg) != 6 + 3 * nf:
+                raise UnreadableImage("JPEG SOF of a bad length")
+            if max(hgt, wid) > 65500 or hgt * wid > 1 << 30:
+                raise UnreadableImage("JPEG image larger than libjpeg or cv2 reads")
             if prec != 8:
                 raise UnreadableImage(f"{prec}-bit JPEG (cv2 reads 8-bit samples only)")
-            if hgt == 0:
-                raise UnreadableImage("JPEG whose height is given by a DNL marker")
             if nf not in (1, 3, 4):
                 raise UnreadableImage(f"JPEG with {nf} components")
-            if wid == 0:
-                raise UnreadableImage("JPEG of width 0")
             for i in range(nf):
                 cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
                 comps.append(Component(cid, hv >> 4, hv & 15, tq))
+                comps[-1].index = i
             if any(not 1 <= c.h <= 4 or not 1 <= c.v <= 4 for c in comps):
                 raise UnreadableImage("JPEG sampling factor out of range")
             frame = _frame(wid, hgt, comps, progressive=m in (0xC2, 0xCA),
@@ -496,34 +611,53 @@ def parse(data: bytes, mode: str | None = None) -> dict:
                     if val & 15 > val >> 4:
                         raise UnreadableImage(f"JPEG DAC value {val}")
                     cond["L"][t], cond["U"][t] = val & 15, val >> 4
-        elif m == 0xC4:
+        elif m == 0xC4:                     # as get_dht checks it
             at = 0
-            while at < len(seg):
-                tc_th = seg[at]
+            while len(seg) - at > 16:
+                index = seg[at]
                 cnt = sum(seg[at + 1:at + 17])
+                if cnt > 256 or cnt > len(seg) - at - 17:
+                    raise UnreadableImage("bogus JPEG Huffman table definition")
                 spec = bytes(seg[at + 1:at + 17 + cnt])
-                (ac if tc_th >> 4 else dc)[tc_th & 15] = _tables(spec, bool(tc_th >> 4))
                 at += 17 + cnt
-        elif m == 0xDB:
+                kind, index = (1, index - 16) if index & 16 else (0, index)
+                if index >= 4:
+                    raise UnreadableImage(f"bogus JPEG DHT index {index}")
+                huff[kind, index] = spec
+            if at != len(seg):
+                raise UnreadableImage("JPEG DHT of a bad length")
+        elif m == 0xDB:                     # as get_dqt reads it
             at = 0
             while at < len(seg):
                 pq, tq = seg[at] >> 4, seg[at] & 15
-                if pq:
-                    q = np.frombuffer(seg[at + 1:at + 129], ">u2").astype(np.int32)
-                    at += 129
-                else:
-                    q = np.frombuffer(seg[at + 1:at + 65], np.uint8).astype(np.int32)
-                    at += 65
+                at += 1
+                if tq >= 4:
+                    raise UnreadableImage(f"bogus JPEG DQT index {tq}")
+                size = 128 if pq else 64
+                if len(seg) - at < size:         # libjpeg-turbo 3.1 refuses a short table
+                    raise UnreadableImage("JPEG DQT of a bad length")
+                q = np.frombuffer(seg[at:at + size], ">u2" if pq else np.uint8).astype(np.int32)
+                at += size
                 nat = np.zeros(64, np.int32)
                 nat[ZIGZAG[:64]] = q
                 qt[tq] = nat
         elif m == 0xDD:
+            if len(seg) != 2:
+                raise UnreadableImage("JPEG DRI of a bad length")
             (restart,) = struct.unpack(">H", seg[:2])
         elif m == 0xDA:
             if frame is None:
                 raise UnreadableImage("JPEG scan before its frame")
-            pos = _scan(data, pos, seg, frame, comps, qt, dc, ac, restart, cond)
-        elif m == 0xE0 and seg[:5] == b"JFIF\0":
+            if not frame["scans"] and not frame["progressive"] and not frame["lossless"]:
+                for key, spec in STD_TABLES.items():        # jdhuff.c's std_huff_tables
+                    huff.setdefault(key, spec)
+            pos = _scan(data, pos, seg, frame, comps, qt, huff, restart, cond)
+            if not frame["progressive"] and len(frame["scans"][0]["comps"]) == len(comps):
+                # one scan of every component: libjpeg outputs it as it
+                # decodes, and cv2 ignores what follows (jpeg_finish_decompress's
+                # errors come after its result)
+                break
+        elif m == 0xE0 and seg[:5] == b"JFIF\0" and len(seg) >= 14:
             jfif = True
         elif m == 0xE1 and seg[:6] == b"Exif\0\0" and orientation == 1:
             orientation = exif_orientation(seg[6:])
@@ -534,15 +668,21 @@ def parse(data: bytes, mode: str | None = None) -> dict:
     if any(c.quant is None for c in comps) and not frame["lossless"] or any(
             c.samples is None for c in comps) and frame["lossless"]:
         raise UnreadableImage("JPEG component without a scan")
-    if frame["lossless"] and len({(c.h, c.v) for c in comps}) > 1:
-        if mode == "gray":
-            raise UnreadableImage("lossless JPEG with subsampled components in gray mode "
-                                  "(cv2 cannot read it)")
-        raise unsupported("lossless JPEG with subsampled components")
-    if frame["progressive"] and all(c.coef_bits[0] >= 0 for c in comps) and any(
-            any(c.coef_bits[1:10]) for c in comps):
-        raise unsupported("progressive JPEG whose first nine AC coefficients are not all "
-                          "complete (libjpeg smooths its blocks, `jdcoefct.c`)")
+    if frame["lossless"] and len({(c.h, c.v) for c in comps}) > 1 and mode == "gray":
+        raise UnreadableImage("lossless JPEG with subsampled components in gray mode "
+                              "(cv2 cannot read it)")
+    smooth = None
+    if frame["progressive"] and all(
+            c.coef_bits[0] >= 0 and c.quant is not None and all(c.quant[_SMOOTH_Q]) for c in comps
+    ) and any(any(c.coef_bits[1:10]) for c in comps):
+        # jdcoefct.c's smoothing_ok: the Al of each coefficient's last scan
+        # (-1: none yet), latched as the output pass starts, and the same
+        # before the component's last scan, which the iMCU rows below
+        # `last_good` take
+        many = len(frame["scans"]) > 1
+        smooth = {"last_good": frame["last_good"],
+                  "bits": [(c.coef_bits[:10], c.coef_bits[:1] + (
+                      c.prev_coef_bits[1:10] if many else [-1] * 9)) for c in comps]}
     ids = tuple(c.id for c in comps)
     if len(comps) == 1:
         color = "gray"
@@ -558,7 +698,7 @@ def parse(data: bytes, mode: str | None = None) -> dict:
         color = "ycck" if adobe and transform != 0 else "cmyk"
     return {"width": frame["width"], "height": frame["height"], "components": comps,
             "color": color, "orientation": orientation, "lossless": frame["lossless"],
-            "scans": frame["scans"], "arith": frame["arith"]}
+            "scans": frame["scans"], "arith": frame["arith"], "smooth": smooth}
 
 
 def _frame(wid: int, hgt: int, comps: list[Component], progressive: bool,
@@ -574,67 +714,85 @@ def _frame(wid: int, hgt: int, comps: list[Component], progressive: bool,
         c.coef = [] if lossless else [0] * (c.grid_w * c.grid_h * 64)
     return {"width": wid, "height": hgt, "hmax": hmax, "vmax": vmax, "mcu_cols": mcu_cols,
             "mcu_rows": mcu_rows, "progressive": progressive, "lossless": lossless,
-            "arith": False, "scans": []}
+            "arith": False, "scans": [], "last_good": 0}
 
 
-def _scan(data, pos, seg, frame, comps, qt, dc, ac, restart, cond) -> int:
-    ns = seg[0]
-    ids = {c.id: i for i, c in enumerate(comps)}
-    scomps, dc_tabs, ac_tabs, dc_sel, ac_sel = [], {}, {}, {}, {}
+def _scan(data, pos, seg, frame, comps, qt, huff, restart, cond) -> int:
+    ns = seg[0] if seg else 0
+    if len(seg) != 2 * ns + 4 or not 1 <= ns <= 4:
+        raise UnreadableImage("JPEG SOS of a bad length")
+    scomps, dc_sel, ac_sel = [], {}, {}
     for i in range(ns):
         cid, tdta = seg[1 + 2 * i], seg[2 + 2 * i]
-        if cid not in ids:
+        if cid in [comps[ci].id for ci in scomps]:      # get_sos: a fake id
+            cid = max(comps[ci].id for ci in scomps) + 1
+        ci = next((k for k, c in enumerate(comps) if c.id == cid), None)
+        if ci is None:
             raise UnreadableImage(f"JPEG scan names unknown component {cid}")
-        ci = ids[cid]
         scomps.append(ci)
         dc_sel[ci], ac_sel[ci] = tdta >> 4, tdta & 15
-        dc_tabs[ci] = dc.get(tdta >> 4)
-        ac_tabs[ci] = ac.get(tdta & 15)
+    for ci in scomps:
         if comps[ci].quant is None and not frame["lossless"]:
             if comps[ci].tq not in qt:
                 raise UnreadableImage("JPEG quantisation table missing")
             comps[ci].quant = qt[comps[ci].tq]
+    if ns > 1 and sum(comps[ci].h * comps[ci].v for ci in scomps) > 10:
+        raise UnreadableImage("JPEG MCU of more than 10 blocks")
     ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
     ah, al = ahal >> 4, ahal & 15
+    if frame["progressive"] and (ss == 0 and se != 0 or ss and (ss > se or se > 63 or ns != 1)
+                                 or ah and al != ah - 1 or al > 13):
+        raise UnreadableImage("bad progressive JPEG scan")
     frame["scans"].append({"comps": [comps[ci].id for ci in scomps], "ss": ss, "se": se,
                            "ah": ah, "al": al})
     marked, end = _segments(data, pos)
     if frame["lossless"]:
+        from kgtpu_torch.data.jpeg_lossless import intervals
+        n_int = intervals(comps, scomps, frame, restart)
+    else:
+        c = comps[scomps[0]]
+        mcus = c.blocks_w * c.blocks_h if ns == 1 else frame["mcu_cols"] * frame["mcu_rows"]
+        n_int = -(-mcus // restart) if restart else 1
+    if (frame["progressive"] or ns < len(comps)) and unknown_marker_after(marked, n_int):
+        raise UnreadableImage("JPEG marker libjpeg does not know after a scan")
+    progressive = frame["progressive"]
+    dc_tabs, ac_tabs = {}, {}
+    if not frame["arith"]:
+        for ci in scomps:       # the tables the scan's decoder builds, checked
+            if frame["lossless"] or not progressive or ss == 0 and ah == 0:
+                dc_tabs[ci] = table(huff.get((0, dc_sel[ci])), False,
+                                    16 if frame["lossless"] else 15)
+            if not frame["lossless"] and (not progressive or ss > 0):
+                ac_tabs[ci] = table(huff.get((1, ac_sel[ci])), True)
+    if frame["lossless"]:
         from kgtpu_torch.data.jpeg_lossless import decode_lossless_scan
-        if any(dc_tabs[ci] is None for ci in scomps):
-            raise UnreadableImage("JPEG Huffman table missing")
         decode_lossless_scan(marked, comps, scomps, dc_tabs, frame, restart, ss, al)
         return end
     scan = _Scan(comps, scomps, frame, restart)
     # intervals left without data (None; see the note above `_STUFFED`);
     # arithmetic decoding reads zeros there
     segs = restart_data(marked, len(scan.intervals))
-    progressive = frame["progressive"]
-    if progressive and (ss == 0 and se != 0 or ss > se or se > 63 or ss and ns != 1):
-        raise UnreadableImage("bad progressive JPEG scan")
     if progressive:
-        for ci in scomps:
-            comps[ci].coef_bits[ss:se + 1] = [al] * (se + 1 - ss)
+        for ci in scomps:       # the state before this scan, for block smoothing
+            c = comps[ci]
+            c.prev_coef_bits = c.coef_bits[:] if len(frame["scans"]) > 1 else [0] * 64
+            c.coef_bits[ss:se + 1] = [al] * (se + 1 - ss)
     if frame["arith"]:
         from kgtpu_torch.data.jpeg_arith import decode_scan
         decode_scan(scan, [g or b"" for g in segs], comps, scomps, dc_sel, ac_sel, cond,
                     progressive, ss, se, ah, al)
     elif not progressive:
-        if any(dc_tabs[ci] is None or ac_tabs[ci] is None for ci in scomps):
-            raise UnreadableImage("JPEG Huffman table missing")
         _baseline(scan, segs, comps, dc_tabs, ac_tabs)
     elif ss == 0:
         if ah:
             _dc_refine(scan, segs, comps, al)
         else:
-            if any(dc_tabs[ci] is None for ci in scomps):
-                raise UnreadableImage("JPEG Huffman table missing")
             _dc_first(scan, segs, comps, dc_tabs, al)
     else:
         ci = scomps[0]
-        if ac_tabs[ci] is None:
-            raise UnreadableImage("JPEG Huffman table missing")
         (_ac_refine if ah else _ac_first)(scan, segs, comps[ci], ac_tabs[ci], ss, se, al)
+    if progressive:
+        frame["last_good"] = scan.last_good(frame["last_good"])
     return end
 
 

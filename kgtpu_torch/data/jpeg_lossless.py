@@ -47,6 +47,15 @@ def _order(comps, scomps, frame) -> list[tuple[int, int, int]]:
     return out
 
 
+def intervals(comps, scomps, frame, restart) -> int:
+    """The number of restart intervals of a lossless scan."""
+    single = len(scomps) == 1
+    mcus_per_row = comps[scomps[0]].blocks_w if single else frame["mcu_cols"]
+    rows = comps[scomps[0]].blocks_h if single else frame["mcu_rows"]
+    per = max(restart // mcus_per_row, 1) if restart else rows
+    return -(-rows // per)
+
+
 def decode_lossless_scan(marked, comps, scomps, dc_tabs, frame, restart, predictor,
                          pt) -> None:
     """Decode one lossless scan (`marked`: `jpeg._segments`' data) into
@@ -56,6 +65,9 @@ def decode_lossless_scan(marked, comps, scomps, dc_tabs, frame, restart, predict
         raise UnreadableImage(f"lossless JPEG predictor {predictor}, point transform {pt}")
     single = len(scomps) == 1
     mcus_per_row = comps[scomps[0]].blocks_w if single else frame["mcu_cols"]
+    if restart % mcus_per_row:          # jddiffct.c: whole MCU rows only
+        raise UnreadableImage(f"lossless JPEG restart interval {restart} is not a multiple "
+                              f"of its {mcus_per_row} MCUs a row")
     per_mcu = 1 if single else sum(comps[ci].h * comps[ci].v for ci in scomps)
     order = _order(comps, scomps, frame)
     rows_per_interval = (restart // mcus_per_row) if restart else 0

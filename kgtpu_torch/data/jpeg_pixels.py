@@ -111,9 +111,118 @@ def idct_islow(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
     return np.clip(out + 128, 0, 255).astype(np.uint8)
 
 
+# the natural positions of zigzag coefficients 1-9, which block smoothing
+# estimates (jdcoefct.c's Q01_POS ... Q30_POS)
+_SMOOTHED = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+# the 5x5 DC weights of each estimate (rows: two above to two below;
+# columns: two left to two right), with DC interpolation (no AC known) and
+# without, as decompress_smooth_data spells them out
+_W_DC = {
+    1: ((-1, -1, 0, 1, 1), (-3, 13, 0, -13, 3), (-3, 38, 0, -38, 3), (-3, 13, 0, -13, 3),
+        (-1, -1, 0, 1, 1)),
+    8: ((-1, -3, -3, -3, -1), (-1, 13, 38, 13, -1), (0, 0, 0, 0, 0), (1, -13, -38, -13, 1),
+        (1, 3, 3, 3, 1)),
+    16: ((0, 0, 1, 0, 0), (0, 2, 7, 2, 0), (0, -5, -14, -5, 0), (0, 2, 7, 2, 0),
+         (0, 0, 1, 0, 0)),
+    9: ((-1, 0, 0, 0, 1), (0, 9, 0, -9, 0), (0, 0, 0, 0, 0), (0, -9, 0, 9, 0),
+        (1, 0, 0, 0, -1)),
+    2: ((0, 0, 0, 0, 0), (0, 2, -5, 2, 0), (1, 7, -14, 7, 1), (0, 2, -5, 2, 0),
+        (0, 0, 0, 0, 0)),
+    3: ((0, 0, 0, 0, 0), (0, 1, 0, -1, 0), (0, 2, 0, -2, 0), (0, 1, 0, -1, 0),
+        (0, 0, 0, 0, 0)),
+    10: ((0, 0, 0, 0, 0), (0, 1, -3, 1, 0), (0, 0, 0, 0, 0), (0, -1, 3, -1, 0),
+         (0, 0, 0, 0, 0)),
+    17: ((0, 0, 0, 0, 0), (0, 1, 0, -1, 0), (0, -3, 0, 3, 0), (0, 1, 0, -1, 0),
+         (0, 0, 0, 0, 0)),
+    24: ((0, 0, 0, 0, 0), (0, 1, 2, 1, 0), (0, 0, 0, 0, 0), (0, -1, -2, -1, 0),
+         (0, 0, 0, 0, 0)),
+    0: ((-2, -6, -8, -6, -2), (-6, 6, 42, 6, -6), (-8, 42, 152, 42, -8), (-6, 6, 42, 6, -6),
+        (-2, -6, -8, -6, -2)),
+}
+_W_AC = {
+    1: ((0, 0, 0, 0, 0), (0, 0, 0, 0, 0), (-7, 50, 0, -50, 7), (0, 0, 0, 0, 0),
+        (0, 0, 0, 0, 0)),
+    8: ((0, 0, -7, 0, 0), (0, 0, 50, 0, 0), (0, 0, 0, 0, 0), (0, 0, -50, 0, 0),
+        (0, 0, 7, 0, 0)),
+    16: ((0, 0, -1, 0, 0), (0, 0, 13, 0, 0), (0, 0, -24, 0, 0), (0, 0, 13, 0, 0),
+         (0, 0, -1, 0, 0)),
+    9: ((0, -1, 0, 1, 0), (-1, 10, 0, -10, 1), (0, 0, 0, 0, 0), (1, -10, 0, 10, -1),
+        (0, 1, 0, -1, 0)),
+    2: ((0, 0, 0, 0, 0), (0, 0, 0, 0, 0), (-1, 13, -24, 13, -1), (0, 0, 0, 0, 0),
+        (0, 0, 0, 0, 0)),
+}
+
+
+def _smooth_rows(n_rows: int, v: int, imcu_rows: int) -> np.ndarray:
+    """[n_rows, 5]: the block rows decompress_smooth_data takes as two
+    above, this, and two below each block row of a component, with its
+    clamps, which count rows of the last iMCU row with that row's own
+    height (so near the bottom a clamp can pick a padding row, or the
+    row itself, where the true neighbour exists)."""
+    last = imcu_rows - 1
+    rem = n_rows % v or v
+    out = np.empty((n_rows, 5), np.int64)
+    for r in range(n_rows):
+        big, b = divmod(r, v)
+        br = rem if big == last else v
+        ibr, ibrs = big * br + b, br * imcu_rows
+        p = r - 1 if ibr > 0 else r
+        pp = r - 2 if ibr > 1 else p
+        n = r + 1 if ibr < ibrs - 1 else r
+        nn = r + 2 if ibr < ibrs - 2 else n
+        out[r] = (pp, p, r, n, nn)
+    return out
+
+
+def smooth(coef: np.ndarray, bits: list, quant: np.ndarray, v: int, imcu_rows: int,
+           rows: int, cols: int) -> np.ndarray:
+    """libjpeg-turbo 3.1's block smoothing (`jdcoefct.c`,
+    decompress_smooth_data) of one component's [gh, gw, 64] coefficients
+    (natural order; the first `rows` x `cols` blocks are the image's):
+    where a coefficient of zigzag index 1-9 is still zero and not known
+    exactly (`bits[k]`, the Al of its last scan, is not 0), it becomes an
+    estimate from the 5x5 DC values around its block (edges clamped), cut
+    to below 2^Al; with no AC coefficient known at all (bits 1-9 all -1) the
+    DC is re-estimated too, and four more AC coefficients."""
+    c16 = ((coef.astype(np.int64) + 32768) & 0xFFFF) - 32768
+    dc = c16[..., 0]
+    rr = _smooth_rows(rows, v, imcu_rows)
+    cc = np.clip(np.arange(cols)[:, None] + np.arange(-2, 3)[None, :], 0, cols - 1)
+    win = dc[rr[:, None, :, None], cc[None, :, None, :]]          # [rows, cols, 5, 5]
+    change_dc = all(b == -1 for b in bits[1:10])
+    weights = _W_DC if change_dc else _W_AC
+    out = c16.copy()
+    blk = out[:rows, :cols]
+    q00 = int(quant[0])
+    for k, pos in enumerate(_SMOOTHED + (0,), start=1):
+        if pos not in weights:
+            continue
+        num = q00 * np.einsum("rcij,ij->rc", win, np.asarray(weights[pos], np.int64))
+        q = int(quant[pos]) << 8
+        pred = (np.abs(num) + (q >> 1)) // q
+        if pos == 0:
+            blk[..., 0] = ((np.where(num >= 0, pred, -pred) + 32768) & 0xFFFF) - 32768
+            continue
+        al = bits[k]
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        pred = np.where(num >= 0, pred, -pred)
+        pred = ((pred + 32768) & 0xFFFF) - 32768
+        if al != 0:
+            blk[..., pos] = np.where(blk[..., pos] == 0, pred, blk[..., pos])
+    return out
+
+
 def _plane(comp, frame: dict) -> np.ndarray:
     """A component's samples over its own downsampled size."""
-    blocks = idct_islow(comp.coefficients(), comp.quant)       # [gh, gw, 8, 8]
+    coef = comp.coefficients()
+    if frame.get("smooth"):
+        cur, prev = frame["smooth"]["bits"][comp.index]
+        args = comp.quant, comp.v, frame["mcu_rows"], comp.blocks_h, comp.blocks_w
+        coef, below = smooth(coef, cur, *args), smooth(coef, prev, *args)
+        first = (frame["smooth"]["last_good"] + 1) * comp.v
+        coef[first:] = below[first:]
+    blocks = idct_islow(coef, comp.quant)                      # [gh, gw, 8, 8]
     gh, gw = blocks.shape[:2]
     plane = blocks.transpose(0, 2, 1, 3).reshape(gh * 8, gw * 8)
     dw = -(-frame["width"] * comp.h // frame["hmax"])
@@ -132,13 +241,18 @@ def _fancy_h(x: np.ndarray, b0: int, b1: int, shift: int, w3: int = 3) -> np.nda
     return out
 
 
-def upsample(plane: np.ndarray, h: int, v: int, hmax: int, vmax: int) -> np.ndarray:
+def upsample(plane: np.ndarray, h: int, v: int, hmax: int, vmax: int,
+             fancy: bool = True) -> np.ndarray:
     """One component's plane up to the frame's sampling, as libjpeg's
-    upsampler for that ratio does it (uncropped)."""
+    upsampler for that ratio does it (uncropped).  `fancy` False: the box
+    filter, which libjpeg-turbo takes in lossless frames (its blocks are one
+    sample, so `jdsample.c` turns fancy upsampling off)."""
     x = plane.astype(np.int64)
     dw = x.shape[1]
     if (h, v) == (hmax, vmax):
         return x
+    if not fancy:
+        return np.repeat(np.repeat(x, vmax // v, axis=0), hmax // h, axis=1)
     if h * 2 == hmax and v == vmax and dw > 2:                     # h2v1 fancy
         return _fancy_h(x, 1, 2, 2)
     if h * 2 == hmax and v * 2 == vmax and dw > 2:                 # h2v2 fancy
@@ -191,7 +305,8 @@ def to_pixels(img: dict, mode: str) -> np.ndarray:
     "color" for three or four components and "gray" for one, as in cv2)."""
     comps = img["components"]
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-    frame = {"width": img["width"], "height": img["height"], "hmax": hmax, "vmax": vmax}
+    frame = {"width": img["width"], "height": img["height"], "hmax": hmax, "vmax": vmax,
+             "smooth": img.get("smooth"), "mcu_rows": -(-img["height"] // (8 * vmax))}
     w, h = img["width"], img["height"]
     color = img["color"]
     if img["lossless"]:
@@ -205,7 +320,7 @@ def to_pixels(img: dict, mode: str) -> np.ndarray:
             plane = (c.samples << c.pt) & 255
         else:
             plane = _plane(c, frame)
-        planes.append(upsample(plane, c.h, c.v, hmax, vmax)[:h, :w])
+        planes.append(upsample(plane, c.h, c.v, hmax, vmax, fancy=not img["lossless"])[:h, :w])
     if len(planes) == 1:
         y = planes[0].astype(np.uint8)
         return np.repeat(y[..., None], 3, axis=-1) if mode == "color" else y

@@ -50,9 +50,8 @@ def _chunks(data: bytes):
     pos = len(SIGNATURE)
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if len(body) != n or zlib.crc32(kind + body) != crc:
+        body, crc = data[pos + 8:pos + 8 + n], data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
             raise PNGFormatError(f"corrupt PNG chunk {kind!r}")
         yield kind, body
         if kind == b"IEND":
@@ -131,8 +130,14 @@ def decode_png(data: bytes) -> dict:
     header, idat, palette, trns, exif = None, [], None, None, None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
+            if len(body) != 13:
+                raise PNGFormatError("PNG IHDR of a bad length")
             header = struct.unpack(">IIBBBBB", body)
+            if max(header[:2]) > 1_000_000 or header[0] * header[1] > 1 << 30:
+                raise PNGFormatError("PNG larger than libpng's limits or cv2 reads")
         elif kind == b"PLTE":
+            if len(body) % 3:
+                raise PNGFormatError("PNG PLTE of a bad length")
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"tRNS":
             trns = body

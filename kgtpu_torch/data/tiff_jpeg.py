@@ -13,6 +13,8 @@ each strip or tile to libjpeg and its RGBA reader reads the result:
     (JCS_UNKNOWN): the stored components come out as they are (sampling
     factors must be 1x1), and the RGBA reader converts them as for any
     other codec (grey, RGB, CMYK, ...);
+  * in separate planes each strip or tile of each plane is a stream of one
+    component (sampling 1x1), read as stored and put in its plane;
   * a stream larger than its strip or tile fails, except a last strip whose
     stream is taller than the rows left, which is cut; a smaller one is
     read as far as it goes, the rest zero; the sample precision must be 8.
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from kgtpu_torch.data.imread import UnreadableImage, unsupported
+from kgtpu_torch.data.imread import UnreadableImage
 
 
 def _join(tables: bytes | None, stream: bytes) -> bytes:
@@ -42,18 +44,24 @@ def read_jpeg_tiff(d, data: bytes) -> np.ndarray:
     from kgtpu_torch.data.jpeg_pixels import _plane, _ycc_to_rgb, upsample
     if d.bits != 8:
         raise UnreadableImage(f"{d.bits}-bit JPEG TIFF")
-    if d.planar != 1:
-        raise unsupported("JPEG TIFF in separate planes")
-    ycc = d.photo == 6
+    separate = d.planar == 2 and d.spp > 1
+    ycc = d.photo == 6 and not separate
+    if d.photo == 6 and separate and tuple(d.get(530)) != (1, 1):
+        raise UnreadableImage("TIFF YCbCr in separate planes with subsampling (cv2 cannot "
+                              "read it)")
     hs, vs = d.get(530)[:2] if ycc else (1, 1)
     tables = d.tags.get(347)
     px = np.zeros((d.h, d.w, d.spp), np.uint8)
-    for k, (y, x) in enumerate(d.grid):
+    per_block = 1 if separate else d.spp
+    for k in range(len(d.grid) * (d.spp if separate else 1)):
+        p, (y, x) = divmod(k, len(d.grid))[0], d.grid[k % len(d.grid)]
         rows = d.th if d.tiled else min(d.th, d.h - y)
-        off, cnt = d.offsets[k], d.counts[k]
-        img = parse(_join(tables, data[off:off + cnt]))
+        stored = d.raw(data, k)
+        if stored is None:
+            raise UnreadableImage(f"TIFF strip / tile {k} runs past the end of the file")
+        img = parse(_join(tables, stored))
         comps = img["components"]
-        if img["lossless"] or len(comps) != d.spp:
+        if img["lossless"] or len(comps) != per_block:
             raise UnreadableImage("improper JPEG component count in TIFF")
         if (comps[0].h, comps[0].v) != (hs, vs) or any((c.h, c.v) != (1, 1) for c in comps[1:]):
             raise UnreadableImage("improper JPEG sampling factors in TIFF")
@@ -66,7 +74,7 @@ def read_jpeg_tiff(d, data: bytes) -> np.ndarray:
         planes = [upsample(_plane(c, frame), c.h, c.v, hs, vs)[:img["height"], :jw]
                   for c in comps]
         block = _ycc_to_rgb(*planes) if ycc else np.stack(planes, -1).astype(np.uint8)
-        px[y:y + jh, x:x + jw] = block[:jh][:d.h - y, :d.w - x]
+        px[y:y + jh, x:x + jw, p:p + block.shape[-1]] = block[:jh][:d.h - y, :d.w - x]
     if ycc:
         d.photo = 2                          # read on as RGB (JPEGCOLORMODE_RGB)
     return px

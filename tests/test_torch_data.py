@@ -132,8 +132,9 @@ def test_png_other_formats_raise(tmp_path):
     """The files this reader used to refuse read as cv2 reads them: a JPEG
     (through `imread.read_image`), an Adam7-interlaced and a 4-bit PNG
     (through `read_png` too), and since the variants were ported an
-    arithmetic-coded JPEG and an RLE BMP.  A variant still queued (a
-    4x4-subsampled YCbCr TIFF) raises naming its ROADMAP item; a corrupt
+    arithmetic-coded JPEG, an RLE BMP and a 4x4-subsampled YCbCr TIFF.  The
+    variant still queued (16-bit separate planes in "unchanged") raises
+    naming its ROADMAP item; a corrupt
     chunk raises."""
     from test_torch_formats import make_bmp
     from test_torch_formats import make_png as make_any_png
@@ -169,14 +170,19 @@ def test_png_other_formats_raise(tmp_path):
             want = _cv2_read(path, mode)
             assert want is not None
             np.testing.assert_array_equal(read_image(path, mode), want)
-    from tools.variant_encoders import tiff_ycbcr
+    from tools.variant_encoders import tiff_image, tiff_ycbcr
     ycc = str(tmp_path / "y.tif")
     with open(ycc, "wb") as f:
         f.write(tiff_ycbcr(np.arange(64, dtype=np.uint8).reshape(8, 8), np.full((2, 2), 90),
                            np.full((2, 2), 200), 4, 4, rows_per_strip=8))
-    assert cv2.imread(ycc) is not None
+    for mode in png.MODES:
+        np.testing.assert_array_equal(read_image(ycc, mode), _cv2_read(ycc, mode))
+    planes = str(tmp_path / "p.tif")
+    with open(planes, "wb") as f:
+        f.write(tiff_image(np.full((6, 8, 3), 7, np.uint16), 2, bits=16, planar=2))
+    assert cv2.imread(planes, cv2.IMREAD_UNCHANGED) is not None
     with pytest.raises(UnsupportedImage, match=QUEUED):
-        read_image(ycc, "color")
+        read_image(planes, "unchanged")
     bad = str(tmp_path / "crc.png")
     data = bytearray(make_png(img, 2, 8, [0]))
     data[40] ^= 0xFF

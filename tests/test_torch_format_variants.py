@@ -16,6 +16,7 @@ Tolerance: none.  Every comparison is exact (dtype, shape and every value).
 """
 
 import io
+import json
 import os
 
 import cv2
@@ -332,7 +333,139 @@ def _tiff_ccitt(rng):
                                            b"\x06\x01\x03\x00\x01\x00\x00\x00\x00")
 
 
+def _jpeg_smoothing(rng):
+    """Progressive Huffman and arithmetic JPEGs with scans dropped so that
+    coefficients 1-9 stay unrefined (libjpeg smooths their blocks), and cut
+    inside their scans."""
+    for h, w, sub in ((37, 53, "420"), (40, 16, "444"), (9, 70, "422")):
+        a = smooth(h, w, seed=h)
+        src = _jpeg(a, quality=85, progressive=1, sampling_factor=getattr(
+            cv2, "IMWRITE_JPEG_SAMPLING_FACTOR_" + sub))
+        n = sum(1 for m, _ in ve.jpeg_segments(src) if m == 0xDA)
+        for keep in ({0}, {0, 1}, {0, 1, 2, 3}, set(range(n - 1)), {0, 2, 4, 6}):
+            x = ve.jpeg_keep_scans(src, keep)
+            yield x
+            yield ve.jpeg_arith(x, progressive=True)
+        yield src[:len(src) // 3]
+        yield _jpeg(a[..., 0], quality=60, progressive=1)[:250]
+
+
+def _jpeg_lossless_sub(rng):
+    """Lossless JPEG, first component subsampled hv against the others
+    (libjpeg-turbo's box upsampling in lossless frames)."""
+    import struct
+    for (h, w) in ((24, 32), (17, 23), (5, 3)):
+        a = smooth(h, w)
+        for hs, vs in ((2, 2), (2, 1), (1, 2), (4, 1), (4, 2)):
+            ch, cw = -(-h // vs), -(-w // hs)
+            y = ve.jpeg_lossless([a[..., 0]], 1, interleaved=False)
+            c = ve.jpeg_lossless([np.ascontiguousarray(a[::vs, ::hs, k][:ch, :cw]) for k in (1, 2)],
+                                 1, ids=[2, 3], interleaved=False)
+            sof = b"\xff\xc3" + struct.pack(">HBHHB", 17, 8, h, w, 3) + bytes(
+                [1, hs * 16 + vs, 0, 2, 0x11, 0, 3, 0x11, 0])
+            dht = y[y.index(b"\xff\xc4"):y.index(b"\xff\xda")]
+            yield (b"\xff\xd8" + sof + dht + y[y.index(b"\xff\xda"):-2] +
+                   c[c.index(b"\xff\xda"):-2] + b"\xff\xd9")
+
+
+def _tiff_ycbcr44(rng):
+    """4x4 YCbCr in strips (one block row, several, the last short) and
+    tiles cut by the edges, with odd numbers of blocks across."""
+    for h, w in ((24, 28), (13, 9), (22, 30), (37, 53), (8, 4)):
+        y, cb, cr = _ycbcr(rng, h, w, 4, 4)
+        for lay in ({}, {"rows_per_strip": 4}, {"rows_per_strip": 8}, {"tile": (16, 16)}):
+            yield ve.tiff_ycbcr(y, cb, cr, 4, 4, **lay)
+
+
+def _tiff_packed_depths(rng):
+    """10-, 12- and 14-bit grey (one or three samples, MinIsWhite too) and
+    RGB(A) (cv2 reads them in "unchanged" only, widened to 16 bits)."""
+    for bits in (10, 12, 14):
+        for spp, photo in ((1, 1), (1, 0), (3, 2), (4, 2), (3, 1), (2, 1)):
+            yield tiff_packed(_rand((7, 9, spp), bits, seed=bits + spp), bits, photo,
+                              tags={338: (ve.SHORT, [2])} if spp in (2, 4) else None)
+
+
+def _tiff_samples_palettes(rng):
+    """Grey of two to four samples, palettes with an extra sample or
+    without a ColorMap (TIFFReadDirectory's fallback), at 8 and 16 bits."""
+    cmap = {320: (ve.SHORT, _rand((3 * 256,), 16, seed=3).tolist())}
+    for bits in (8, 16):
+        for spp in (2, 3, 4):
+            for lay in ({}, {"tile": (16, 16)}) + (({"planar": 2},) if bits == 8 else ()):
+                yield ve.tiff_image(_rand((19, 21, spp), bits, seed=spp), 1, bits=bits, **lay)
+        for spp in (1, 2, 3):
+            yield ve.tiff_image(_rand((19, 21, spp), bits, seed=spp), 3, bits=bits)
+            if bits == 8:
+                yield ve.tiff_image(_rand((19, 21, spp), 8, seed=spp), 3, tags=cmap,
+                                    tile=(16, 16))
+
+
+def _tiff_jpeg_planes(rng):
+    """JPEG TIFF in separate planes: one stream a plane and strip."""
+    for spp, photo in ((3, 2), (4, 2), (2, 1)):
+        px = (_rand((37, 53, spp), 8, seed=spp) // 32 * 32).astype(np.uint8)
+        for rps in (37, 8):
+            streams = [_jpeg(np.ascontiguousarray(px[y:y + rps, :, k]), quality=90)
+                       for k in range(spp) for y in range(0, 37, rps)]
+            t = {256: (ve.LONG, [53]), 257: (ve.LONG, [37]), 258: (ve.SHORT, [8] * spp),
+                 259: (ve.SHORT, [7]), 262: (ve.SHORT, [photo]), 277: (ve.SHORT, [spp]),
+                 284: (ve.SHORT, [2]), 278: (ve.LONG, [rps])}
+            if spp in (2, 4):
+                t[338] = (ve.SHORT, [2])
+            yield ve.tiff_file(streams, t)
+
+
+def _tiff_rlew(rng):
+    """CCITT RLEW and RLE (MinIsWhite, both fill orders, one strip or
+    several)."""
+    for h, w in ((37, 53), (9, 1800), (4, 13)):
+        a = smooth(h, w, seed=w)[..., 0] > 128
+        a[h // 2:] = rng.random((h - h // 2, w)) < 0.1
+        for fill in (1, 2):
+            for rps in (None, 3):
+                for words in (True, False):
+                    yield ve.tiff_ccitt_rlew(a, fill, rps, words)
+
+
+def _tiff_thunderscan(rng):
+    """ThunderScan 4-bit palettes: raw pixels, or runs and 2- and 3-bit
+    deltas mixed, in one strip or several, and with a byte changed."""
+    for h, w in ((6, 10), (17, 23), (40, 64)):
+        v = np.cumsum(rng.integers(-1, 2, (h, w)), 1).clip(0, 15).astype(np.uint8)
+        v[:, :w // 3] = v[:, :1]
+        cm = list(rng.integers(0, 65536, 48))
+        for mix, rps in ((None, None), (rng, None), (rng, 3)):
+            data = ve.tiff_thunderscan(v, 3, rng=mix, colormap=cm, rows_per_strip=rps)
+            yield data
+        b = bytearray(data)
+        b[20] ^= 0x55
+        yield bytes(b)
+
+
+def _tiff_sgilog(rng):
+    """SGILog: LogLuv 24-bit (34677) and 32-bit (34676) words, LogL 16-bit,
+    in one strip or several."""
+    for h, w in ((6, 10), (17, 23), (5, 3)):
+        for rps in (None, 4):
+            lc = (rng.integers(0, 1024, (h, w)) << 14 | rng.integers(0, 16400, (h, w)))
+            yield ve.tiff_sgilog(lc.astype(np.uint32), False, 34677, rps, bits=8)
+            luv = rng.integers(0, 65536, (h, w)) << 16 | rng.integers(0, 65536, (h, w))
+            yield ve.tiff_sgilog(luv.astype(np.uint32), False, 34676, rps, rng=rng)
+            yield ve.tiff_sgilog(rng.integers(0, 65536, (h, w)).astype(np.uint32), True, 34676,
+                                 rps)
+
+
 VARIANTS = {
+    "jpeg_smoothing": _jpeg_smoothing,
+    "jpeg_lossless_subsampled": _jpeg_lossless_sub,
+    "tiff_ycbcr_4x4": _tiff_ycbcr44,
+    "tiff_packed_depths": _tiff_packed_depths,
+    "tiff_samples_palettes": _tiff_samples_palettes,
+    "tiff_jpeg_planes": _tiff_jpeg_planes,
+    "tiff_ccitt_rlew": _tiff_rlew,
+    "tiff_thunderscan": _tiff_thunderscan,
+    "tiff_sgilog": _tiff_sgilog,
     "tiff_layouts": _tiff_layouts,
     "tiff_sample_formats": _tiff_sample_formats,
     "tiff_old_lzw": _tiff_old_lzw,
@@ -365,7 +498,11 @@ def test_variant_reads_like_cv2(tmp_path, variant, mode):
             read += check(path, mode)
         except UnsupportedImage:
             assert variant == "tiff_layouts" and mode == "unchanged", (k, variant)
-    assert read > 0
+    # cv2 reads 10- to 14-bit samples in "unchanged" only, and lossless JPEG
+    # with subsampled components not in "gray"
+    assert read > 0 or (variant, mode) in {("tiff_packed_depths", "color"),
+                                           ("tiff_packed_depths", "gray"),
+                                           ("jpeg_lossless_subsampled", "gray")}
 
 
 # --- refusals ------------------------------------------------------------------
@@ -460,6 +597,15 @@ def _unreadable():
     out["tiff_float16"] = ve.tiff_image(a.astype(np.float16), 2, bits=16, sample_format=3)
     out["tiff_thunderscan_4bit"] = ve.tiff_image(a[..., 0] >> 4, 1, bits=4,
                                                  tags={259: (ve.SHORT, [32809])})
+    out["tiff_thunderscan_8bit_palette"] = ve.tiff_image(
+        a[..., 0], 3, tags={259: (ve.SHORT, [32809]), 320: (ve.SHORT, [0] * 768)})
+    out["tiff_next_2bit_grey"] = ve.tiff_next(a[..., 0] >> 6)
+    out["tiff_next_2bit_palette"] = ve.tiff_next(a[..., 0] >> 6, 3, colormap=[0] * 12)
+    out["tiff_sgilog24_logl"] = ve.tiff_image(a[..., 0], 32844, tags={259: (ve.SHORT, [34677])})
+    out["tiff_palette_4bit_without_colormap"] = ve.tiff_image(a[..., 0] >> 4, 3, bits=4)
+    out["tiff_no_photometric"] = ve.tiff_file(
+        [a.tobytes()], {256: (ve.LONG, [21]), 257: (ve.LONG, [17]), 258: (ve.SHORT, [8] * 3),
+                        277: (ve.SHORT, [3]), 278: (ve.LONG, [17])})
     out.update(_tiff_cv2_refuses())
     return out
 
@@ -664,16 +810,12 @@ def _ccitt_undecodable():
     }
 
 
-@pytest.mark.parametrize("name", sorted(_queued()))
+@pytest.mark.parametrize("name", ["tiff_planar16_unchanged"])
 def test_queued_variants_raise_unsupported(tmp_path, name):
-    """Variants cv2 reads and the port still queues (ROADMAP §1's image-format
-    variants): 4x4-subsampled YCbCr TIFF, 16-bit separate planes in
-    "unchanged" (cv2's result is not defined there), a progressive JPEG
-    whose AC coefficients never arrive (libjpeg smooths its blocks), SGILog,
-    10- to 14-bit TIFF in "unchanged", a 16-bit palette without a ColorMap,
-    grey of three samples, unknown codecs, CCITT RLEW and CCITT data that
-    does not decode (libtiff recovers), JPEG TIFF in separate planes and
-    lossless JPEG with subsampled components."""
+    """The variant cv2 reads and the port still queues (ROADMAP §1's
+    image-format variants, "not portable"): 16-bit separate planes in
+    "unchanged", where cv2 reads the first plane's blocks as if contiguous
+    and leaves the rest of its buffer as it was."""
     data, modes = _queued()[name]
     path = str(tmp_path / ("f.tif" if name.startswith("tiff") else "f.jpg"))
     with open(path, "wb") as f:
@@ -685,11 +827,30 @@ def test_queued_variants_raise_unsupported(tmp_path, name):
             read_image(path, mode)
 
 
+@pytest.mark.parametrize("name", sorted(set(_queued()) - {"tiff_planar16_unchanged"}))
+def test_formerly_queued_variants_read_like_cv2(tmp_path, name):
+    """The variants queued until this slice now read exactly as cv2 reads
+    them in each mode it reads (UnreadableImage in the others): 4x4 YCbCr
+    (libtiff's truncated scanline size and 10-byte tile skew), a progressive
+    arithmetic JPEG of its DC scans only (block smoothing), SGILog, 10- to
+    14-bit samples in "unchanged", a 16-bit palette without a ColorMap (read
+    as grey), grey of three samples, a codec libtiff does not know (zeros),
+    CCITT RLEW and damaged CCITT data (libtiff's recovery), JPEG TIFF in
+    separate planes and lossless JPEG with subsampled components."""
+    data, modes = _queued()[name]
+    path = str(tmp_path / ("f.tif" if name.startswith("tiff") else "f.jpg"))
+    with open(path, "wb") as f:
+        f.write(data)
+    read = [mode for mode in MODES if check(path, mode)]
+    assert set(modes) <= set(read), (read, modes)
+
+
 # --- corrupt and truncated streams -------------------------------------------
 
 def _damaged(data: bytes, rng, keep_tail: bytes = b"\xff\xd9"):
     """Cuts at several points (the end marker kept), and single bytes
-    flipped in the entropy-coded data."""
+    flipped in the entropy-coded data; and the header segments (tables,
+    frame, scan headers) cut and flipped too."""
     start = data.rindex(b"\xff\xda")
     for frac in (0.2, 0.5, 0.9):
         cut = start + int((len(data) - start) * frac)
@@ -699,6 +860,12 @@ def _damaged(data: bytes, rng, keep_tail: bytes = b"\xff\xd9"):
         b = bytearray(data)
         at = int(rng.integers(start + 20, len(data) - 2))
         b[at] ^= int(rng.integers(1, 256))
+        yield bytes(b)
+    head = data.index(b"\xff\xda") + 12
+    for _ in range(3):
+        yield data[:int(rng.integers(4, head))]
+        b = bytearray(data)
+        b[int(rng.integers(2, head))] ^= int(rng.integers(1, 256))
         yield bytes(b)
 
 
@@ -858,3 +1025,32 @@ def test_folder_and_neural_cells_read_variants_like_kgtpu(tmp_path):
             assert ours.paths == theirs.paths
             if len(theirs):
                 assert_same_samples(ours, theirs)
+
+
+@pytest.mark.parametrize("key", ["variants2", "variants2_extra"])
+def test_committed_variants2_fixtures_decode_as_cv2_recorded(key):
+    """The files of assets_torch/formats/variants2 (served by chip_smoke.py
+    [15]) and variants2_extra (decoded only) in every mode equal cv2's
+    decode recorded in kgtpu_reference_formats.npz (sha256, shape, dtype;
+    UnreadableImage where it recorded None), and cv2 here still decodes
+    them so."""
+    from tools.make_torch_format_assets import VARIANTS2, VARIANTS2_EXTRA, sha
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    folder = os.path.join(root, "assets_torch", "formats", key)
+    with np.load(os.path.join(root, "assets_torch", "kgtpu_reference_formats.npz")) as ref:
+        decodes = json.loads(str(ref[f"{key}_decode_json"]))
+        kinds = json.loads(str(ref[f"{key}_kinds_json"]))
+    table = VARIANTS2 if key == "variants2" else VARIANTS2_EXTRA
+    assert sorted(kinds.values()) == sorted(k for k, _ in table)
+    assert len(decodes) == 3 * len(kinds)
+    for d in decodes:
+        path = os.path.join(folder, d["path"])
+        if d["sha256"] is None:
+            assert cv2_read(path, d["mode"]) is None
+            with pytest.raises(UnreadableImage):
+                read_image(path, d["mode"])
+            continue
+        got = read_image(path, d["mode"])
+        assert (sha(got), list(got.shape), str(got.dtype)) == (d["sha256"], d["shape"],
+                                                               d["dtype"]), d
+        np.testing.assert_array_equal(got, cv2_read(path, d["mode"]))

@@ -487,9 +487,9 @@ def test_unreadable_and_queued_variants_raise(tmp_path):
     RLE8 in a BMP and raw bytes flagged JPEG in a TIFF.  What cv2 reads
     equals its decode: the SOF9 (arithmetic) patch of a baseline stream,
     which libjpeg decodes as arithmetic data, a CMYK JPEG, and a 24-bit
-    BMP relabelled 16-bit.  A variant cv2 reads and the port still queues
-    (a 4x4-subsampled YCbCr TIFF) raises UnsupportedImage naming the
-    ROADMAP item."""
+    BMP relabelled 16-bit, and a 4x4-subsampled YCbCr TIFF.  The variant cv2
+    reads and the port still queues (16-bit separate planes in "unchanged")
+    raises UnsupportedImage naming the ROADMAP item."""
     text = write(tmp_path / "notes.png", b"not an image\n")
     assert cv2.imread(text) is None
     with pytest.raises(FileNotFoundError):
@@ -521,13 +521,17 @@ def test_unreadable_and_queued_variants_raise(tmp_path):
         for mode in MODES:
             assert cv2.imread(path, _CV[mode]) is not None
         assert_reads_like_cv2(path)
-    from tools.variant_encoders import tiff_ycbcr
+    from tools.variant_encoders import tiff_image, tiff_ycbcr
     y = np.arange(64, dtype=np.uint8).reshape(8, 8)
     ycc = write(tmp_path / "y.tif", tiff_ycbcr(y, np.full((2, 2), 90), np.full((2, 2), 200),
                                                4, 4, rows_per_strip=8))
     assert cv2.imread(ycc) is not None
+    assert_reads_like_cv2(ycc)
+    planes = write(tmp_path / "p.tif", tiff_image(np.full((6, 8, 3), 7, np.uint16), 2, bits=16,
+                                                  planar=2))
+    assert cv2.imread(planes, cv2.IMREAD_UNCHANGED) is not None
     with pytest.raises(UnsupportedImage, match=QUEUED):
-        read_image(ycc)
+        read_image(planes, "unchanged")
 
 
 # --- fill_poly and the nearest resize --------------------------------------

@@ -336,6 +336,185 @@ def write_variant(kind: str, rgb) -> bytes:
     raise ValueError(kind)
 
 
+# formats/variants2: the damaged files and the variants ported after the
+# first variants folder, one of each a 512x512 image, in id order
+VARIANTS2 = [
+    ("jpeg_progressive_cut", ".jpg"), ("jpeg_arith_dc_only", ".jpg"),
+    ("jpeg_bad_huffman_code", ".jpg"), ("tiff_lzw_flipped_byte", ".tif"),
+    ("tiff_group3_damaged", ".tif"), ("tiff_group4_damaged", ".tif"), ("tiff_rlew", ".tif"),
+    ("jpeg_lossless_subsampled", ".jpg"), ("tiff_grey_3_samples", ".tif"),
+    ("tiff_palette_extra_sample", ".tif"), ("tiff_palette_without_colormap", ".tif"),
+    ("tiff_unknown_codec", ".tif"), ("tiff_jpeg_planes", ".tif"), ("tiff_ycbcr_4x4", ".tif"),
+    ("tiff_sgilog_logl", ".tif"), ("tiff_thunderscan", ".tif"),
+]
+# formats/variants2_extra: files only decoded (cv2 reads them in "unchanged"
+# only, or not at all), 256x256 crops
+VARIANTS2_EXTRA = [
+    ("tiff_grey_10bit", ".tif"), ("tiff_grey_12bit", ".tif"), ("tiff_grey_14bit", ".tif"),
+    ("tiff_rgb_12bit", ".tif"), ("png_cut_mid_file", ".png"), ("tiff_sgilog24_luv", ".tif"),
+]
+
+
+def _damaged_read(data: bytes, ext: str, tries) -> bytes:
+    """The first damaged version of `data` (`tries` yields them) that cv2
+    reads in "color" and the port reads too (not a queued case)."""
+    import cv2
+    import numpy as np
+
+    from kgtpu_torch.data.imread import UnsupportedImage, read_image
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "damaged" + ext)
+        for d in tries:
+            with open(path, "wb") as f:
+                f.write(d)
+            if cv2.imread(path, cv2.IMREAD_COLOR) is None:
+                continue
+            try:
+                read_image(path, "color")
+            except UnsupportedImage:
+                continue
+            return d
+    raise ValueError("no damaged version reads")
+
+
+def write_variant2(kind: str, rgb) -> bytes:
+    """One 8-bit RGB image ([H, W, 3]) stored as the variants2 kind."""
+    import io
+
+    import cv2
+    import numpy as np
+    from PIL import Image, TiffImagePlugin
+
+    from tools import variant_encoders as ve
+    h, w, _ = rgb.shape
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    grey = np.asarray(Image.fromarray(rgb).convert("L"))
+    rng = np.random.default_rng(sum(map(ord, kind)))
+
+    def flips(data: bytes, start: int, end: int):
+        for _ in range(200):
+            b = bytearray(data)
+            b[int(rng.integers(start, end))] ^= int(rng.integers(1, 256))
+            yield bytes(b)
+    if kind == "jpeg_progressive_cut":
+        src = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                         cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+        starts = [i for i in range(len(src) - 1) if src[i:i + 2] == b"\xff\xda"]
+        return src[:starts[len(starts) * 3 // 10] + 400]
+    if kind == "jpeg_arith_dc_only":
+        src = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 85,
+                                         cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+        return ve.jpeg_arith(ve.jpeg_keep_scans(src, {0}), progressive=True)
+    if kind == "jpeg_bad_huffman_code":
+        src = cv2.imencode(".jpg", bgr, [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes()
+        at = src.index(b"\xff\xda") + 14 + (len(src) - src.index(b"\xff\xda")) // 3
+        while src[at - 1] == 0xFF:
+            at += 1
+        return src[:at] + b"\xff\x00\xff\x00" + src[at:]
+    if kind == "tiff_lzw_flipped_byte":
+        src = cv2.imencode(".tif", bgr)[1].tobytes()
+        from kgtpu_torch.data.tiff import _Dir
+        d = _Dir(src)
+        return _damaged_read(src, ".tif", flips(src, d.offsets[0] + d.counts[0] // 2,
+                                                d.offsets[0] + d.counts[0]))
+
+    def pil(img, fmt, **kw):
+        buf = io.BytesIO()
+        img.save(buf, fmt, **kw)
+        return buf.getvalue()
+    if kind in ("tiff_group3_damaged", "tiff_group4_damaged"):
+        ti = TiffImagePlugin.ImageFileDirectory_v2()
+        g3 = kind == "tiff_group3_damaged"
+        if g3:
+            ti[292] = 5
+        src = pil(Image.fromarray(grey > 96), "TIFF", tiffinfo=ti,
+                  compression="group3" if g3 else "group4")
+        from kgtpu_torch.data.tiff import _Dir
+        d = _Dir(src)
+        return _damaged_read(src, ".tif", flips(src, d.offsets[0] + d.counts[0] // 3,
+                                                d.offsets[0] + d.counts[0] * 2 // 3))
+    if kind == "tiff_rlew":
+        return ve.tiff_ccitt_rlew(grey > 96, 1, rows_per_strip=64)
+    if kind == "jpeg_lossless_subsampled":
+        import struct
+        y = ve.jpeg_lossless([grey], 1, interleaved=False)
+        c = ve.jpeg_lossless([np.ascontiguousarray(rgb[::2, ::2, k]) for k in (1, 2)], 1,
+                             ids=[2, 3], interleaved=False)
+        sof = b"\xff\xc3" + struct.pack(">HBHHB", 17, 8, h, w, 3) + bytes(
+            [1, 0x22, 0, 2, 0x11, 0, 3, 0x11, 0])
+        dht = y[y.index(b"\xff\xc4"):y.index(b"\xff\xda")]
+        return (b"\xff\xd8" + sof + dht + y[y.index(b"\xff\xda"):-2] +
+                c[c.index(b"\xff\xda"):-2] + b"\xff\xd9")
+    if kind == "tiff_grey_3_samples":
+        return ve.tiff_image(rgb.astype(np.uint16) * 257, 1, bits=16, compression=8,
+                             rows_per_strip=64)
+    if kind == "tiff_palette_extra_sample":
+        p = Image.fromarray(rgb).quantize(256, dither=Image.Dither.NONE)
+        pal = np.asarray(p.getpalette()[:768], np.uint16).reshape(-1, 3)
+        pal = np.concatenate([pal, np.zeros((256 - len(pal), 3), np.uint16)]) * 257
+        idx = np.stack([np.asarray(p), grey], -1)
+        return ve.tiff_image(idx, 3, compression=8, rows_per_strip=64, extra=[0],
+                             tags={320: (ve.SHORT, pal.T.reshape(-1).tolist())})
+    if kind == "tiff_palette_without_colormap":
+        return ve.tiff_image(grey.astype(np.uint16) * 257, 3, bits=16, compression=8,
+                             rows_per_strip=64)
+    if kind == "tiff_unknown_codec":
+        t = {256: (ve.LONG, [w]), 257: (ve.LONG, [h]), 258: (ve.SHORT, [8] * 3),
+             259: (ve.SHORT, [12345]), 262: (ve.SHORT, [2]), 277: (ve.SHORT, [3]),
+             278: (ve.LONG, [h])}
+        return ve.tiff_file([bytes(64)], t)
+    if kind == "tiff_jpeg_planes":
+        streams = [cv2.imencode(".jpg", np.ascontiguousarray(rgb[y:y + 128, :, k]),
+                                [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes()
+                   for k in range(3) for y in range(0, h, 128)]
+        t = {256: (ve.LONG, [w]), 257: (ve.LONG, [h]), 258: (ve.SHORT, [8] * 3),
+             259: (ve.SHORT, [7]), 262: (ve.SHORT, [2]), 277: (ve.SHORT, [3]),
+             284: (ve.SHORT, [2]), 278: (ve.LONG, [128])}
+        return ve.tiff_file(streams, t)
+    if kind == "tiff_ycbcr_4x4":
+        f = rgb.astype(np.float64)
+        y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+        cb = 128 + (f[..., 2] - y) / 1.772
+        cr = 128 + (f[..., 0] - y) / 1.402
+        quarter = lambda v: v.reshape(h // 4, 4, w // 4, 4).mean((1, 3))  # noqa: E731
+        q = lambda v: np.clip(np.rint(v), 0, 255).astype(np.uint8)  # noqa: E731
+        return ve.tiff_ycbcr(q(y), q(quarter(cb)), q(quarter(cr)), 4, 4, rows_per_strip=4,
+                             compression=5)
+    if kind == "tiff_sgilog_logl":
+        yv = np.maximum(grey.astype(np.float64) / 255, 1e-4)
+        words = np.clip(np.rint(256 * (np.log2(yv) + 64)), 1, 0x7FFF).astype(np.uint32)
+        return ve.tiff_sgilog(words, True, 34676, rows_per_strip=64)
+    if kind == "tiff_thunderscan":
+        v = (grey >> 4).astype(np.uint8)
+        cmap = [c * 4369 for c in range(16)] * 3
+        return ve.tiff_thunderscan(v, 3, rng=rng, colormap=cmap, rows_per_strip=64)
+    raise ValueError(kind)
+
+
+def write_variant2_extra(kind: str, rgb) -> bytes:
+    """One 256x256 crop of an RGB image stored as the decode-only kind."""
+    import cv2
+    import numpy as np
+
+    from tools import variant_encoders as ve
+    from tests.test_torch_format_variants import tiff_packed
+    rgb = np.ascontiguousarray(rgb[128:384, 128:384])
+    grey = cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY)
+    if kind.startswith("tiff_grey_"):
+        bits = int(kind.split("_")[2][:2])
+        return tiff_packed((grey.astype(np.uint16) << (bits - 8))[..., None], bits, 1)
+    if kind == "tiff_rgb_12bit":
+        return tiff_packed(rgb.astype(np.uint16) << 4, 12, 2)
+    if kind == "png_cut_mid_file":
+        data = cv2.imencode(".png", rgb[..., ::-1])[1].tobytes()
+        return data[:len(data) // 2]
+    if kind == "tiff_sgilog24_luv":
+        lv = (grey.astype(np.uint32) * 4 + 16) & 0x3FF
+        cell = (np.arange(grey.size, dtype=np.uint32).reshape(grey.shape) * 37) % 16289
+        return ve.tiff_sgilog(lv << 14 | cell, False, 34677, rows_per_strip=64, bits=8)
+    raise ValueError(kind)
+
+
 # formats/containers: the container of each of the 16 images, in id order,
 # each under one of kgtpu's extensions (cv2 picks its decoder by content)
 CONTAINERS = [
@@ -594,6 +773,36 @@ def make_variants(out: str) -> int:
     return make_folder(out, "variants", VARIANTS, write_variant)
 
 
+def make_variants2(out: str) -> int:
+    """formats/variants2 (served and decoded) and formats/variants2_extra
+    (decoded only): `variants2_*` and `variants2_extra_*` keys."""
+    import cv2
+    import numpy as np
+    rc = make_folder(out, "variants2", VARIANTS2, write_variant2)
+    src = os.path.join(out, "synthetic_hard")
+    fdir = os.path.join(out, "formats", "variants2_extra")
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.makedirs(fdir)
+    ids = sorted(f[:-4] for f in os.listdir(os.path.join(src, "images")))
+    kinds = {}
+    for i, (kind, ext) in zip(ids, VARIANTS2_EXTRA):
+        rgb = cv2.imread(os.path.join(src, "images", f"{i}.png"), cv2.IMREAD_COLOR)[..., ::-1]
+        with open(os.path.join(fdir, i + ext), "wb") as f:
+            f.write(write_variant2_extra(kind, np.ascontiguousarray(rgb)))
+        kinds[i + ext] = kind
+    decodes = cv2_decodes(fdir, sorted(kinds))
+    path = os.path.join(out, "kgtpu_reference_formats.npz")
+    with np.load(path) as ref:
+        result = {k: ref[k] for k in ref.files if not k.startswith("variants2_extra_")}
+    result.update({"variants2_extra_decode_json": np.array(json.dumps(decodes)),
+                   "variants2_extra_kinds_json": np.array(json.dumps(kinds))})
+    np.savez_compressed(path, **result)
+    size = sum(os.path.getsize(os.path.join(fdir, f)) for f in kinds)
+    print(f"{len(kinds)} variants2_extra files, {len(decodes)} decodes "
+          f"({sum(d['sha256'] is None for d in decodes)} None), {size / 2**20:.2f} MiB")
+    return rc
+
+
 def make_containers(out: str) -> int:
     return make_folder(out, "containers", CONTAINERS, write_container)
 
@@ -605,10 +814,13 @@ def make_jpeg2000(out: str) -> int:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
-    p.add_argument("--only", choices=["variants", "containers", "jpeg2000"], default=None)
+    p.add_argument("--only", choices=["variants", "variants2", "containers", "jpeg2000"],
+                   default=None)
     a = p.parse_args(argv)
     if a.only == "variants":
         return make_variants(a.out)
+    if a.only == "variants2":
+        return make_variants2(a.out)
     if a.only == "containers":
         return make_containers(a.out)
     if a.only == "jpeg2000":
@@ -693,7 +905,8 @@ def main(argv: list[str] | None = None) -> int:
                 for f in fs) + os.path.getsize(os.path.join(a.out, "kgtpu_reference_formats.npz"))
     print(f"{len(decode)} decodes, datasets {[(k, len(v)) for k, v in datasets.items()]}, "
           f"{total / 2**20:.2f} MiB")
-    return make_variants(a.out) or make_containers(a.out) or make_jpeg2000(a.out)
+    return (make_variants(a.out) or make_variants2(a.out) or make_containers(a.out)
+            or make_jpeg2000(a.out))
 
 
 if __name__ == "__main__":

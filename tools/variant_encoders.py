@@ -1390,3 +1390,193 @@ def jpeg2000_packed_headers(cs: bytes, marker: str = "ppt") -> bytes:
         psot = 12 + len(tile_head) + 2 + len(bodies)
         out += struct.pack(">HHHIBB", SOT, 10, tno, psot, 0, 1) + tile_head + b"\xff\x93" + bodies
     return out + b"\xff\xd9"
+
+
+def mh_row(bits: np.ndarray) -> str:
+    """One row of 0 / 1 samples (1 black) as T.4 modified Huffman codes
+    (white run first, make-up codes for runs of 64 and more), a bit
+    string."""
+    from kgtpu_torch.data.ccitt import (_BLACK_MAKEUP, _BLACK_TERM, _EXT_MAKEUP,
+                                        _WHITE_MAKEUP, _WHITE_TERM)
+    out, color, x, w = [], 0, 0, len(bits)
+    while x < w or color == 0 and x == 0 and w == 0:
+        end = x
+        while end < w and bits[end] == color:
+            end += 1
+        run = end - x
+        term, makeup = (_BLACK_TERM, _BLACK_MAKEUP) if color else (_WHITE_TERM, _WHITE_MAKEUP)
+        while run >= 64:
+            m = min(run // 64, 40)
+            out.append((makeup + _EXT_MAKEUP)[m - 1] if m <= 27 else _EXT_MAKEUP[m - 28])
+            run -= 64 * m
+        out.append(term[run])
+        x, color = end, color ^ 1
+        if x >= w:
+            break
+    return "".join(out)
+
+
+def tiff_ccitt_rlew(black: np.ndarray, fill_order: int = 1, rows_per_strip=None,
+                    words: bool = True) -> bytes:
+    """A bilevel TIFF (MinIsWhite, 1 black) coded CCITT RLEW (32771; each row
+    padded to 16 bits of the strip) or, with `words` False, CCITT RLE (2;
+    padded to a byte)."""
+    h, w = black.shape
+    rps = rows_per_strip or h
+    strips = []
+    for y in range(0, h, rps):
+        s = ""
+        for row in black[y:y + rps]:
+            s += mh_row(row.astype(np.uint8))
+            s += "0" * (-len(s) % (16 if words else 8))
+        b = np.packbits(np.array([int(c) for c in s] or [0], np.uint8)[:len(s)] if s else
+                        np.zeros(0, np.uint8), bitorder="little" if fill_order == 2 else "big")
+        strips.append(b.tobytes())
+    t = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [1]),
+         259: (SHORT, [32771 if words else 2]), 262: (SHORT, [0]), 266: (SHORT, [fill_order]),
+         277: (SHORT, [1]), 278: (LONG, [rps])}
+    return tiff_file(strips, t)
+
+
+def thunder_row(v: np.ndarray, rng=None) -> bytes:
+    """One row of 4-bit samples as ThunderScan codes (`tif_thunder.c`): runs
+    of the last pixel, 2- and 3-bit deltas from it and raw pixels, mixed at
+    random (`rng`) or raw only."""
+    out, last, i, n = bytearray(), 0, 0, len(v)
+    d2 = {0: 0, 1: 1, -1: 3}
+    d3 = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    while i < n:
+        k = int(rng.integers(0, 4)) if rng is not None else 3
+        run = 0
+        while i + run < n and v[i + run] == last and run < 63:
+            run += 1
+        if k == 0 and run >= 2 and i % 2 == 0:
+            out.append(run)
+            i += run
+            continue
+        if k == 1 and i + 2 < n and all(int(v[i + j]) - int(v[i + j - 1] if j else last) in d2
+                                        for j in range(3)):
+            prev, code = last, 0x40
+            for j in range(3):
+                code |= d2[int(v[i + j]) - prev] << (4 - 2 * j)
+                prev = int(v[i + j])
+            out.append(code)
+            last, i = prev, i + 3
+            continue
+        if k == 2 and i + 1 < n and all(int(v[i + j]) - int(v[i + j - 1] if j else last) in d3
+                                        for j in range(2)):
+            prev, code = last, 0x80
+            for j in range(2):
+                code |= d3[int(v[i + j]) - prev] << (3 - 3 * j)
+                prev = int(v[i + j])
+            out.append(code)
+            last, i = prev, i + 2
+            continue
+        out.append(0xC0 | int(v[i]))
+        last, i = int(v[i]), i + 1
+    return bytes(out)
+
+
+def tiff_thunderscan(v: np.ndarray, photometric: int = 3, rng=None, rows_per_strip=None,
+                     colormap=None) -> bytes:
+    """A 4-bit TIFF coded ThunderScan (32809): [H, W] samples 0..15,
+    palette (with `colormap`, 3 x 16 16-bit entries) or grey."""
+    h, w = v.shape
+    rps = rows_per_strip or h
+    strips = [b"".join(thunder_row(r, rng) for r in v[y:y + rps]) for y in range(0, h, rps)]
+    t = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [4]), 259: (SHORT, [32809]),
+         262: (SHORT, [photometric]), 277: (SHORT, [1]), 278: (LONG, [rps])}
+    if colormap is not None:
+        t[320] = (SHORT, list(colormap))
+    return tiff_file(strips, t)
+
+
+def tiff_next(v: np.ndarray, photometric: int = 1, colormap=None) -> bytes:
+    """A 2-bit TIFF coded NeXT (32766), every row stored literally (code
+    0x00 followed by the row's packed bytes)."""
+    h, w = v.shape
+    rows = b"".join(b"\x00" + pack_bits(r[None, :], 2).tobytes() for r in v)
+    t = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [2]), 259: (SHORT, [32766]),
+         262: (SHORT, [photometric]), 277: (SHORT, [1]), 278: (LONG, [h])}
+    if colormap is not None:
+        t[320] = (SHORT, list(colormap))
+    return tiff_file([rows], t)
+
+
+def sgilog_rle_row(words: np.ndarray, planes: int, rng=None) -> bytes:
+    """One row of SGILog words as `tif_luv.c` codes them: each byte plane
+    (most significant first) as runs (128 + n - 2, byte) of 3 or more equal
+    bytes and literal chunks (n < 128, bytes); `rng` varies the chunking."""
+    out = bytearray()
+    for k in range(planes):
+        plane = ((words >> (8 * (planes - 1 - k))) & 0xFF).astype(np.uint8).tobytes()
+        i = 0
+        while i < len(plane):
+            run = 1
+            while i + run < len(plane) and plane[i + run] == plane[i] and run < 129:
+                run += 1
+            if run >= 3:
+                out += bytes([run + 126, plane[i]])
+                i += run
+                continue
+            n = 1 if rng is None else int(rng.integers(1, 8))
+            n = min(n if rng is not None else 127, len(plane) - i)
+            out += bytes([n]) + plane[i:i + n]
+            i += n
+    return bytes(out)
+
+
+def tiff_sgilog(words: np.ndarray, logl: bool = False, compression: int = 34676,
+                rows_per_strip=None, bits: int = 16, rng=None) -> bytes:
+    """A LogLuv (32845) or LogL (32844) TIFF of [H, W] SGILog words: 32-bit
+    LogLuv or 16-bit LogL words run-length coded (34676), or 24-bit LogLuv
+    words stored as three bytes (34677)."""
+    h, w = words.shape
+    rps = rows_per_strip or h
+    strips = []
+    for y in range(0, h, rps):
+        block = words[y:y + rps]
+        if compression == 34677:
+            b = np.stack([(block >> 16) & 255, (block >> 8) & 255, block & 255], -1)
+            strips.append(b.astype(np.uint8).tobytes())
+        else:
+            strips.append(b"".join(sgilog_rle_row(r, 2 if logl else 4, rng) for r in block))
+    spp = 1 if logl else 3
+    t = {256: (LONG, [w]), 257: (LONG, [h]), 258: (SHORT, [bits] * spp),
+         259: (SHORT, [compression]), 262: (SHORT, [32844 if logl else 32845]),
+         277: (SHORT, [spp]), 278: (LONG, [rps])}
+    return tiff_file(strips, t)
+
+
+def jpeg_segments(jpeg: bytes) -> list[tuple[int, bytes]]:
+    """A JPEG's marker segments in order, [(marker, bytes)], each scan's
+    SOS segment carrying its entropy-coded data (up to the next marker)."""
+    out, pos = [], 2
+    while pos < len(jpeg) - 1:
+        m = jpeg[pos + 1]
+        if m == 0xD9:
+            break
+        length = int.from_bytes(jpeg[pos + 2:pos + 4], "big")
+        end = pos + 2 + length
+        if m == 0xDA:
+            while not (jpeg[end] == 0xFF and jpeg[end + 1] not in (0x00,) and
+                       not 0xD0 <= jpeg[end + 1] <= 0xD7):
+                end += 1
+        out.append((m, jpeg[pos:end]))
+        pos = end
+    return out
+
+
+def jpeg_keep_scans(jpeg: bytes, keep) -> bytes:
+    """The JPEG with only the scans whose index (0-based) is in `keep`: a
+    progressive file whose dropped scans leave coefficients (AC bands 1-9
+    among them) unrefined, as libjpeg then smooths its blocks."""
+    out, k = bytearray(jpeg[:2]), 0
+    for m, seg in jpeg_segments(jpeg):
+        if m == 0xDA:
+            if k in keep:
+                out += seg
+            k += 1
+        else:
+            out += seg
+    return bytes(out + b"\xff\xd9")
