@@ -42,7 +42,11 @@
     mAP_dsb2018 within 0.01 (f32) and 0.02 (bf16) of kgtpu's committed
     reference run; in f32 also every image's instance count equal to
     kgtpu's and at most 16 label-map pixels off its map (a bf16 run is
-    thousands off).  The bf16 run must launch the GroupNorm kernel.
+    thousands off).  The bf16 run must launch the GroupNorm kernel.  The
+    port's compiled host ops (`kgtpu_torch/native.py`, g++ at first use)
+    must build and load: evaluate's f32 IoU and the loader's boxes and
+    renumbering go through them, as kgtpu's do by default; the reference
+    metrics are kgtpu's with its compiled f32 IoU.
 [9] Trains from the command line: `python -m kgtpu_torch.cli.train`, called
     in-process, at full width (the default Config, batch 8, 512x512, EMA,
     lr 1e-3 after 50 warmup steps) on `synthetic` (64 generated images,
@@ -56,8 +60,10 @@
     the resumed run starting at the saved epoch and step; and `cli.test`
     on the best checkpoint, serving the 16 val images, giving the label
     maps of the in-training eval.  Times the CLI's steady img/s (eval and
-    saves excluded), its wait for batches per step, and the host's ms per
-    augmented 512x512 sample.
+    saves excluded), its wait for batches per step, the host's ms per
+    augmented 512x512 sample (with the compiled host ops), and each host
+    op's ms per 512x512 label map of HOST_OP_INSTANCES instances, compiled
+    and NumPy, in this process.
 [10] TTA, ensemble and tiling with the flagship, through `cli.test` called
     in-process, in f32 and in bf16: `--test_scales 0.75,1.0,1.25
     --test_flip` (mean vote, batch 8) on the 16 committed images;
@@ -206,7 +212,12 @@
     resolutions, and 16-bit grey with RLCP (`jpeg2000_decode_json` and
     `*_jpeg2000_*`).  The pure-Python decoder takes seconds per image, so
     (a)'s check against cv2's hashes runs in JPEG2000_WORKERS processes;
-    each kind is then timed alone.  Budget JPEG2000_PHASE_S.
+    each kind is then timed alone.  Budget JPEG2000_PHASE_S.  Then (c),
+    decode only: assets_torch/formats/jpeg2000_styles, 128x128 files in the
+    code-block styles (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM, all six
+    lossless and in 9/7 layers, grey in layers, 16-bit grey) against cv2's
+    hashes (`jpeg2000_styles_decode_json`) in the same processes, each kind
+    timed by one read; budget JPEG2000_STYLES_S.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -361,6 +372,9 @@ CONTAINERS_PHASE_S = 120    # phase [16]'s budget
 JPEG2000_DIR = os.path.join(FORMATS, "jpeg2000")
 JPEG2000_PHASE_S = 150      # phase [17]'s budget
 JPEG2000_WORKERS = 8        # processes for [17] (a)'s decodes against cv2's hashes
+JPEG2000_STYLES_DIR = os.path.join(FORMATS, "jpeg2000_styles")
+JPEG2000_STYLES_S = 30      # [17] (c)'s budget
+HOST_OP_INSTANCES = 120     # [9]: instances of the label map the host ops are timed on
 CAPTURE_PHASE_S = 180       # phase [14]'s budget
 GRAPH_PROFILE_FLAG = "--graph-profile"   # runs [14](b) alone, in a fresh process
 
@@ -369,6 +383,12 @@ def require(cond, msg: str) -> None:
     """A check that holds under python -O too."""
     if not cond:
         raise AssertionError(msg)
+
+
+def f6(v) -> str:
+    """A stored reference metric, or "null" where the reference holds none
+    (tools/make_torch_eval_assets.py --only rescore)."""
+    return "null" if v is None else f"{v:.6f}"
 
 
 def log(msg: str) -> None:
@@ -824,7 +844,7 @@ def train_batch(np, cfg, b: int, seed: int) -> dict:
         out["img_bias"].append((rng.uniform(-0.2, 0.2, 3) * 30).astype(np.float32))
         out["boxes"].append(boxes)
         out["valid"].append(valid)
-        out["label_map"].append(renumber_label_map(label, remap))
+        out["label_map"].append(renumber_label_map(label, remap).astype(np.uint16))
     return {k: np.stack(v) for k, v in out.items()}
 
 
@@ -933,6 +953,8 @@ def phase_flagship(np, torch, gn, gauss) -> dict:
     from kgtpu_torch.cli.eval import records
     from kgtpu_torch.data.png import read_png
     from kgtpu_torch.predictor import Predictor
+    from kgtpu_torch import native
+    from kgtpu_torch.ops import _cuda
     weights = os.path.join(ASSETS, "flagship_ema")
     images = os.path.join(ASSETS, "synthetic_hard", "images")
     ref = np.load(os.path.join(ASSETS, "kgtpu_reference.npz"))
@@ -940,6 +962,11 @@ def phase_flagship(np, torch, gn, gauss) -> dict:
     ref_metrics = json.loads(str(ref["metrics_json"]))
     gt = {i: read_png(os.path.join(ASSETS, "synthetic_hard", "labels", f"{i}.png"),
                       "unchanged").astype(np.int32) for i in ids}
+
+    lib = native.get_lib()                    # built at first use, in [6]'s batches
+    log(f"  compiled host ops: {lib._name if lib is not None else native.error} "
+        f"(g++ {' '.join(_cuda.GXX_FLAGS)})")
+    require(lib is not None, f"the host ops did not build: {native.error}")
 
     gn.launches = 0
     predictor = Predictor.from_checkpoint(weights, use_ema=True)
@@ -977,7 +1004,7 @@ def phase_flagship(np, torch, gn, gauss) -> dict:
             log(f"  {dtype}: mAP_dsb2018 {m['mAP_dsb2018']:.6f} (kgtpu "
                 f"{ref_metrics[dtype]['mAP_dsb2018']:.6f}, diff {dmap:+.6f}, tol "
                 f"{MAP_TOL[dtype]}); AP_coco {m['AP_coco']:.6f} (kgtpu "
-                f"{ref_metrics[dtype]['AP_coco']:.6f}), AJI {m['AJI']:.6f} (kgtpu "
+                f"{f6(ref_metrics[dtype]['AP_coco'])}), AJI {m['AJI']:.6f} (kgtpu "
                 f"{ref_metrics[dtype]['AJI']:.6f}), PQ {m['PQ']:.6f} (kgtpu "
                 f"{ref_metrics[dtype]['PQ']:.6f})")
             log(f"    instances per image {counts.tolist()}, largest count diff "
@@ -1032,7 +1059,53 @@ def host_sample_ms(np, torch, cfg) -> dict:
     return out
 
 
-def phase_train_cli(np, torch, gn, gauss) -> dict:
+def host_op_ms(np, smi: str) -> dict:
+    """Each host op's ms per 512x512 label map of HOST_OP_INSTANCES
+    instances (filled ellipses, ids shuffled; the IoU against the map
+    shifted by 3 pixels), compiled and NumPy, medians of 5 calls, in this
+    process; the two paths' outputs must be equal."""
+    from kgtpu_torch import evaluate, native
+    from kgtpu_torch.data import transforms
+    rng = np.random.default_rng(7)
+    size = 512
+    label = np.zeros((size, size), np.int32)
+    yy, xx = np.mgrid[:size, :size]
+    for cell in rng.permutation(np.arange(1, HOST_OP_INSTANCES + 1)):
+        a, c = rng.uniform(6, 28, 2)
+        cx, cy = rng.uniform(0, size, 2)
+        label[((xx - cx) / a) ** 2 + ((yy - cy) / c) ** 2 <= 1.0] = cell
+    pred = np.roll(label, (3, -2), (0, 1))
+    remap = transforms.boxes_from_label_map(label, 128)[2]
+    calls = {"boxes_from_label_map": lambda: transforms.boxes_from_label_map(label, 128),
+             "renumber_label_map": lambda: transforms.renumber_label_map(label, remap),
+             "iou_from_label_maps": lambda: evaluate.iou_from_label_maps(pred, label)[0]}
+    compiled = native.get_lib
+    out = {}
+    for name, call in calls.items():
+        row, results = {}, {}
+        for path in ("compiled", "numpy"):
+            native.get_lib = compiled if path == "compiled" else (lambda: None)
+            try:
+                times = []
+                for _ in range(5):
+                    t = time.perf_counter()
+                    results[path] = call()
+                    times.append((time.perf_counter() - t) * 1e3)
+            finally:
+                native.get_lib = compiled
+            row[f"{path}_ms"] = sorted(times)[2]
+        a, b = results["compiled"], results["numpy"]
+        same = all(np.array_equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple) \
+            else np.array_equal(a, b)
+        require(same, f"{name}: the compiled op and the NumPy path differ")
+        out[name] = row
+        log(f"  host op {name}: compiled {row['compiled_ms']:.3f} ms, NumPy "
+            f"{row['numpy_ms']:.3f} ms per {size}x{size} map of {HOST_OP_INSTANCES} "
+            f"instances (median of 5, outputs equal); {smi}")
+    return out
+
+
+def phase_train_cli(np, torch, gn, gauss, smi: str) -> dict:
     """[9]: the training CLI at full width, resumed once, then cli.test on
     its best checkpoint."""
     from kgtpu_torch.cli import test as test_cli
@@ -1124,11 +1197,15 @@ def phase_train_cli(np, torch, gn, gauss) -> dict:
     img_s = 8 * sum(e["steps"] for e in steady) / sum(e["train_s"] for e in steady)
     wait_ms = sum(e["wait_s"] for e in steady) / sum(e["steps"] for e in steady) * 1e3
     step_ms = sum(e["train_s"] for e in steady) / sum(e["steps"] for e in steady) * 1e3
+    from kgtpu_torch import native
+    require(native.get_lib() is not None, "the host data path runs without its compiled ops")
     host = host_sample_ms(np, torch, base)
+    ops = host_op_ms(np, smi)
     phase_s = time.perf_counter() - t_phase
     log(f"  steady state (epochs 1-{CLI_EPOCHS - 1}): {img_s:.2f} img/s, {step_ms:.1f} ms per "
         f"step, of which {wait_ms:.1f} ms waiting for the batch; host ms per augmented 512x512 "
-        f"sample: {', '.join(f'{k} {v:.1f}' for k, v in host.items())}")
+        f"sample (compiled host ops): {', '.join(f'{k} {v:.1f}' for k, v in host.items())}; "
+        f"{smi}")
     log(f"  phase [9]: {phase_s:.1f} s (budget {CLI_PHASE_S} s)")
     require(phase_s <= CLI_PHASE_S, f"phase [9] took {phase_s:.0f} s")
     return {"train_cli_img_per_s": img_s, "train_cli_step_ms": step_ms,
@@ -1136,6 +1213,7 @@ def phase_train_cli(np, torch, gn, gauss) -> dict:
             "train_cli_val": m, "train_cli_steps": steps + CLI_RESUME_STEPS,
             "train_cli_gauss_launches": gauss_1, "train_cli_gn_launches": gn_1,
             "train_cli_eval_batches": eval_batches, "host_ms_per_sample": host,
+            "host_op_ms_per_512x512": ops,
             "train_cli_phase_s": phase_s, "train_cli_map_floor": CLI_MAP_FLOOR,
             "train_cli_ap50_floor": CLI_AP50_FLOOR}
 
@@ -1285,7 +1363,7 @@ def phase_tta(np, torch, gn, smi: str) -> dict:
                 dmap = m["mAP_dsb2018"] - want["mAP_dsb2018"]
                 log(f"  {name} {dtype}: mAP_dsb2018 {m['mAP_dsb2018']:.6f} (kgtpu f32 "
                     f"{want['mAP_dsb2018']:.6f}, diff {dmap:+.6f}, tol {MAP_TOL[dtype]}); "
-                    f"AP_coco {m['AP_coco']:.6f} (kgtpu {want['AP_coco']:.6f}), AJI "
+                    f"AP_coco {m['AP_coco']:.6f} (kgtpu {f6(want['AP_coco'])}), AJI "
                     f"{m['AJI']:.6f}, PQ {m['PQ']:.6f}")
                 log(f"    instances {counts.tolist()}, largest count diff "
                     f"{int(np.abs(dcount).max())}, label-map pixels off kgtpu's f32: max "
@@ -1405,7 +1483,7 @@ def unet_cli_runs(np, torch, gn) -> dict:
                 dmap = m["mAP_dsb2018"] - want["mAP_dsb2018"]
                 log(f"  {name} {dtype}: mAP_dsb2018 {m['mAP_dsb2018']:.6f} (kgtpu "
                     f"{want['mAP_dsb2018']:.6f}, diff {dmap:+.6f}, tol {MAP_TOL[dtype]}); AP_coco "
-                    f"{m['AP_coco']:.6f} (kgtpu {want['AP_coco']:.6f}), AJI {m['AJI']:.6f}, PQ "
+                    f"{m['AP_coco']:.6f} (kgtpu {f6(want['AP_coco'])}), AJI {m['AJI']:.6f}, PQ "
                     f"{m['PQ']:.6f}")
                 log(f"    instances {counts.tolist()}, largest count diff "
                     f"{int(np.abs(dcount).max())}, label-map pixels off kgtpu's: max {max(off)} "
@@ -2544,11 +2622,12 @@ def _read_or_refuse(path: str, mode: str):
         return e
 
 
-def folder_decodes(np, smi: str, key: str, folder: str, stem: str, workers: int = 1) -> dict:
-    """[15] / [16] / [17] (a): every fixture of a folder in every mode
-    against cv2's hash (`<key>_decode_json`; UnreadableImage where cv2
+def folder_decodes(np, smi: str, key: str, folder: str, stem: str, workers: int = 1,
+                   reads: int = 3) -> dict:
+    """[15] / [16] / [17] (a), [17] (c): every fixture of a folder in every
+    mode against cv2's hash (`<key>_decode_json`; UnreadableImage where cv2
     returns None), in `workers` processes when more than 1; then the decode
-    time of each, alone (median of 3 reads, 1 read for a decoder over
+    time of each, alone (median of `reads` reads, 1 read for a decoder over
     SLOW_DECODE_MS)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -2589,20 +2668,20 @@ def folder_decodes(np, smi: str, key: str, folder: str, stem: str, workers: int 
         mode = next((d["mode"] for d in decodes if d["path"] == f and d["sha256"]), None)
         if mode is None:
             continue
-        reads = []
-        while len(reads) < 3:
+        times = []
+        while len(times) < reads:
             t = time.perf_counter()
             img = read_image(os.path.join(folder, f), mode)
-            reads.append((time.perf_counter() - t) * 1e3)
-            if reads[0] > SLOW_DECODE_MS:
+            times.append((time.perf_counter() - t) * 1e3)
+            if times[0] > SLOW_DECODE_MS:
                 break
-        ms, pixels = sorted(reads)[len(reads) // 2], img.shape[0] * img.shape[1]
-        timed[kind] = {"ms_per_image": ms, "reads": len(reads), "pixels": pixels, "mode": mode,
+        ms, pixels = sorted(times)[len(times) // 2], img.shape[0] * img.shape[1]
+        timed[kind] = {"ms_per_image": ms, "reads": len(times), "pixels": pixels, "mode": mode,
                        "ms_per_512x512": ms * 512 * 512 / pixels,
                        "bytes": os.path.getsize(os.path.join(folder, f))}
         log(f"  decode {kind} ({mode}): {ms:.1f} ms per {img.shape[0]}x{img.shape[1]} image "
             f"(median of "
-            f"{len(reads)} read(s)), {timed[kind]['ms_per_512x512']:.1f} ms per 512x512 of "
+            f"{len(times)} read(s)), {timed[kind]['ms_per_512x512']:.1f} ms per 512x512 of "
             f"pixels, {timed[kind]['bytes']} bytes; {smi}")
     return {f"{stem}_decode_checks": len(decodes), f"{stem}_decode_refused": refused,
             f"{stem}_decode_check_s": check_s, f"{stem}_decode_ms": timed}
@@ -2829,7 +2908,7 @@ def main() -> int:
     log(f"[9] training from the CLI (python -m kgtpu_torch.cli.train, in-process; default "
         f"Config, batch 8, 512x512, synthetic) for {CLI_EPOCHS} epochs, then --resume")
     torch.cuda.empty_cache()
-    cstats = phase_train_cli(np, torch, gn, gauss)
+    cstats = phase_train_cli(np, torch, gn, gauss, smi)
 
     # 10. TTA, ensemble and tiling with the flagship
     log("[10] TTA (3 scales + flip), ensemble (EMA + raw) and whole-slide tiling with the "
@@ -2899,6 +2978,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     j2stats = phase_folder(np, torch, gn, gauss, smi, xstats, "17", "jpeg2000", JPEG2000_DIR,
                            "jpeg2000", JPEG2000_PHASE_S, workers=JPEG2000_WORKERS)
+    log("[17] (c) JPEG 2000 code-block styles: formats/jpeg2000_styles decoded as cv2 decodes "
+        "it, each kind timed once")
+    t = time.perf_counter()
+    j2stats.update(folder_decodes(np, smi, "jpeg2000_styles", JPEG2000_STYLES_DIR,
+                                  "jpeg2000_styles", workers=JPEG2000_WORKERS, reads=1))
+    j2stats["jpeg2000_styles_s"] = time.perf_counter() - t
+    log(f"  [17] (c): {j2stats['jpeg2000_styles_s']:.1f} s (budget {JPEG2000_STYLES_S} s)")
+    require(j2stats["jpeg2000_styles_s"] <= JPEG2000_STYLES_S,
+            f"[17] (c) took {j2stats['jpeg2000_styles_s']:.0f} s")
 
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,

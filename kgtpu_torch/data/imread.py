@@ -32,8 +32,8 @@ its CCITT recovery).  A file cv2 reads and the port does not yet raises
 the variants (`QUEUED`) only 16- to 64-bit separate-plane TIFF in
 "unchanged" (cv2's result not defined) and a Group 3 CCITT strip whose data
 ends before its last row (libtiff reads on past the end); or AVIF content,
-recognised by the signature cv2's decoder checks, and JPEG 2000 code-block
-styles (`CONTAINERS`).
+recognised by the signature cv2's decoder checks, and JPEG 2000 HT
+code-blocks and Part 2 multi-component transforms (`CONTAINERS`).
 """
 
 from __future__ import annotations

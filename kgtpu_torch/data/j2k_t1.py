@@ -140,35 +140,69 @@ def _layout(w: int, h: int) -> dict:
 
 
 def decode_one(b: dict) -> np.ndarray:
-    """Tier-1 of one code-block in plain Python.  The MQ decoder keeps
-    OpenJPEG's register (C, A, CT and the byte pointer over the data and
-    two 0xFF bytes).  The passes visit, in scan order, only the samples
-    that can need a decision: the significance and cleanup passes the
-    samples insignificant when the bit-plane starts (the cleanup pass by
-    columns), the refinement pass the samples significant then."""
+    """Tier-1 of one code-block in plain Python.  Each codeword segment
+    gets a fresh decoder over its own bytes and two 0xFF bytes: the MQ
+    decoder with OpenJPEG's register (C, A, CT and the byte pointer), or,
+    for BYPASS's raw segments, its raw bit reader.  The passes visit, in
+    scan order, only the samples that can need a decision: the
+    significance and cleanup passes the samples insignificant when the
+    bit-plane starts (the cleanup pass by columns), the refinement pass the
+    samples significant then."""
     w, h, orient = b["w"], b["h"], b["orient"] * 256
+    style, data = b["style"], bytes(b["data"])
+    bypass, reset, vsc, segsym = style & 0x01, style & 0x02, style & 0x08, style & 0x20
     lay = _layout(w, h)
     scan_l, cols, col_of = lay["scan_l"], lay["cols"], lay["col_of"]
-    buf = bytes(b["data"]) + b"\xff\xff"
     W = w + 2
     flags = [0] * (W * (h + 2))
     coef = [0] * (W * (h + 2))
-    st = [0] * NCTX
-    st[CTX_UNI], st[CTX_RL], st[0] = 2 * 46, 2 * 3, 2 * 4
+    start = [0] * NCTX
+    start[CTX_UNI], start[CTX_RL], start[0] = 2 * 46, 2 * 3, 2 * 4
+    st = list(start)
     zc, sc_ctx, sc_xor, qe_t, nxt = ZC, SC_CTX, SC_XOR, QE, NEXT
-    # INITDEC
-    bp = 0
-    c = buf[0] << 16
-    if buf[0] == 0xFF and buf[1] > 0x8F:
-        c += 0xFF00
-        ct = 8
-    else:
-        bp = 1
-        c += buf[1] << (9 if buf[0] == 0xFF else 8)
-        ct = 7 if buf[0] == 0xFF else 8
-    c = (c << 7) & 0xFFFFFFFF
-    ct -= 7
-    a = 0x8000
+    buf = b"\xff\xff"
+    bp = c = ct = a = 0
+
+    def init_mq(seg: bytes) -> None:
+        """INITDEC over the segment and two 0xFF bytes."""
+        nonlocal buf, bp, c, ct, a
+        buf = seg + b"\xff\xff"
+        bp = 0
+        c = buf[0] << 16
+        if buf[0] == 0xFF and buf[1] > 0x8F:
+            c += 0xFF00
+            ct = 8
+        else:
+            bp = 1
+            c += buf[1] << (9 if buf[0] == 0xFF else 8)
+            ct = 7 if buf[0] == 0xFF else 8
+        c = (c << 7) & 0xFFFFFFFF
+        ct -= 7
+        a = 0x8000
+
+    def init_raw(seg: bytes) -> None:
+        nonlocal buf, bp, c, ct
+        buf = seg + b"\xff\xff"
+        bp = c = ct = 0
+
+    def raw():
+        """`opj_mqc_raw_decode`: the bits of each byte, MSB first; after
+        0xFF a byte of 7 bits, or 1s forever at a marker."""
+        nonlocal c, ct, bp
+        if ct == 0:
+            if c == 0xFF:
+                if buf[bp] > 0x8F:
+                    ct = 8
+                else:
+                    c = buf[bp]
+                    bp += 1
+                    ct = 7
+            else:
+                c = buf[bp]
+                bp += 1
+                ct = 8
+        ct -= 1
+        return (c >> ct) & 1
 
     def mq(cx):
         nonlocal a, c, ct, bp
@@ -210,15 +244,20 @@ def decode_one(b: dict) -> np.ndarray:
         return (s & 1) ^ x
 
     newsig: list = []
+    # under VSC a stripe's first row does not tell the row above it
+    # (`opj_t1_update_flags` leaves the word of the stripe above alone)
+    quiet_north = set(range(W, W * (h + 1), 4 * W)) if vsc else ()
 
     def turn(i, neg, oph):
         """Sample i turns significant with sign neg: its neighbours learn."""
         f = flags
+        north = i - i % W not in quiet_north
         if neg:
             coef[i] = -oph
-            f[i - W - 1] |= SE
-            f[i - W] |= S_ | NEG_S
-            f[i - W + 1] |= SW
+            if north:
+                f[i - W - 1] |= SE
+                f[i - W] |= S_ | NEG_S
+                f[i - W + 1] |= SW
             f[i - 1] |= E_ | NEG_E
             f[i + 1] |= W_ | NEG_W
             f[i + W - 1] |= NE
@@ -226,9 +265,10 @@ def decode_one(b: dict) -> np.ndarray:
             f[i + W + 1] |= NW
         else:
             coef[i] = oph
-            f[i - W - 1] |= SE
-            f[i - W] |= S_
-            f[i - W + 1] |= SW
+            if north:
+                f[i - W - 1] |= SE
+                f[i - W] |= S_
+                f[i - W + 1] |= SW
             f[i - 1] |= E_
             f[i + 1] |= W_
             f[i + W - 1] |= NE
@@ -240,68 +280,91 @@ def decode_one(b: dict) -> np.ndarray:
     sig: list = []                      # raster indices, in scan order
     insig = list(scan_l)
     rank = lay["rank"]
-    top = b["numbps"]
-    for k in range(b["passes"]):
-        bpl = top - (k + 2) // 3
-        if bpl < 1:
-            break
-        one = 1 << bpl
-        oph = one | (one >> 1)
-        kind = k % 3
-        if kind == 1:                                    # significance propagation
-            if newsig:                                   # a new bit-plane: re-sort
-                sig = sorted(sig + newsig, key=rank.__getitem__)
-                newsig.clear()
-                insig = [i for i in insig if not flags[i] & SIG]
-            for i in insig:
-                f = flags[i]
-                if f & 0xFF and not f & (SIG | PI):
-                    flags[i] = f | PI
-                    if mq(zc[orient + (f & 0xFF)]):
-                        g = f & 0xFFF
-                        turn(i, mq(sc_ctx[g]) ^ sc_xor[g], oph)
-        elif kind == 2:                                  # magnitude refinement
-            half = one >> 1
-            for i in sig:
-                f = flags[i]
-                if mq(16 if f & MU else 15 if f & 0xFF else 14):
-                    coef[i] += -half if coef[i] < 0 else half
+    top, mb = b["numbps"], b["mb"]
+    k, at = 0, 0
+    for nseg, length in b["segs"]:
+        # BYPASS: significance and refinement passes below the fourth
+        # bit-plane (of the code-block's Mb, the ROI shift aside) are raw
+        is_raw = bypass and k % 3 and top - (k + 2) // 3 <= mb - 4
+        (init_raw if is_raw else init_mq)(data[at:at + length])
+        at += length
+        for _ in range(nseg):
+            bpl = top - (k + 2) // 3
+            if bpl < 1:
+                break
+            one = 1 << bpl
+            oph = one | (one >> 1)
+            kind = k % 3
+            if kind == 1:                                # significance propagation
+                if newsig:                               # a new bit-plane: re-sort
+                    sig = sorted(sig + newsig, key=rank.__getitem__)
+                    newsig.clear()
+                    insig = [i for i in insig if not flags[i] & SIG]
+                if is_raw:
+                    for i in insig:
+                        f = flags[i]
+                        if f & 0xFF and not f & (SIG | PI):
+                            flags[i] = f | PI
+                            if raw():
+                                turn(i, raw(), oph)
                 else:
-                    coef[i] += half if coef[i] < 0 else -half
-                flags[i] = f | MU
-        else:                                            # cleanup
-            if newsig and k:
-                insig = [i for i in insig if not flags[i] & SIG]
-            todo = sorted({col_of[i] for i in insig if not flags[i] & (SIG | PI)})
-            for col in todo:
-                r0, rows = cols[col]
-                i0 = scan_l[r0]
-                start = 0
-                if rows == 4 and not (flags[i0] | flags[i0 + W] | flags[i0 + 2 * W]
-                                      | flags[i0 + 3 * W]) & (0xFF | SIG | PI):
-                    if not mq(CTX_RL):
-                        continue
-                    r = mq(CTX_UNI) << 1
-                    r |= mq(CTX_UNI)
-                    i = i0 + r * W
-                    g = flags[i] & 0xFFF
-                    turn(i, mq(sc_ctx[g]) ^ sc_xor[g], oph)
-                    start = r + 1
-                for j in range(start, rows):
-                    i = i0 + j * W
+                    for i in insig:
+                        f = flags[i]
+                        if f & 0xFF and not f & (SIG | PI):
+                            flags[i] = f | PI
+                            if mq(zc[orient + (f & 0xFF)]):
+                                g = f & 0xFFF
+                                turn(i, mq(sc_ctx[g]) ^ sc_xor[g], oph)
+            elif kind == 2:                              # magnitude refinement
+                half = one >> 1
+                for i in sig:
                     f = flags[i]
-                    if not f & (SIG | PI) and mq(zc[orient + (f & 0xFF)]):
-                        g = f & 0xFFF
+                    if raw() if is_raw else mq(16 if f & MU else 15 if f & 0xFF else 14):
+                        coef[i] += -half if coef[i] < 0 else half
+                    else:
+                        coef[i] += half if coef[i] < 0 else -half
+                    flags[i] = f | MU
+            else:                                        # cleanup
+                if newsig and k:
+                    insig = [i for i in insig if not flags[i] & SIG]
+                todo = sorted({col_of[i] for i in insig if not flags[i] & (SIG | PI)})
+                for col in todo:
+                    r0, rows = cols[col]
+                    i0 = scan_l[r0]
+                    first = 0
+                    if rows == 4 and not (flags[i0] | flags[i0 + W] | flags[i0 + 2 * W]
+                                          | flags[i0 + 3 * W]) & (0xFF | SIG | PI):
+                        if not mq(CTX_RL):
+                            continue
+                        r = mq(CTX_UNI) << 1
+                        r |= mq(CTX_UNI)
+                        i = i0 + r * W
+                        g = flags[i] & 0xFFF
                         turn(i, mq(sc_ctx[g]) ^ sc_xor[g], oph)
-            for i in insig:
-                flags[i] &= ~PI
+                        first = r + 1
+                    for j in range(first, rows):
+                        i = i0 + j * W
+                        f = flags[i]
+                        if not f & (SIG | PI) and mq(zc[orient + (f & 0xFF)]):
+                            g = f & 0xFFF
+                            turn(i, mq(sc_ctx[g]) ^ sc_xor[g], oph)
+                for i in insig:
+                    flags[i] &= ~PI
+                if segsym:                               # four symbols, not checked
+                    for _ in range(4):
+                        mq(CTX_UNI)
+            if reset and not is_raw:
+                st[:] = start
+            k += 1
     return np.array(coef, np.int64).reshape(h + 2, W)[1:-1, 1:-1].astype(np.int32)
 
 
 def decode_blocks(blocks: list) -> list:
     """Tier-1 of code-blocks given as dicts of w, h, orient (0 LL, 1 HL, 2
     LH, 3 HH), passes, numbps (the bit-plane of the first cleanup pass, ROI
-    shift included) and data: returns each one's [h, w] int32 coefficients
-    at twice their scale (OpenJPEG's data before it halves or scales them)."""
+    shift included), mb (numbps without the ROI shift), style (the
+    code-block style byte), data and segs ((passes, bytes) of each codeword
+    segment): returns each one's [h, w] int32 coefficients at twice their
+    scale (OpenJPEG's data before it halves or scales them)."""
     return [decode_one(b) if b["passes"] and b["numbps"] >= 1
             else np.zeros((b["h"], b["w"]), np.int32) for b in blocks]

@@ -11,24 +11,28 @@ packet's header and body.
   * Progressions (`opj_pi_next_lrcp` ... `_cprl`): LRCP, RLCP, RPCL, PCRL and
     CPRL, the position-driven ones stepping x and y over the tile by the
     smallest precinct size in the reference grid; POC markers each run one
-    progression over their bounds (layers from 0), and a packet seen once
-    is not seen again.
+    progression over their bounds (layers from 0; an entry whose
+    progression is not one of the five runs none, as `opj_pi_next` gives
+    up), and a packet seen once is not seen again.
   * Packet headers (`opj_t2_read_packet_header`): the first bit says
     whether the packet is empty; per code-block, inclusion (the tag tree
     at the first inclusion, one bit after), zero bit-planes (tag tree),
     the number of passes (1, 2, 3-5, 6-36, 37-164), Lblock increments and
     codeword lengths of Lblock + floor(log2(passes)) bits, one for each
-    segment of at most 109 passes (no length over 32 bits); a 0xFF byte is
-    followed by 7 bits; the header ends byte-aligned, then an optional EPH
-    marker.  SOP markers are skipped before a packet, and packed headers
-    (PPM, PPT) are read from their own stream.
+    codeword segment the new passes reach (no length over 32 bits); a 0xFF
+    byte is followed by 7 bits; the header ends byte-aligned, then an
+    optional EPH marker.  SOP markers are skipped before a packet, and
+    packed headers (PPM, PPT) are read from their own stream.
+  * Codeword segments (`opj_t2_init_seg`): a segment holds at most 109
+    passes; with TERMALL (code-block style 0x04) one; with BYPASS (0x01)
+    10 in the first, then 2 and 1 in turn (the raw significance and
+    refinement passes, then the MQ cleanup pass).  A packet's passes fill
+    the code-block's last segment, then open new ones.
 
-A code-block keeps its data as the concatenation of its contributions, the
-number of passes they hold and the length of its first segment: tier-1
-decodes that alone, as OpenJPEG ends each segment's MQ data with its own
-0xFF 0xFF (the segments after it would start past bit-plane 1, where
-tier-1 stops; the code-block styles that terminate more passes are not
-ported).
+A code-block keeps its data as the concatenation of its contributions and
+the length and number of passes of each segment: tier-1 decodes the
+segments one after another, each with its own decoder, as OpenJPEG ends
+each segment's data with its own 0xFF 0xFF.
 """
 
 from __future__ import annotations
@@ -139,7 +143,7 @@ def _num_passes(bio: Bits) -> int:
 
 class CodeBlock:
     __slots__ = ("x0", "y0", "x1", "y1", "chunks", "passes", "numbps", "lblock", "included",
-                 "seg_passes", "segno", "first_len", "coef")
+                 "segs", "coef")
 
     def __init__(self, x0, y0, x1, y1):
         self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
@@ -148,9 +152,16 @@ class CodeBlock:
         self.numbps = 0
         self.lblock = 3
         self.included = False
-        self.seg_passes = 0                 # passes in its current codeword segment
-        self.segno = 0
-        self.first_len = 0                  # bytes of its first segment
+        self.segs: list[list[int]] = []     # [most passes, passes, bytes] per segment
+
+
+def _max_passes(style: int, segs: list) -> int:
+    """`opj_t2_init_seg`: the passes the code-block's next segment holds."""
+    if style & 0x04:
+        return 1
+    if style & 0x01:
+        return 10 if not segs else 2 if segs[-1][0] in (1, 10) else 1
+    return 109
 
 
 class Band:
@@ -320,6 +331,8 @@ def packet_order(order: int, comps: list, tile: tuple, layers: int, pocs: list):
         runs = [(order, (0, 0, layers, maxres, numc))]
     done: set = set()
     for prog, poc in runs:
+        if prog > 4:
+            continue
         r0, c0, l1, r1, c1 = poc
         if prog in (0, 1):
             def nprec(c, r):
@@ -339,9 +352,13 @@ def packet_order(order: int, comps: list, tile: tuple, layers: int, pocs: list):
 
 
 def read_packets(data: bytes, headers: bytes | None, comps: list, tile: tuple, cod: dict,
-                 layers: int, pocs: list, spans: list | None = None) -> None:
+                 layers: int, pocs: list, styles: list, spans: list | None = None) -> list:
     """Decode every packet of a tile's data (its tile-parts' bodies joined)
-    into its code-blocks; packed headers (PPM / PPT) come from `headers`.
+    into its code-blocks; packed headers (PPM / PPT) come from `headers`,
+    each component's code-block style from `styles`.  Returns
+    each component's highest resolution among the packets of its
+    progression (OpenJPEG's `resno_decoded`; the packets after the data's
+    end count, as OpenJPEG reads them as empty), 0 where none.
     The tile's packets end where its data ends; a segment past the end
     fails, as in OpenJPEG's strict mode.  `spans`, when given for data
     with its headers in it, receives each packet's (header start, header
@@ -349,8 +366,14 @@ def read_packets(data: bytes, headers: bytes | None, comps: list, tile: tuple, c
     pos, end = 0, len(data)
     hdr = headers if headers is not None else data
     hpos = 0
+    resno = [0] * len(comps)
+    ended = False
     for lay, r, c, p in packet_order(cod["order"], comps, tile, layers, pocs):
+        resno[c] = max(resno[c], r)
+        if ended:
+            continue
         res = comps[c][r]
+        style = styles[c]
         if headers is None:
             hpos = pos
         if cod["sop"] and headers is None and data[hpos:hpos + 2] == b"\xff\x91":
@@ -358,7 +381,8 @@ def read_packets(data: bytes, headers: bytes | None, comps: list, tile: tuple, c
         elif cod["sop"] and headers is not None and data[pos:pos + 2] == b"\xff\x91":
             pos += 6
         if hpos >= len(hdr):
-            break
+            ended = True
+            continue
         start = hpos
         bio = Bits(hdr, hpos, len(hdr))
         contrib = []
@@ -381,21 +405,20 @@ def read_packets(data: bytes, headers: bytes | None, comps: list, tile: tuple, c
                     n = _num_passes(bio)
                     while bio.bit():
                         cb.lblock += 1
-                    # codeword segments of at most 109 passes, a length each
+                    # a length for each codeword segment the passes reach
                     length, left = 0, n
                     while left:
-                        if cb.seg_passes == 109:
-                            cb.seg_passes = 0
-                            cb.segno += 1
-                        take = min(109 - cb.seg_passes, left)
+                        if not cb.segs or cb.segs[-1][1] == cb.segs[-1][0]:
+                            cb.segs.append([_max_passes(style, cb.segs), 0, 0])
+                        seg = cb.segs[-1]
+                        take = min(seg[0] - seg[1], left)
                         bits = cb.lblock + take.bit_length() - 1
                         if bits > 32:
                             raise UnreadableImage("JPEG 2000 codeword length of over 32 bits")
                         piece = bio.read(bits)
                         length += piece
-                        if cb.segno == 0:
-                            cb.first_len += piece
-                        cb.seg_passes += take
+                        seg[1] += take
+                        seg[2] += piece
                         left -= take
                     contrib.append((cb, n, length))
         bio.align()
@@ -414,4 +437,5 @@ def read_packets(data: bytes, headers: bytes | None, comps: list, tile: tuple, c
         if spans is not None:
             spans.append((start, hpos, pos))
         if pos >= end and headers is None:
-            break
+            ended = True
+    return resno

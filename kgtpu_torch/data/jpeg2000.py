@@ -63,9 +63,13 @@ cv2's rules, each checked against it:
     pixels fails cv2's `validateInputImageSize` (which raises cv2.error
     out of imread; the port raises `UnreadableImage`).
 
-Code-block styles that terminate passes (BYPASS, RESET, TERMALL, VSC,
-PTERM, SEGSYM), HT code-blocks and Part 2's multi-component transform
-markers raise `UnsupportedImage`.
+Every code-block style of Part 1 is read, alone or mixed: BYPASS (raw
+significance and refinement passes below the fourth bit-plane), RESET
+(contexts reset after each pass), TERMALL (each pass its own segment), VSC
+(stripe-causal contexts), PTERM (predictable termination, which OpenJPEG
+does not check for cv2) and SEGSYM (segmentation symbols after each cleanup
+pass); see `data/j2k_t1.py`.  HT code-blocks (Part 15, style 0x40) and Part
+2's multi-component transform markers raise `UnsupportedImage`.
 """
 
 from __future__ import annotations
@@ -93,7 +97,7 @@ MAIN_ONLY = {TLM, PLM, PPM, CRG, 0xFF50, 0xFF59}
 TILE_ONLY = {PLT, PPT}
 BOTH = {COD, COC, RGN, QCD, QCC, POC, COM} | PART2
 KNOWN = MAIN_ONLY | TILE_ONLY | BOTH | {SIZ, SOT, 0xFF91}
-UNPORTED_STYLES = 0x01 | 0x02 | 0x04 | 0x08 | 0x10 | 0x20 | 0x40
+UNPORTED_STYLES = 0x40                   # HT (Part 15)
 SRGB, GRAY, SYCC, UNKNOWN = "sRGB", "grey", "sYCC", "unknown"
 
 
@@ -457,26 +461,28 @@ def _stepsize(expn: int, mant: int, prec: int) -> np.float32:
 
 
 def tile_packets(cs: Codestream, tno: int, ppm: dict, spans: list | None = None):
-    """Tier-2 of tile `tno`: its bounds, COD and components (resolutions,
-    bands, precincts, code-blocks holding their data).  `ppm`: the main
-    header's packed headers per tile; `spans` as `read_packets` takes it."""
+    """Tier-2 of tile `tno`: its bounds, COD, components (resolutions,
+    bands, precincts, code-blocks holding their data) and each component's
+    highest resolution among its packets.  `ppm`: the main header's packed
+    headers per tile; `spans` as `read_packets` takes it."""
     t = cs.tiles[tno]
     tb = _tile_bounds(cs, tno)
     cod = t["cod"] or cs.main["cod"]
-    comps = []
+    comps, styles = [], []
     for c in range(len(cs.comps)):
         cp, qp, _ = cs.params(t, c)
         if cp["style"] & UNPORTED_STYLES:
             raise unsupported(f"JPEG 2000 code-block style {cp['style']:#04x}", CONTAINERS)
         comps.append(tile_component(*tb, cp, qp))
+        styles.append(cp["style"])
     headers = None
     if t["ppt"]:
         headers = b"".join(body for _, body in sorted(t["ppt"], key=lambda z: z[0]))
     elif tno in ppm:
         headers = ppm[tno]
-    read_packets(b"".join(t["data"]), headers, comps, tb, cod, cod["layers"],
-                 t["poc"] or cs.main["poc"], spans)
-    return tb, cod, comps
+    resno = read_packets(b"".join(t["data"]), headers, comps, tb, cod, cod["layers"],
+                         t["poc"] or cs.main["poc"], styles, spans)
+    return tb, cod, comps, resno
 
 
 def decode_codestream(cs: Codestream) -> list:
@@ -486,10 +492,12 @@ def decode_codestream(cs: Codestream) -> list:
     planes = [np.zeros((h, w), np.int32) for _ in range(ncomp)]
     ppm = _ppm_headers(cs) if cs.main["ppm"] else {}
     tiles, blocks = [], []
+    resno = [0] * ncomp               # OpenJPEG's resno_decoded, a running max over tiles
     for tno in sorted(cs.tiles):
-        tb, cod, comps = tile_packets(cs, tno, ppm)
+        tb, cod, comps, got = tile_packets(cs, tno, ppm)
+        resno = [max(a, b) for a, b in zip(resno, got)]
         for c in range(ncomp):
-            roi = cs.params(cs.tiles[tno], c)[2]
+            cp, _, roi = cs.params(cs.tiles[tno], c)
             for res in comps[c]:
                 for band in res.bands:
                     for prc in band.precincts:
@@ -500,20 +508,30 @@ def decode_codestream(cs: Codestream) -> list:
                             if cb.passes:
                                 blocks.append({"w": cb.x1 - cb.x0, "h": cb.y1 - cb.y0,
                                                "orient": band.orient, "passes": cb.passes,
-                                               "numbps": cb.numbps + roi,
-                                               "data": b"".join(cb.chunks)[:cb.first_len],
+                                               "numbps": cb.numbps + roi, "mb": cb.numbps,
+                                               "style": cp["style"],
+                                               "data": b"".join(cb.chunks),
+                                               "segs": [(n, ln) for _, n, ln in cb.segs],
                                                "cb": cb})
-        tiles.append((tno, tb, cod, comps))
+        tiles.append((tno, tb, cod, comps,
+                      [min(r, len(comps[c]) - 1) for c, r in enumerate(resno)]))
     coefs = decode_blocks(blocks)
     for b, coef in zip(blocks, coefs):
         b["cb"].coef = coef
-    for tno, tb, cod, comps in tiles:
-        _reconstruct(cs, cs.tiles[tno], tb, cod, comps, planes)
+    for tno, tb, cod, comps, rd in tiles:
+        _reconstruct(cs, cs.tiles[tno], tb, cod, comps, rd, planes)
     return planes
 
 
-def _reconstruct(cs: Codestream, t: dict, tb: tuple, cod: dict, comps: list,
+def _reconstruct(cs: Codestream, t: dict, tb: tuple, cod: dict, comps: list, rd: list,
                  planes: list) -> None:
+    """Dequantise, inverse-transform and write one tile.  A component whose
+    packets stop below its top resolution (`rd`, a POC that leaves the top
+    out) is reconstructed as OpenJPEG does: the wavelet up to that
+    resolution, the colour transform (refused where the three components
+    stop at different resolutions), the level shift and clamp over the
+    reduced image, which lands at its reduced origin; the rest of the
+    output stays 0."""
     tw, th = tb[2] - tb[0], tb[3] - tb[1]
     bufs, revs = [], []
     for c, res_list in enumerate(comps):
@@ -542,21 +560,27 @@ def _reconstruct(cs: Codestream, t: dict, tb: tuple, cod: dict, comps: list,
                         else:
                             buf[y:y + v.shape[0], x:x + v.shape[1]] = \
                                 v.astype(np.float32) * half
-        sizes = [(res.x0, res.y0, res.x1, res.y1) for res in res_list]
+        sizes = [(res.x0, res.y0, res.x1, res.y1) for res in res_list[:rd[c] + 1]]
         bufs.append(idwt(buf, sizes, rev))
         revs.append(rev)
+    out_res = [res_list[rd[c]] for c, res_list in enumerate(comps)]
+    bufs = [b[:r.y1 - r.y0, :r.x1 - r.x0] for b, r in zip(bufs, out_res)]
     if cod["mct"] and len(bufs) >= 3:
+        if rd[0] != rd[1] or rd[0] != rd[2] or bufs[0].size != bufs[1].size or \
+                bufs[0].size != bufs[2].size:
+            raise UnreadableImage("JPEG 2000 colour transform over components decoded to "
+                                  "different resolutions (OpenJPEG refuses it)")
+        y, u, v = bufs[0], bufs[1], bufs[2]
         if revs[0]:
-            y, u, v = bufs[0], bufs[1], bufs[2]
             g = y - ((u + v) >> 2)
             bufs[0], bufs[1], bufs[2] = v + g, g, u + g
         else:
-            y, u, v = bufs[0], bufs[1], bufs[2]
             r = y + v * np.float32(1.402)
             g = y - u * np.float32(0.34413) - v * np.float32(0.71414)
             b = y + u * np.float32(1.772)
             bufs[0], bufs[1], bufs[2] = r, g, b
     for c, buf in enumerate(bufs):
+        res = out_res[c]
         comp = cs.comps[c]
         prec, sgnd = comp["prec"], comp["sgnd"]
         lo, hi = (-(1 << (prec - 1)), (1 << (prec - 1)) - 1) if sgnd else (0, (1 << prec) - 1)
@@ -569,7 +593,7 @@ def _reconstruct(cs: Codestream, t: dict, tb: tuple, cod: dict, comps: list,
         else:
             vals = buf
         out = np.clip(vals + shift, lo, hi)
-        planes[c][tb[1] - cs.Y0:tb[3] - cs.Y0, tb[0] - cs.X0:tb[2] - cs.X0] = out
+        planes[c][res.y0 - cs.Y0:res.y1 - cs.Y0, res.x0 - cs.X0:res.x1 - cs.X0] = out
 
 
 def _check_color(n: int, color: dict) -> None:

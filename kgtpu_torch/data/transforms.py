@@ -1,5 +1,5 @@
 """Host-side transforms: counterpart of `kgtpu/data/transforms.py` without
-cv2 (and of the NumPy paths of its native ops).
+cv2.
 
 kgtpu warps with cv2 5.0; here the same arithmetic is written out, so each
 function equals kgtpu's result exactly:
@@ -22,7 +22,9 @@ function equals kgtpu's result exactly:
     augmentation.  cv2.remap with f32 maps samples as warpAffine does, with
     the maps as the source points;
   * `boxes_from_label_map`, `renumber_label_map`: label map -> the train
-    batch's instance contract.
+    batch's instance contract, through the compiled host ops
+    (`kgtpu_torch/native.py`) where g++ built them, as kgtpu takes its own,
+    else through NumPy with the same results.
 
 The warps run as torch ops, which release the interpreter lock, so the
 loader's worker threads overlap.
@@ -35,6 +37,7 @@ import math
 import numpy as np
 import torch
 
+from kgtpu_torch import native
 from kgtpu_torch.data import draw
 
 
@@ -275,7 +278,11 @@ def boxes_from_label_map(label: np.ndarray, max_instances: int
     Returns (boxes [N, 4] f32, valid [N] f32, remap [N] int32): remap[i] is
     the original id of slot i (0 for padding).  Instances of fewer than 4
     pixels are dropped; the biggest survive truncation, ties by ascending id.
+    One pass in the compiled op, else per-id scans in NumPy.
     """
+    out = native.boxes_from_label_map(label, max_instances)
+    if out is not None:
+        return out
     n = max_instances
     ids = np.unique(label)
     ids = ids[ids > 0]
@@ -301,8 +308,11 @@ def boxes_from_label_map(label: np.ndarray, max_instances: int
 
 def renumber_label_map(label: np.ndarray, remap: np.ndarray) -> np.ndarray:
     """Renumber label ids so that slot i's instance has id i + 1 (0 stays
-    background; ids of dropped instances become 0)."""
-    out = np.zeros_like(label)
+    background; ids of dropped instances become 0), as int32."""
+    out = native.renumber_label_map(label, remap)
+    if out is not None:
+        return out
+    out = np.zeros(np.shape(label), np.int32)
     for slot, orig in enumerate(remap):
         if orig > 0:
             out[label == orig] = slot + 1

@@ -15,14 +15,22 @@ Four protocols:
     SQ = mean matched IoU and RQ = TP/(TP + FP/2 + FN/2), aggregated over
     the dataset.
 
-All four read the same per-image records.  Pure NumPy: kgtpu's optional
-compiled IoU op is left out, and its NumPy fallback (one joint bincount per
-image) defines the semantics here.
+All four read the same per-image records.  The IoUs that "dsb2018" and
+"coco" match on are f32, as kgtpu computes them by default: its compiled op
+(`kgtpu/native`, taken wherever g++ builds it) divides the counts as
+(float)inter / (float)union.  Here `iou_from_label_maps` takes the port's
+copy of that op (`kgtpu_torch/native.py`) where it is built, and else
+divides the same counts as f32 in NumPy, which equals the C division bit
+for bit; a match whose IoU lies within an f32 rounding of a threshold thus
+goes as it goes in kgtpu.  AJI and PQ keep their f64 arithmetic, as
+kgtpu's do.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from kgtpu_torch import native
 
 IOU_THRESHOLDS = np.arange(0.5, 1.0, 0.05)
 
@@ -48,14 +56,22 @@ def iou_from_label_maps(pred: np.ndarray, gt: np.ndarray
                         ) -> tuple[np.ndarray, list[int], list[int]]:
     """IoU between the *present* instances of two label maps.
 
-    Returns (iou [P, G], pred_ids, gt_ids) where rows/cols follow the
-    ascending present-id order; one joint-bincount pass (`_pair_stats`).
+    Returns (iou [P, G] f32, pred_ids, gt_ids) where rows/cols follow the
+    ascending present-id order: the compiled op's dense matrix at those
+    ids, or f32 quotients of one joint-bincount pass (`_pair_stats`).
     """
     pred_ids = [int(i) for i in np.unique(pred) if i > 0]
     gt_ids = [int(i) for i in np.unique(gt) if i > 0]
-    inter, p_area, g_area = _pair_stats(pred, gt)
+    if not pred_ids or not gt_ids:
+        return np.zeros((len(pred_ids), len(gt_ids))), pred_ids, gt_ids
+    dense = native.label_map_iou(pred, gt)
+    if dense is not None:
+        return dense[np.ix_([i - 1 for i in pred_ids], [i - 1 for i in gt_ids])], \
+            pred_ids, gt_ids
+    # ids below 0 are background, as in the compiled op
+    inter, p_area, g_area = _pair_stats(np.maximum(pred, 0), np.maximum(gt, 0))
     union = p_area[:, None] + g_area[None, :] - inter
-    return inter / np.maximum(union, 1e-9), pred_ids, gt_ids
+    return inter.astype(np.float32) / union.astype(np.float32), pred_ids, gt_ids
 
 
 def greedy_tp_flags(iou: np.ndarray, scores: np.ndarray,

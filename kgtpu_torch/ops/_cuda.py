@@ -4,9 +4,11 @@ plain C interface, loaded with ctypes.
 `build(src)` compiles one source under `kgtpu_torch/csrc/` for Hopper
 (`sm_90a`) into `kgtpu_torch/_build/`, named by a hash of the source and the
 flags, so a changed source or flag set builds anew and an unchanged one is
-reused.  `load(src, fn, argtypes)` builds, opens the library once per source
-and returns its C function with `argtypes` set (ctypes would otherwise pass
-every Python int as a 32-bit int and cut the pointers).  `call_on(device,
+reused; `build(src, host=True)` compiles a host C++ source (the host ops of
+`kgtpu_torch/native.py`) with g++ the same way.  `load(src, fn, argtypes)`
+builds, opens the library once per source and returns its C function with
+`argtypes` set (ctypes would otherwise pass every Python int as a 32-bit int
+and cut the pointers).  `call_on(device,
 fn, *args)` calls a loaded function with its arguments' device current and
 the handle of that device's current stream as the last argument.  Nothing
 is built when a module is imported: the CPU tests import every module, and
@@ -31,6 +33,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # No --use_fast_math: the Gaussian kernel needs expf's exact exp(-0) = 1.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -44,12 +47,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(src: str) -> str:
+def _gxx() -> str:
+    cand = shutil.which("g++")
+    if cand is None:
+        raise RuntimeError("g++ not found: the host ops cannot be built")
+    return cand
+
+
+def build(src: str, host: bool = False) -> str:
     """Compile csrc/`src` into a shared library (once per source and flag
-    hash) and return its path."""
+    hash) with nvcc, or with g++ when `host`, and return its path."""
     path = os.path.join(CSRC, src)
+    flags = GXX_FLAGS if host else NVCC_FLAGS
     with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()
     stem = os.path.splitext(src)[0]
     out = os.path.join(BUILD_DIR, f"libkgtpu_{stem}_{digest[:16]}.so")
     if os.path.exists(out):
@@ -58,11 +69,12 @@ def build(src: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, path], check=True,
+        subprocess.run([_gxx() if host else _nvcc(), *flags, "-o", tmp, path], check=True,
                        capture_output=True, text=True)
         os.replace(tmp, out)
     except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed on {src}:\n{e.stdout}\n{e.stderr}") from e
+        raise RuntimeError(f"{'g++' if host else 'nvcc'} failed on {src}:\n{e.stdout}\n"
+                           f"{e.stderr}") from e
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)

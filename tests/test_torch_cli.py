@@ -429,11 +429,9 @@ def test_cli_tta_ensemble_tiled_match_kgtpu_test_py(cli_variant_runs, variant):
 
 @pytest.mark.parametrize("protocol", ["dsb2018", "all"])
 def test_cli_eval_matches_kgtpu_eval_py(cli_runs, protocol, monkeypatch, capsys):
-    """eval.py (in-process, kgtpu's NumPy IoU) and cli.eval print equal JSON
-    on kgtpu's outputs, and on the port's own outputs cli.eval prints what
-    eval.py printed on kgtpu's."""
-    from kgtpu import native
-    monkeypatch.setattr(native, "label_map_iou", lambda pred, gt: None)
+    """eval.py (in-process, kgtpu's default compiled IoU) and cli.eval print
+    equal JSON on kgtpu's outputs, and on the port's own outputs cli.eval
+    prints what eval.py printed on kgtpu's."""
     monkeypatch.setenv("KGTPU_COMPILE_CACHE", "off")
     kgtpu_eval = _load_script("eval")
     out = {}

@@ -1,14 +1,15 @@
 """The port's evaluation and COCO export against kgtpu's, on random label
 maps made from a seed.
 
-kgtpu's NumPy fallback of `iou_from_label_maps` defines the semantics the
-port copies: its compiled IoU op (`kgtpu/native`, taken when a C++ compiler
-is found) returns f32 IoUs, which move a match whose IoU lies within an f32
-rounding of a threshold (seen here: one random image scores 0.53 with it and
-0.5225 with the fallback).  So kgtpu runs with the compiled op switched off.
+kgtpu runs as it runs by default: `iou_from_label_maps` through its compiled
+IoU op (`kgtpu/native`, built with g++), whose IoUs are f32.  Its NumPy
+fallback divides in f64, which moves a match whose IoU lies within an f32
+rounding of a threshold: one random image here (seed 2, image 2) scores
+0.53 with the op and 0.5225 without, and the port must score 0.53, with its
+own compiled op and with its NumPy path forced.
 
-Tolerances: metrics and IoUs to 1e-12 (the same NumPy arithmetic); TP
-flags, RLE counts, masks and COCO records exactly.
+Tolerances: metrics and IoUs to 1e-12 (the same arithmetic); TP flags, RLE
+counts, masks and COCO records exactly.
 """
 
 import json
@@ -23,10 +24,11 @@ from kgtpu_torch import coco_export, evaluate
 TOL = 1e-12
 
 
-@pytest.fixture(autouse=True)
-def kgtpu_numpy_iou(monkeypatch):
-    from kgtpu import native
-    monkeypatch.setattr(native, "label_map_iou", lambda pred, gt: None)
+@pytest.fixture
+def port_numpy_iou(monkeypatch):
+    """The port without its compiled host ops, as on a machine without g++."""
+    from kgtpu_torch import native
+    monkeypatch.setattr(native, "get_lib", lambda: None)
 
 
 def label_map(rng, h, w, n, max_side=14):
@@ -126,6 +128,42 @@ def test_per_image_functions_match_kgtpu(seed):
         _close(evaluate.aji_image(p, g), jax_eval.aji_image(p, g))
         for a, b in zip(evaluate._pair_stats(p, g), jax_eval._pair_stats(p, g)):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_numpy_iou_path_equals_kgtpu_default(port_numpy_iou, seed):
+    """With the port's compiled op unavailable, its f32 NumPy quotients are
+    kgtpu's default IoUs bit for bit, and every metric follows."""
+    recs = records(seed + 20)
+    for rec in recs:
+        iou, pid, gid = evaluate.iou_from_label_maps(rec["pred_label"], rec["gt_label"])
+        jiou, jpid, jgid = jax_eval.iou_from_label_maps(rec["pred_label"], rec["gt_label"])
+        assert (pid, gid) == (jpid, jgid)
+        if iou.size:
+            assert iou.dtype == jiou.dtype == np.float32
+        np.testing.assert_array_equal(iou, jiou)
+    _close(evaluate.evaluate_dsb2018(recs), jax_eval.evaluate_dsb2018(recs))
+    _close(evaluate.evaluate_coco(recs), jax_eval.evaluate_coco(recs))
+
+
+@pytest.mark.parametrize("path", ["compiled", "numpy"])
+def test_threshold_tie_scores_as_kgtpu_default(monkeypatch, path):
+    """An image with a match whose IoU lies within an f32 rounding of a
+    threshold scores what kgtpu scores by default (its compiled f32 IoU),
+    not what kgtpu's f64 fallback scores, on both of the port's paths."""
+    from kgtpu import native as jax_native
+    from kgtpu_torch import native
+    if path == "numpy":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+    else:
+        assert native.get_lib() is not None, native.error
+    rec = [records(2)[2]]
+    want = jax_eval.evaluate_dsb2018(rec)["mAP_dsb2018"]
+    got = evaluate.evaluate_dsb2018(rec)["mAP_dsb2018"]
+    assert got == want == pytest.approx(0.53, abs=TOL)
+    monkeypatch.setattr(jax_native, "label_map_iou", lambda pred, gt: None)
+    fallback = jax_eval.evaluate_dsb2018(rec)["mAP_dsb2018"]
+    assert fallback == pytest.approx(0.5225, abs=TOL) and got != fallback
 
 
 def test_empty_inputs_match_kgtpu():

@@ -74,7 +74,8 @@ def test_port_imports_with_jax_and_cv2_blocked():
         "import kgtpu_torch.data.gif, kgtpu_torch.data.webp, kgtpu_torch.data.vp8l\n"
         "import kgtpu_torch.data.vp8, kgtpu_torch.data.vp8_pixels, kgtpu_torch.data.vp8_tables\n"
         "import kgtpu_torch.data.jpeg2000, kgtpu_torch.data.j2k_t2, kgtpu_torch.data.j2k_t1\n"
-        "import kgtpu_torch.data.j2k_dwt\n"
+        "import kgtpu_torch.data.j2k_dwt, kgtpu_torch.native\n"
+        "assert kgtpu_torch.native.get_lib() is not None, kgtpu_torch.native.error\n"
         "import importlib.util as u\n"
         "s = u.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "s.loader.exec_module(u.module_from_spec(s))\n"

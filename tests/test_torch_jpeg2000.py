@@ -10,9 +10,11 @@ codestream and its packet headers moved into PPT or PPM markers, a tile
 offset (which needs an image offset, which cv2 refuses), codestreams cut
 short or with a byte flipped, damaged boxes and markers (one per rule of
 OpenJPEG's reader), random damage anywhere, and a
-seeded sweep of random files; the code-block styles the port queues.
+seeded sweep of random files; the code-block styles (BYPASS, RESET,
+TERMALL, VSC, PTERM, SEGSYM and their mixes, written by libopenjp2 through
+`tools/variant_encoders.jpeg2000_opj`) and HT, which the port queues.
 
-Files are written in tmp_path by cv2 and PIL under a .png name (cv2 picks
+Files are written in tmp_path by cv2, PIL and libopenjp2 under a .png name (cv2 picks
 the decoder by content) and held against cv2.imread in the three read
 modes.  Where cv2 returns None the port must raise `UnreadableImage` (a
 FileNotFoundError).
@@ -412,18 +414,105 @@ def test_random_files_read_like_cv2(tmp_path, seed):
     assert read > 25
 
 
+def clean(h, w, c=3, prec=8):
+    """Smooth content without noise: libopenjp2's encoder overruns its
+    buffers on noise in TERMALL (and can corrupt its heap at 16 bits)."""
+    y, x = np.mgrid[:h, :w]
+    top = (1 << prec) - 1
+    a = np.stack([(0.5 + 0.45 * np.sin(x * 0.3 * (k + 1) + y * 0.17 + k)) * top
+                  for k in range(c)], -1).astype(np.uint16 if prec > 8 else np.uint8)
+    return a[..., 0] if c == 1 else a
+
+
 @pytest.mark.parametrize("style", [0x01, 0x02, 0x04, 0x08, 0x10, 0x20])
 def test_unported_codeblock_styles_raise_unsupported(tmp_path, style):
-    """A COD whose code-block style asks for BYPASS, RESET, TERMALL, VSC,
-    PTERM or SEGSYM (no writer here makes them): cv2 reads the file, the
-    port names the ROADMAP item that queues them."""
-    b = bytearray(pil(smooth(24, 32), no_jp2=True))
+    """(Named when the port refused these styles.)  A codestream whose
+    code-block style is BYPASS, RESET, TERMALL, VSC, PTERM or SEGSYM, from
+    libopenjp2's own encoder, RGB with the colour transform and grey in a
+    JP2: read in every mode as cv2 reads it, and lossless."""
+    rgb = clean(40, 56)
+    assert read_all(tmp_path, ve.jpeg2000_opj(rgb, style=style)) == 3
+    np.testing.assert_array_equal(read_image(str(tmp_path / "image.png"), "unchanged"), rgb)
+    assert read_all(tmp_path, ve.jpeg2000_opj(rgb[..., 1], style=style, resolutions=3,
+                                              cblk=(16, 8), jp2=True)) == 3
+
+
+@pytest.mark.parametrize("case", ["all63", "all63_97_layers", "bypass_layers_cblk4",
+                                  "grey16_all63", "termall_reset_rgba_no_mct"])
+def test_codeblock_style_mixes_read_like_cv2(tmp_path, case):
+    """Every style at once (63), the 9/7 wavelet in three quality layers,
+    BYPASS over several lossless layers with 4x4 code-blocks, 16-bit grey
+    and four components without the colour transform: exactly as cv2."""
+    kw = {"all63": dict(style=63),
+          "all63_97_layers": dict(style=63, irreversible=True, layers=(40.0, 20.0, 8.0)),
+          "bypass_layers_cblk4": dict(style=0x01, layers=(30.0, 10.0, 0.0), cblk=(4, 4),
+                                      resolutions=3),
+          "grey16_all63": dict(style=63, prec=16, layers=(20.0, 0.0), jp2=True),
+          "termall_reset_rgba_no_mct": dict(style=0x06, mct=False, jp2=True)}[case]
+    px = clean(40, 56, 1 if case.startswith("grey") else 4 if "rgba" in case else 3,
+               16 if case.startswith("grey16") else 8)
+    assert read_all(tmp_path, ve.jpeg2000_opj(px, **kw)) >= 2
+
+
+def test_committed_style_fixtures_read_like_cv2():
+    """formats/jpeg2000_styles (the fixtures `chip_smoke.py` [17] decodes):
+    every file in every mode against cv2's stored hashes."""
+    import json
+    import os
+
+    from tools.make_torch_format_assets import sha
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "assets_torch")
+    ref = np.load(os.path.join(root, "kgtpu_reference_formats.npz"))
+    decodes = json.loads(str(ref["jpeg2000_styles_decode_json"]))
+    assert len(decodes) == 30
+    for d in decodes:
+        path = os.path.join(root, "formats", "jpeg2000_styles", d["path"])
+        if d["sha256"] is None:
+            with pytest.raises(UnreadableImage):
+                read_image(path, d["mode"])
+            continue
+        got = read_image(path, d["mode"])
+        assert (sha(got), list(got.shape), str(got.dtype)) == \
+            (d["sha256"], d["shape"], d["dtype"]), d
+
+
+@pytest.mark.parametrize("case", ["rct_res3", "ict_res3", "tiles_rct_res2", "tiles_ict_res3",
+                                  "apart_with_mct", "apart_without_mct", "progression_7",
+                                  "grey_res2"])
+def test_poc_leaving_resolutions_out_reads_like_cv2(tmp_path, case):
+    """POC entries that never reach the top resolutions (or name no
+    progression, which runs no packet): OpenJPEG's `resno_decoded` stops
+    lower, and cv2 returns the reduced image in the top-left corner, zeros
+    elsewhere; components stopped at different resolutions refuse the
+    colour transform.  (A damaged COM turned POC in the damage probe.)"""
+    a = smooth(40, 48)
+    kw = dict(no_jp2=True, irreversible="ict" in case)
+    if case.startswith("tiles"):
+        cs = pil(a, tile_size=(16, 16), num_resolutions=4, mct=1, **kw)
+    elif case == "grey_res2":
+        cs = pil(a[..., 0], num_resolutions=4, **kw)
+    else:
+        cs = pil(a, num_resolutions=6, mct=0 if case == "apart_without_mct" else 1, **kw)
+    entries = {"rct_res3": [(0, 0, 1, 3, 3, 0)], "ict_res3": [(0, 0, 1, 3, 3, 0)],
+               "tiles_rct_res2": [(0, 0, 1, 2, 3, 0)], "tiles_ict_res3": [(0, 0, 1, 3, 3, 1)],
+               "apart_with_mct": [(0, 0, 1, 3, 3, 0), (3, 0, 1, 5, 1, 0)],
+               "apart_without_mct": [(0, 0, 1, 3, 3, 0), (3, 0, 1, 5, 1, 0)],
+               "progression_7": [(0, 0, 1, 3, 3, 7)], "grey_res2": [(0, 0, 1, 2, 1, 1)]}[case]
+    read = read_all(tmp_path, after_cod(cs, poc(*entries)))
+    assert read == {"apart_with_mct": 0, "grey_res2": 2}.get(case, 3)
+
+
+def test_ht_codeblocks_raise_unsupported(tmp_path):
+    """A COD asking for HT code-blocks (Part 15, style 0x40): the port names
+    the ROADMAP item that queues them (§1 item 2)."""
+    b = bytearray(ve.jpeg2000_opj(clean(24, 32), resolutions=3))
     at = b.index(b"\xff\x52") + 4 + 8            # Scod, SGcod, then NL, xcb, ycb, style
-    b[at] = style
+    assert b[at] == 0
+    b[at] = 0x40
     path = str(tmp_path / "image.png")
     with open(path, "wb") as f:
         f.write(bytes(b))
-    assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None
     for mode in MODES:
         with pytest.raises(UnsupportedImage, match=CONTAINERS):
             read_image(path, mode)

@@ -24,7 +24,7 @@ them is:
                              [16], `ids`, and `metrics_json`: eval.py's
                              metrics of each run (mAP_dsb2018, COCO AP, AJI,
                              PQ) against the ground truth, with kgtpu's
-                             NumPy IoU (its compiled IoU op is switched off).
+                             default IoU (its compiled f32 op).
   flagship_raw/model_99/     the flagship's raw (non-EMA) parameters, f32,
                              params only (tools/orbax_to_torch.py
                              --params_only): the second ensemble member
@@ -59,11 +59,16 @@ them is:
                              batch 8).  Per configuration c and dtype d:
                              `labels_<c>_<d>`, `counts_<c>_<d>`, and
                              `metrics_json` (the metrics against the ground
-                             truth, with kgtpu's NumPy IoU) with `ids`.
+                             truth, with kgtpu's default IoU) with `ids`.
 
 --only tta writes flagship_raw and kgtpu_reference_tta.npz alone, --only
 unet writes unet_ema and kgtpu_reference_unet.npz alone, each from the
 committed images and labels, and leave the rest as it is.
+
+--only rescore runs no model: it recomputes the metrics of every run stored
+in kgtpu_reference.npz, kgtpu_reference_tta.npz, kgtpu_reference_unet.npz
+and kgtpu_reference_formats.npz with kgtpu's default evaluate from the label
+maps and ground truth they hold (`rescore`).
 """
 
 from __future__ import annotations
@@ -109,11 +114,14 @@ def mosaic(tiles: list, rows: int):
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
-    p.add_argument("--only", default="", choices=["", "tta", "unet"],
+    p.add_argument("--only", default="", choices=["", "tta", "unet", "rescore"],
                    help="tta: write flagship_raw and kgtpu_reference_tta.npz alone; "
-                        "unet: unet_ema and kgtpu_reference_unet.npz alone")
+                        "unet: unet_ema and kgtpu_reference_unet.npz alone; rescore: "
+                        "recompute the stored metrics from the stored label maps")
     a = p.parse_args(argv)
     out = a.out
+    if a.only == "rescore":
+        return rescore(out)
     if a.only == "tta":
         return make_tta_reference(out)
     if a.only == "unet":
@@ -125,7 +133,7 @@ def main(argv: list[str] | None = None) -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from kgtpu import checkpoint, evaluate, native
+    from kgtpu import checkpoint, evaluate
     from kgtpu.config import Config
     from kgtpu.data.folder import ImageFolder
     from kgtpu.data.loader import _prepare_sample
@@ -151,9 +159,6 @@ def main(argv: list[str] | None = None) -> int:
                     s["label_map"].astype(np.uint16))
         gt[s["id"]] = s["label_map"]
 
-    # the metric's semantics are kgtpu's NumPy IoU (f64); its compiled IoU op
-    # rounds IoUs to f32, which moves matches that lie on a threshold
-    native.label_map_iou = lambda pred, gt: None
     params, extra = checkpoint.restore_bundle(FLAGSHIP, use_ema=True)
     stored = checkpoint.decode_config(extra)
     folder = ImageFolder(img_dir)
@@ -197,6 +202,101 @@ def main(argv: list[str] | None = None) -> int:
     return make_tta_reference(out)
 
 
+def rescore(out: str) -> int:
+    """Every stored run's metrics again, with kgtpu's default evaluate (its
+    compiled IoU op, f32 IoUs), from the stored label maps and the ground
+    truth (synthetic_hard/labels; the tiled slides' mosaics).
+
+    The files hold no scores, but a kgtpu label map's ids follow its score
+    order (slot k <-> id k + 1, slots ranked by score), which is all the
+    per-image greedy matching reads: with scores falling by id, the metrics
+    of each run with f64 IoUs equal the stored ones bit for bit (checked
+    here).  So mAP_dsb2018 is recomputed exactly; AJI and PQ do not read
+    the IoU op and stay; COCO AP ranks detections across images by score,
+    so AP_coco, AP50 and AP75 stay where no match at their thresholds moves
+    and become null where one does (the scores that would place it are not
+    stored).  Writes the files in place; prints each change."""
+    import cv2
+    import numpy as np
+
+    from kgtpu import evaluate, native
+
+    lab_dir = os.path.join(out, "synthetic_hard", "labels")
+    ids = sorted(f[:-4] for f in os.listdir(lab_dir))
+    gt = {i: cv2.imread(os.path.join(lab_dir, f"{i}.png"), cv2.IMREAD_UNCHANGED)
+          .astype(np.int32) for i in ids}
+    for k in range(len(ids) // 4):
+        labs, off = [], 0
+        for i in ids[4 * k:4 * k + 4]:
+            labs.append(np.where(gt[i] > 0, gt[i] + off, 0))
+            off += int(gt[i].max())
+        gt[f"slide_{k}"] = mosaic(labs, 2)
+    compiled = native.label_map_iou
+
+    def flags(recs: list, f64: bool) -> list:
+        native.label_map_iou = (lambda pred, g: None) if f64 else compiled
+        try:
+            return [evaluate.greedy_tp_flags(*evaluate._rec_iou(r)[:2])
+                    if evaluate._rec_iou(r)[2] else None for r in recs]
+        finally:
+            native.label_map_iou = compiled
+
+    def run(name: str, labels, names, m: dict) -> None:
+        recs = []
+        for lab, i in zip(labels, names):
+            lab = lab.astype(np.int32)
+            n = max(int(lab.max()), 1)
+            recs.append({"pred_label": lab, "gt_label": gt[str(i)],
+                         "scores": (1.0 - np.arange(n) / (2.0 * n)).astype(np.float32)})
+        native.label_map_iou = lambda pred, g: None
+        try:
+            old = evaluate.evaluate_dsb2018(recs)["mAP_dsb2018"]
+        finally:
+            native.label_map_iou = compiled
+        assert old == m["mAP_dsb2018"], (name, old, m["mAP_dsb2018"])
+        moved = set()
+        for a, b in zip(flags(recs, True), flags(recs, False)):
+            if a is not None:
+                moved |= {int(t) for t in np.nonzero((a != b).any(1))[0]}
+        new = dict(m, mAP_dsb2018=evaluate.evaluate_dsb2018(recs)["mAP_dsb2018"])
+        if moved:
+            new["AP_coco"] = None
+        if 0 in moved:
+            new["AP50"] = None
+        if 5 in moved:
+            new["AP75"] = None
+        new["iou"] = "f32 (kgtpu's compiled op)"
+        for key in m:
+            if new[key] != m[key]:
+                print(f"{name}: {key} {m[key]!r} -> {new[key]!r}")
+        m.clear()
+        m.update(new)
+
+    def rewrite(fname: str, runs) -> None:
+        path = os.path.join(out, fname)
+        with np.load(path) as z:
+            data = {k: z[k] for k in z.files}
+        for key, names in runs:
+            metrics = json.loads(str(data[key]))
+            for name in names:
+                prefix = key[:-len("metrics_json")]
+                stem = f"{prefix}{name}" if prefix else name
+                ids_key = (f"ids_{name}" if f"ids_{name}" in data
+                           else f"{prefix}ids")
+                run(f"{fname} {stem}", data[f"labels_{stem}"], data[ids_key], metrics[name])
+            data[key] = np.array(json.dumps(metrics))
+        np.savez_compressed(path, **data)
+
+    rewrite("kgtpu_reference.npz", [("metrics_json", ["bfloat16", "float32"])])
+    rewrite("kgtpu_reference_tta.npz", [("metrics_json", ["tta", "ensemble", "tiled"])])
+    rewrite("kgtpu_reference_unet.npz", [("metrics_json", [
+        "unet_float32", "unet_bfloat16", "ensemble_float32", "ensemble_bfloat16"])])
+    rewrite("kgtpu_reference_formats.npz", [("metrics_json", ["bfloat16", "float32"])] + [
+        (f"{key}_metrics_json", ["bfloat16", "float32"])
+        for key in ("variants", "containers", "jpeg2000", "variants2")])
+    return 0
+
+
 def _score(evaluate, recs: list) -> dict:
     return {"mAP_dsb2018": evaluate.evaluate_dsb2018(recs)["mAP_dsb2018"],
             **evaluate.evaluate_coco(recs),
@@ -215,7 +315,7 @@ def make_tta_reference(out: str) -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from kgtpu import checkpoint, evaluate, native
+    from kgtpu import checkpoint, evaluate
     from kgtpu.config import build_test_parser, config_from_test_args
     from kgtpu.data.folder import ImageFolder
     from kgtpu.data.loader import _prepare_sample
@@ -224,7 +324,6 @@ def make_tta_reference(out: str) -> int:
     from tools.orbax_to_torch import convert
 
     print(convert(FLAGSHIP, os.path.join(out, "flagship_raw"), params_only=True))
-    native.label_map_iou = lambda pred, gt: None          # kgtpu's NumPy IoU
     img_dir = os.path.join(out, "synthetic_hard", "images")
     lab_dir = os.path.join(out, "synthetic_hard", "labels")
     images = ImageFolder(img_dir)
@@ -331,7 +430,7 @@ def make_unet_reference(out: str) -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from kgtpu import checkpoint, evaluate, native
+    from kgtpu import checkpoint, evaluate
     from kgtpu.config import build_test_parser, config_from_test_args
     from kgtpu.data.folder import ImageFolder
     from kgtpu.data.loader import _prepare_sample
@@ -340,7 +439,6 @@ def make_unet_reference(out: str) -> int:
     from tools.orbax_to_torch import convert
 
     print(convert(UNET, os.path.join(out, "unet_ema"), use_ema=True, params_only=True))
-    native.label_map_iou = lambda pred, gt: None          # kgtpu's NumPy IoU
     img_dir = os.path.join(out, "synthetic_hard", "images")
     lab_dir = os.path.join(out, "synthetic_hard", "labels")
     images = ImageFolder(img_dir)

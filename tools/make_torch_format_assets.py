@@ -3,7 +3,7 @@
 assets_torch/formats/, and kgtpu's references for them.
 
     python tools/make_torch_format_assets.py [--out assets_torch]
-        [--only variants|containers|jpeg2000]
+        [--only variants|variants2|containers|jpeg2000|jpeg2000_styles]
 
 Runs on the CPU where cv2, PIL, jax and kgtpu are installed (after
 tools/make_torch_eval_assets.py, whose synthetic_hard images and flagship it
@@ -79,8 +79,21 @@ reads), and writes:
                                extensions; and the `jpeg2000_*` /
                                `*_jpeg2000_*` keys as for the variants.
 
-`--only variants`, `--only containers` or `--only jpeg2000` writes that
-folder alone and adds its keys to the existing kgtpu_reference_formats.npz,
+  formats/jpeg2000_styles/<kind>.<ext>  decode-only JPEG 2000 files of
+                               128x128 cuts of the synthetic_hard images in
+                               the code-block styles of `JPEG2000_STYLES`
+                               (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM
+                               alone, all six, lossless and 9/7 in three
+                               layers, grey in several layers, 16-bit grey),
+                               written by libopenjp2 through
+                               tools/variant_encoders.jpeg2000_opj; and
+                               `jpeg2000_styles_decode_json` /
+                               `jpeg2000_styles_kinds_json` as for the
+                               variants.  The lossless ones are checked to
+                               decode (cv2) to the pixels written.
+
+`--only variants`, `--only containers`, `--only jpeg2000` or `--only
+jpeg2000_styles` writes that folder alone and adds its keys to the existing kgtpu_reference_formats.npz,
 keeping every other array as it is.  The fixtures and the reference together
 stay under 8 MiB (the variants under 8 MiB of their own, the containers and
 the JPEG 2000 folder, each with their keys, under 6 MiB).
@@ -647,6 +660,67 @@ def write_jpeg2000(kind: str, rgb) -> bytes:
     raise ValueError(kind)
 
 
+# (kind, extension, image index, jpeg2000_opj's options); "grey" cuts are the
+# green channel, "grey16" it times 257
+JPEG2000_STYLES = [
+    ("bypass", ".jp2", 0, {"style": 0x01, "jp2": True}),
+    ("reset", ".jp2", 1, {"style": 0x02, "jp2": True}),
+    ("termall", ".jp2", 2, {"style": 0x04, "jp2": True}),
+    ("vsc", ".jp2", 3, {"style": 0x08, "jp2": True}),
+    ("pterm", ".jp2", 4, {"style": 0x10, "jp2": True}),
+    ("segsym", ".jp2", 5, {"style": 0x20, "jp2": True}),
+    ("all63_lossless", ".j2k", 6, {"style": 0x3F}),
+    ("all63_97_3layers", ".jp2", 7, {"style": 0x3F, "irreversible": True,
+                                      "layers": (40.0, 20.0, 10.0), "jp2": True}),
+    ("grey_bypass_termall_layers_res4_cblk32", ".j2k", 8,
+     {"style": 0x05, "layers": (30.0, 10.0, 0.0), "resolutions": 4, "cblk": (32, 32)}),
+    ("grey16_all63_layers", ".j2k", 9, {"style": 0x3F, "prec": 16,
+                                        "layers": (40.0, 10.0, 0.0)}),
+]
+
+
+def make_jpeg2000_styles(out: str) -> int:
+    """formats/jpeg2000_styles and its keys in kgtpu_reference_formats.npz
+    (module docstring), the other keys kept."""
+    import cv2
+    import numpy as np
+
+    from tools.variant_encoders import jpeg2000_opj
+    src = os.path.join(out, "synthetic_hard", "images")
+    fdir = os.path.join(out, "formats", "jpeg2000_styles")
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.makedirs(fdir)
+    ids = sorted(f[:-4] for f in os.listdir(src))
+    kinds = {}
+    for kind, ext, k, opts in JPEG2000_STYLES:
+        rgb = cv2.imread(os.path.join(src, f"{ids[k]}.png"), cv2.IMREAD_COLOR)[..., ::-1]
+        px = np.ascontiguousarray(rgb[192:320, 192:320])
+        if kind.startswith("grey16"):
+            px = px[..., 1].astype(np.uint16) * 257
+        elif kind.startswith("grey"):
+            px = px[..., 1]
+        rel = kind + ext
+        data = jpeg2000_opj(px, **opts)
+        with open(os.path.join(fdir, rel), "wb") as f:
+            f.write(data)
+        if not opts.get("irreversible") and (opts.get("layers") or (0,))[-1] == 0:
+            back = cv2.imread(os.path.join(fdir, rel), cv2.IMREAD_UNCHANGED)
+            back = back[..., ::-1] if back.ndim == 3 else back
+            assert np.array_equal(back, px), f"{rel} does not decode to its pixels"
+        kinds[rel] = kind
+    decodes = cv2_decodes(fdir, sorted(kinds))
+    path = os.path.join(out, "kgtpu_reference_formats.npz")
+    with np.load(path) as ref:
+        result = {k: ref[k] for k in ref.files if not k.startswith("jpeg2000_styles_")}
+    result.update({"jpeg2000_styles_decode_json": np.array(json.dumps(decodes)),
+                   "jpeg2000_styles_kinds_json": np.array(json.dumps(kinds))})
+    np.savez_compressed(path, **result)
+    size = sum(os.path.getsize(os.path.join(fdir, f)) for f in kinds)
+    print(f"{len(kinds)} jpeg2000_styles files, {len(decodes)} decodes "
+          f"({sum(d['sha256'] is None for d in decodes)} None), {size / 2**20:.3f} MiB")
+    return 0
+
+
 def cv2_decodes(root: str, rels: list[str]) -> list[dict]:
     """cv2's decode of each file in every mode, in RGB order: sha256,
     shape and dtype, or None where cv2 returns None."""
@@ -679,7 +753,7 @@ def kgtpu_runs(folder_dir: str, gt: dict, source: str) -> dict:
     import jax.numpy as jnp
     import numpy as np
 
-    from kgtpu import checkpoint, evaluate, native
+    from kgtpu import checkpoint, evaluate
     from kgtpu.config import Config
     from kgtpu.data.folder import ImageFolder
     from kgtpu.data.loader import _prepare_sample
@@ -687,7 +761,6 @@ def kgtpu_runs(folder_dir: str, gt: dict, source: str) -> dict:
     from kgtpu.models import KGNet
     from tools.make_torch_eval_assets import BATCH, FLAGSHIP, _score
     import cv2
-    native.label_map_iou = lambda pred, gt_: None          # kgtpu's NumPy IoU
     params, extra = checkpoint.restore_bundle(FLAGSHIP, use_ema=True)
     stored = checkpoint.decode_config(extra)
     folder = ImageFolder(folder_dir)
@@ -814,8 +887,8 @@ def make_jpeg2000(out: str) -> int:
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
-    p.add_argument("--only", choices=["variants", "variants2", "containers", "jpeg2000"],
-                   default=None)
+    p.add_argument("--only", choices=["variants", "variants2", "containers", "jpeg2000",
+                                       "jpeg2000_styles"], default=None)
     a = p.parse_args(argv)
     if a.only == "variants":
         return make_variants(a.out)
@@ -825,6 +898,8 @@ def main(argv: list[str] | None = None) -> int:
         return make_containers(a.out)
     if a.only == "jpeg2000":
         return make_jpeg2000(a.out)
+    if a.only == "jpeg2000_styles":
+        return make_jpeg2000_styles(a.out)
 
     import jax
     jax.config.update("jax_platforms", "cpu")

@@ -5,9 +5,14 @@ outside the test gate (it takes minutes):
     python tools/probe_jpeg2000.py [--files 1000] [--maxsize 299] [--seed 0]
                                    [--workers 8] [--fma | --damage] [--dump DIR]
 
-Each file is `variant_encoders.jpeg2000_random` (PIL's OpenJPEG writer with
-random size, mode, content and options); each is read in "color", "gray"
-and "unchanged" by cv2 and by `kgtpu_torch.data.imread.read_image`, which
+Every other file is `variant_encoders.jpeg2000_random` (PIL's OpenJPEG
+writer with random size, mode, content and options), the rest
+`variant_encoders.jpeg2000_random_styles` (libopenjp2 through ctypes, with
+random code-block styles, precisions, layers and code-block sizes; each
+encode in a forked child, as the encoder can corrupt its heap on noise with
+TERMALL, and a child that dies counts as a refused draw); each is read in
+"color", "gray" and "unchanged" by cv2 and by
+`kgtpu_torch.data.imread.read_image`, which
 must give the same dtype, shape and values, or raise UnreadableImage where
 cv2 returns None.  Prints the counts and every mismatch; exits 1 on any.
 `--fma` instead reads the 9/7 files only, with the wavelet's lifting steps
@@ -64,31 +69,62 @@ def _damage(data: bytes, rng) -> bytes:
     return bytes(d)
 
 
-def _probe(args: tuple) -> tuple[int, int, int, list, list]:
+def _forked(fn):
+    """fn run in a forked child, its bytes sent back through a pipe; a
+    ValueError where the child fails or dies."""
+    def run(*args, **kw):
+        r, w = os.pipe()
+        pid = os.fork()
+        if pid == 0:
+            os.close(r)
+            try:
+                data = fn(*args, **kw)
+                with os.fdopen(w, "wb") as f:
+                    f.write(data)
+                os._exit(0)
+            except BaseException:
+                os._exit(3)
+        os.close(w)
+        with os.fdopen(r, "rb") as f:
+            data = f.read()
+        _, status = os.waitpid(pid, 0)
+        if status:
+            raise ValueError(f"the encoder failed or died (status {status})")
+        return data
+    return run
+
+
+def _probe(args: tuple) -> tuple[int, int, int, list, list, int]:
     """(files written, modes cv2 reads, modes refused by both, mismatches,
-    reads the port queues: UnsupportedImage and whether cv2 read them) for
-    the files of one seed."""
+    reads the port queues: UnsupportedImage and whether cv2 read them,
+    files with a code-block style other than 0) for the files of one
+    seed."""
     import cv2
 
     from kgtpu_torch.data import j2k_dwt
     from kgtpu_torch.data.imread import UnreadableImage, UnsupportedImage, read_image
-    from tools.variant_encoders import jpeg2000_random
+    from tools.variant_encoders import jpeg2000_opj, jpeg2000_random, jpeg2000_random_styles
     seed, n, maxsize, fma, damage, dump = args
+    encode = _forked(jpeg2000_opj)
     if fma:
         j2k_dwt._lift = _fused_lift
     flags = {"color": cv2.IMREAD_COLOR, "gray": cv2.IMREAD_GRAYSCALE,
              "unchanged": cv2.IMREAD_UNCHANGED}
     rng = np.random.default_rng(seed)
-    written, read, refused, bad, queued = 0, 0, 0, [], []
+    written, read, refused, bad, queued, styled = 0, 0, 0, [], [], 0
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "image.png")
-        for _ in range(n):
-            data, info = jpeg2000_random(rng, maxsize)
+        for k in range(n):
+            if k % 2 and not fma:
+                data, info = jpeg2000_random_styles(rng, maxsize, encode)
+            else:
+                data, info = jpeg2000_random(rng, maxsize)
             if data is None or fma and not info[3].get("irreversible"):
                 continue
             if damage:
                 data = _damage(data, rng)
             written += 1
+            styled += bool(info[3].get("style"))
             with open(path, "wb") as f:
                 f.write(data)
             for mode in MODES:
@@ -123,7 +159,7 @@ def _probe(args: tuple) -> tuple[int, int, int, list, list]:
                                 else "values differ"))
                 else:
                     read += 1
-    return written, read, refused, bad, queued
+    return written, read, refused, bad, queued, styled
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -147,8 +183,10 @@ def main(argv: list[str] | None = None) -> int:
     refused = sum(r[2] for r in results)
     bad = [b for r in results for b in r[3]]
     queued = [q for r in results for q in r[4]]
+    styled = sum(r[5] for r in results)
     what = "9/7 files, the lifting fused" if a.fma else "damaged files" if a.damage else "files"
-    print(f"{written} {what} (of {a.files} drawn), {read} reads equal to cv2's, {refused} "
+    print(f"{written} {what} (of {a.files} drawn; {styled} with code-block styles), {read} "
+          f"reads equal to cv2's, {refused} "
           f"refused by both, {len(bad)} mismatches "
           f"({len({repr(b[0]) for b in bad})} files), {len(queued)} queued "
           f"(UnsupportedImage; cv2 reads {sum(q[2] for q in queued)} of them), "

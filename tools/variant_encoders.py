@@ -19,6 +19,12 @@ tools/make_torch_format_assets.py).  NumPy, zlib and struct only.
                            content and every encoder option PIL has)
   jpeg2000_packed_headers  a JPEG 2000 codestream's packet headers moved into
                            PPT or PPM markers
+  jpeg2000_opj             JPEG 2000 from libopenjp2 (PIL's copy) through
+                           ctypes, with the code-block styles PIL does not
+                           set (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM)
+  jpeg2000_random_styles   a random file of jpeg2000_opj: size, components,
+                           precision, wavelet, layers, resolutions,
+                           code-block size and style
 
 cv2 reading a written file is the check that it is valid; the tests hold
 the port's decoder against cv2's decode of it, never against these writers.
@@ -1390,6 +1396,163 @@ def jpeg2000_packed_headers(cs: bytes, marker: str = "ppt") -> bytes:
         psot = 12 + len(tile_head) + 2 + len(bodies)
         out += struct.pack(">HHHIBB", SOT, 10, tno, psot, 0, 1) + tile_head + b"\xff\x93" + bodies
     return out + b"\xff\xd9"
+
+
+_OPJ: list = []
+
+
+def _openjp2():
+    """PIL's libopenjp2 (found by pattern under pillow.libs), once."""
+    if not _OPJ:
+        import ctypes
+        import glob
+        import os
+
+        import PIL
+        libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+        found = sorted(glob.glob(os.path.join(libs, "libopenjp2-*.so*")))
+        if not found:
+            raise OSError(f"no libopenjp2 under {libs}")
+        lib = ctypes.CDLL(found[0])
+        vp = ctypes.c_void_p
+        lib.opj_image_create.restype = vp
+        lib.opj_image_create.argtypes = [ctypes.c_uint32, vp, ctypes.c_int]
+        lib.opj_create_compress.restype = vp
+        lib.opj_setup_encoder.argtypes = [vp, vp, vp]
+        lib.opj_stream_create_default_file_stream.restype = vp
+        lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        lib.opj_start_compress.argtypes = [vp, vp, vp]
+        lib.opj_encode.argtypes = [vp, vp]
+        lib.opj_end_compress.argtypes = [vp, vp]
+        for f in ("opj_stream_destroy", "opj_destroy_codec", "opj_image_destroy"):
+            getattr(lib, f).argtypes = [vp]
+        _OPJ.append(lib)
+    return _OPJ[0]
+
+
+def jpeg2000_opj(px: np.ndarray, prec: int = 8, irreversible: bool = False, layers=(),
+                 resolutions: int = 6, cblk: tuple = (64, 64), style: int = 0,
+                 mct: bool | None = None, jp2: bool = False) -> bytes:
+    """A JPEG 2000 codestream (or JP2 file) of `px` ([h, w] or [h, w, c],
+    unsigned, `prec` bits) from libopenjp2's encoder through ctypes, which
+    sets what PIL's writer leaves at 0: the code-block style (`style`, the
+    COD's byte: 0x01 BYPASS, 0x02 RESET, 0x04 TERMALL, 0x08 VSC, 0x10
+    PTERM, 0x20 SEGSYM, any mix).  `layers`: the quality layers' rates
+    (compression ratios, falling; a last 0 is lossless), none for one
+    lossless layer; `cblk` the code-block width and height; `mct` the
+    colour transform (default: on for 3 components).
+
+    The encoder's parameters are a 64 KiB buffer filled by
+    `opj_set_default_encoder_parameters` and patched in place: the fields
+    sit where openjpeg.h 2.5 puts them, found from `numresolution`,
+    `cblockw_init`, `cblockh_init` (its 6, 64, 64): `mode` and
+    `irreversible` after them, `tcp_numlayers`, `tcp_rates` and
+    `tcp_distoratio` before them, `cp_disto_alloc` at byte 20 and
+    `tcp_mct` where the JPWL fields end."""
+    import ctypes
+    import os
+    import tempfile
+
+    lib = _openjp2()
+    px = np.asarray(px)
+    planes = px[..., None] if px.ndim == 2 else px
+    h, w, nc = planes.shape
+    raw = ctypes.create_string_buffer(65536)
+    lib.opj_set_default_encoder_parameters(raw)
+    ints = np.frombuffer(raw, np.int32).copy()
+    at = int(next(i for i in range(len(ints) - 2)
+                  if (ints[i], ints[i + 1], ints[i + 2]) == (6, 64, 64)))
+    ints[at:at + 5] = [resolutions, cblk[0], cblk[1], style, int(irreversible)]
+    if layers:
+        ints[at - 201] = len(layers)                          # tcp_numlayers
+        rates = np.zeros(100, np.float32)
+        rates[:len(layers)] = layers
+        ints[at - 200:at - 100] = rates.view(np.int32)        # tcp_rates
+        ints[5] = 1                                           # cp_disto_alloc
+    ctypes.memmove(raw, ints.tobytes(), ints.nbytes)
+    # tcp_mct: after the prc sizes, file names, index, offsets, subsampling,
+    # formats, 118 JPWL ints, cp_cinema, max_comp_size, cp_rsiz, tp_on, tp_flag
+    sub = at + 5 + 3 + 66 + 1024 + 1024 + 1 + 1024 + 2
+    assert tuple(ints[sub:sub + 4]) == (1, 1, -1, -1), "unexpected opj_cparameters_t layout"
+    raw[(sub + 4 + 118 + 3) * 4 + 2] = int(nc >= 3 if mct is None else mct)
+    cmpt = (ctypes.c_uint32 * (9 * nc))()
+    for c in range(nc):
+        cmpt[9 * c:9 * c + 9] = [1, 1, w, h, 0, 0, prec, prec, 0]
+    space = 1 if nc >= 3 else 2                               # sRGB, grey
+    img = lib.opj_image_create(nc, ctypes.cast(cmpt, ctypes.c_void_p), space)
+    head = (ctypes.c_uint32 * 4).from_address(img)
+    head[:] = [0, 0, w, h]
+    comps = ctypes.c_void_p.from_address(img + 24).value
+    for c in range(nc):
+        data = ctypes.c_void_p.from_address(comps + 64 * c + 48).value
+        vals = np.ascontiguousarray(planes[..., c], np.int32)
+        ctypes.memmove(data, vals.ctypes.data, vals.nbytes)
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    fd, path = tempfile.mkstemp(suffix=".j2k")
+    os.close(fd)
+    stream = None
+    try:
+        if not lib.opj_setup_encoder(codec, raw, img):
+            raise ValueError("libopenjp2 refused the parameters")
+        stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+        if not (lib.opj_start_compress(codec, img, stream) and lib.opj_encode(codec, stream)
+                and lib.opj_end_compress(codec, stream)):
+            raise ValueError("libopenjp2 failed to encode")
+        lib.opj_stream_destroy(stream)
+        stream = None
+        with open(path, "rb") as f:
+            return f.read()
+    finally:
+        if stream is not None:
+            lib.opj_stream_destroy(stream)
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(img)
+        os.remove(path)
+
+
+def jpeg2000_random_styles(rng, maxsize: int = 64, encode=None):
+    """A random `jpeg2000_opj` file: size 1..maxsize, 1, 3 or 4 components
+    of 8, 12 or 16 bits, random or smooth content, the 5/3 or 9/7 wavelet,
+    1-3 quality layers, resolutions, code-block size, any code-block style
+    (0-63), the colour transform, JP2 or a raw codestream; and its
+    description.  (None, None) where the encoder refuses the options.
+    `encode` (jpeg2000_opj's signature) replaces the call, as the probe's
+    forked one does: libopenjp2's encoder can overrun its heap on noise
+    with TERMALL."""
+    h, w = (int(v) for v in rng.integers(1, maxsize + 1, 2))
+    nc = int(rng.choice([1, 1, 3, 4]))
+    prec = int(rng.choice([8, 8, 12, 16]))
+    top = (1 << prec) - 1
+    y, x = np.mgrid[:h, :w]
+    if rng.random() < 0.4:
+        px = rng.integers(0, top + 1, (h, w, nc))
+    else:
+        f = rng.uniform(0.05, 0.5, 4)
+        px = np.stack([(0.5 + 0.45 * np.sin(x * f[k] + y * f[(k + 1) % 4] + k)) * top
+                       for k in range(nc)], -1)
+    px = np.clip(px, 0, top).astype(np.int64)
+    irreversible = bool(rng.random() < 0.5)
+    levels = int(np.floor(np.log2(min(h, w))))
+    # the encoder wants 2^(resolutions - 1) samples a side (and the 9/7 one
+    # asserts on a signal of one sample)
+    resolutions = max(1, min(int(rng.integers(1, 8)), levels + 1))
+    cw = int(2 ** rng.integers(2, 7))
+    ch = int(2 ** rng.integers(2, min(7, 13 - int(np.log2(cw)))))
+    layers = ()
+    if rng.random() < 0.5:
+        layers = tuple(sorted((float(rng.uniform(2, 60)) for _ in range(int(rng.integers(1, 4)))),
+                              reverse=True))
+        if rng.random() < 0.5:
+            layers += (0.0,)
+    kw = {"prec": prec, "irreversible": irreversible, "layers": layers,
+          "resolutions": resolutions, "cblk": (cw, ch), "style": int(rng.integers(0, 64)),
+          "mct": bool(rng.random() < 0.8) if nc >= 3 else False,
+          "jp2": bool(rng.random() < 0.5)}
+    try:
+        data = (encode or jpeg2000_opj)(px[..., 0] if nc == 1 else px, **kw)
+    except ValueError:
+        return None, None
+    return data, (h, w, nc, kw)
 
 
 def mh_row(bits: np.ndarray) -> str:
