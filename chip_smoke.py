@@ -125,12 +125,15 @@
     within 1e-4 (f32), [8]'s gates against kgtpu's reference, and the
     GroupNorm kernel launched as many times inside the artifact as by the
     live call; prints export s, artifact bytes and ms per batch of the
-    artifact and of the live path (median of 5), and the host syncs of one
-    call of each; a tiny artifact traced on the CPU is served on the card
-    (`load_serving` moves it) and launches the kernel.  (b) The TTA artifact
-    (3 scales + flip, batch 8) and the tiled one (a 1024x1024 slide, 9 tiles
-    of 512 in two chunks; [10] times the 2048x2048 slide) equal to the live
-    builders in f32.  (c) `cli.test --save_vis
+    artifact and of the live path (median of 5, timed at the end of the
+    phase), and the host syncs of one call of each; a tiny artifact traced on the CPU is served on the card
+    (`load_serving` moves it) and launches the kernel.  (b) The TTA
+    artifact (3 scales + flip, batch 8) and the tiled one (a 1024x1024
+    slide, 9 tiles of 512 in two chunks; [10] times the 2048x2048 slide)
+    equal to the live builders in f32.  The TTA artifact is written by the
+    export CLI (`python -m kgtpu_torch.export --tta`) in a process of its
+    own, started with the phase and traced while this one runs (a), the
+    tiled part and (c); it is served here after (c).  (c) `cli.test --save_vis
     --debug_nans` over the 16 images (16 overlays, label maps equal to the
     live f32 path's), `cli.train --profile_dir --debug_nans` for 2 steps (a
     non-empty trace), and a checkpoint with one NaN weight under
@@ -217,7 +220,14 @@
     code-block styles (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM, all six
     lossless and in 9/7 layers, grey in layers, 16-bit grey) against cv2's
     hashes (`jpeg2000_styles_decode_json`) in the same processes, each kind
-    timed by one read; budget JPEG2000_STYLES_S.
+    timed by one read; budget JPEG2000_STYLES_S.  Then (d), decode only:
+    assets_torch/formats/jpeg2000_ht, 128x128 files of HT code-blocks (Part
+    15: RGB and grey lossless, 9/7, 16-bit grey, RGBA, tiles with
+    precincts, 4x4 and 16x8 code-blocks with RPCL, SigProp + MagRef, two
+    layers with VSC) and one with Part 2 MCT / MCC / MCO offsets, written by
+    tools/variant_encoders.jpeg2000_ht, against cv2's hashes
+    (`jpeg2000_ht_decode_json`) in the same processes, each kind timed by
+    one read; budget JPEG2000_HT_S.
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -236,6 +246,7 @@ f32 comparisons are full f32; the model itself computes in bf16.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -374,6 +385,8 @@ JPEG2000_PHASE_S = 150      # phase [17]'s budget
 JPEG2000_WORKERS = 8        # processes for [17] (a)'s decodes against cv2's hashes
 JPEG2000_STYLES_DIR = os.path.join(FORMATS, "jpeg2000_styles")
 JPEG2000_STYLES_S = 30      # [17] (c)'s budget
+JPEG2000_HT_DIR = os.path.join(FORMATS, "jpeg2000_ht")
+JPEG2000_HT_S = 20          # [17] (d)'s budget
 HOST_OP_INSTANCES = 120     # [9]: instances of the label map the host ops are timed on
 CAPTURE_PHASE_S = 180       # phase [14]'s budget
 GRAPH_PROFILE_FLAG = "--graph-profile"   # runs [14](b) alone, in a fresh process
@@ -1949,6 +1962,13 @@ def same_outputs(np, got: dict, want: dict, float_tol) -> float:
     return worst
 
 
+def stop_process(proc) -> None:
+    """Kill `proc` if it still runs, and reap it."""
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
 def phase_export(np, torch, gn, gauss, smi: str) -> dict:
     """[13]: the flagship exported with `kgtpu_torch.export` and served from
     the reloaded artifact, against the live builders in the same process
@@ -1974,8 +1994,23 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
                       "unchanged").astype(np.int32) for i in ids}
     pixels = [read_png(os.path.join(images_dir, f"{i}.png"), "color") for i in ids]
     to_np = lambda out: {k: v.cpu().numpy() for k, v in out.items()}
-    out, live_f32 = {}, None
-    with tempfile.TemporaryDirectory() as tmp:
+    out, live_f32, timed = {}, None, {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stops:
+        # (b)'s TTA artifact (3 scales + flip, batch 8, f32): the export CLI
+        # traces it in a process of its own while (a), the tiled part and (c) run
+        tta_kw = dict(test_scales=(0.75, 1.0, 1.25), test_flip=True)
+        tta_art = os.path.join(tmp, "tta.pt2")
+        tta_log = os.path.join(tmp, "tta_export.log")
+        tta_t0 = time.time()
+        with open(tta_log, "w") as f:
+            tta_proc = subprocess.Popen(
+                [sys.executable, "-m", "kgtpu_torch.export", "--weights", weights,
+                 "--out", tta_art, "--batch", "8", "--input_size", "512", "--use_ema",
+                 "--tta", "--test_scales", ",".join(map(str, tta_kw["test_scales"])),
+                 "--test_flip", "--compute_dtype", "float32"],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f,
+                stderr=subprocess.STDOUT)
+        stops.callback(stop_process, tta_proc)      # on any way out of the phase
         # (a) single mode, batch 16, 512x512, f32 (TF32 off) and bf16
         for dtype in ("float32", "bfloat16"):
             short = "f32" if dtype == "float32" else "bf16"
@@ -2004,10 +2039,7 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
             err = same_outputs(np, got, want, 1e-4 if dtype == "float32" else None)
             require(n_art == n_live > 0, f"{dtype}: the artifact launched the GroupNorm kernel "
                     f"{n_art} times, the live path {n_live}")
-            art_ms = 1e3 * np.median(timed_repeats(torch, lambda: serve(batch), 5))
-            live_ms = 1e3 * np.median(timed_repeats(torch, lambda: live(batch), 5))
-            art_syncs, live_syncs = count_syncs(torch, lambda: serve(batch)), count_syncs(
-                torch, lambda: live(batch))
+            timed[dtype] = (serve, live, batch)     # timed once the export process ends
             save = os.path.join(tmp, f"scored_{short}")
             write_like_cli(np, save, ids, got)
             metr = eval_metrics(records(save, gt, 512))
@@ -2017,10 +2049,8 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
                    for k in range(len(ids))]
             dmap = metr["mAP_dsb2018"] - ref_metrics[dtype]["mAP_dsb2018"]
             log(f"  (a) single {dtype}: export {export_s:.1f} s, load {load_s:.1f} s, "
-                f"{m['bytes']} bytes; artifact {art_ms:.2f} ms per batch of 16 against live "
-                f"{live_ms:.2f} ms (median of 5); host syncs per call {art_syncs} (live "
-                f"{live_syncs}); GroupNorm launches {n_art} (live {n_live}); integer outputs "
-                f"equal, largest float diff {err:.3g}; {smi}")
+                f"{m['bytes']} bytes; GroupNorm launches {n_art} (live {n_live}); integer "
+                f"outputs equal, largest float diff {err:.3g}")
             log(f"    against kgtpu's {dtype} run: mAP_dsb2018 {metr['mAP_dsb2018']:.6f} (diff "
                 f"{dmap:+.6f}, tol {MAP_TOL[dtype]}), largest count diff "
                 f"{int(np.abs(dcount).max())}, label pixels off: max {max(off)}")
@@ -2032,16 +2062,11 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
                 live_f32 = want["label_map"]
             out.update({f"export_single_s_{short}": export_s, f"export_load_s_{short}": load_s,
                         f"export_single_bytes_{short}": m["bytes"],
-                        f"export_single_ms_b16_{short}": art_ms,
-                        f"live_single_ms_b16_{short}": live_ms,
-                        f"export_single_syncs_{short}": art_syncs,
-                        f"live_single_syncs_{short}": live_syncs,
                         f"export_single_gn_launches_{short}": n_art,
                         f"export_single_float_err_{short}": err,
                         f"export_single_mAP_diff_{short}": dmap,
                         f"export_single_pixels_off_max_{short}": max(off)})
             del serve, live, model
-            torch.cuda.empty_cache()
 
         # an artifact traced on the CPU and served on the card: load_serving
         # moves it with move_to_device_pass (a tiny random model)
@@ -2074,32 +2099,7 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
                     "export_moved_float_err_vs_cpu": moved_err})
 
         marks = {"single f32 and bf16, tiny CPU artifact": time.perf_counter() - t_phase}
-        # (b) TTA (3 scales + flip, batch 8) and one 1024x1024 slide (9 tiles of 512, two
-        # chunks), f32
-        tta_kw = dict(test_scales=(0.75, 1.0, 1.25), test_flip=True)
-        art = os.path.join(tmp, "tta.pt2")
-        t = time.perf_counter()
-        export_infer(weights, art, batch=8, input_size=512, use_ema=True, mode="tta",
-                     compute_dtype="float32", **tta_kw)
-        tta_export_s = time.perf_counter() - t
-        cfg, model = serving_model(weights, use_ema=True, input_size=512,
-                                   compute_dtype="float32", **tta_kw)
-        div = required_divisor(cfg.model)
-        stacks = {}
-        for sc in cfg.infer.test_scales:
-            dcfg = dataclasses.replace(cfg.data, input_size=max(round(512 * sc / div), 1) * div)
-            stacks[f"{sc:g}"] = torch.from_numpy(np.stack(
-                [prepare_sample({"image": im, "label_map": gt[i]}, dcfg)["image"]
-                 for im, i in zip(pixels[:8], ids[:8])])).cuda()
-        want = to_np(build_multiscale_fn(model, cfg)(stacks))
-        gn.launches = 0
-        got = to_np(load_serving(art)(stacks))
-        tta_launches = gn.launches
-        tta_err = same_outputs(np, got, want, 1e-4)
-        require(tta_launches > 0 and int(want["valid"].sum()) > 0, "TTA artifact: no launch "
-                "or no detection")
-        del model
-        marks["TTA"] = time.perf_counter() - t_phase
+        # (b) one 1024x1024 slide (9 tiles of 512, two chunks), f32
         art = os.path.join(tmp, "tiled.pt2")
         t = time.perf_counter()
         export_infer(weights, art, use_ema=True, mode="tiled", slide_hw=(1024, 1024),
@@ -2116,14 +2116,10 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
                 "launch or no detection")
         del model
         torch.cuda.empty_cache()
-        log(f"  (b) TTA artifact (3 scales + flip, batch 8, f32): export {tta_export_s:.1f} s, "
-            f"equal to the live path (largest float diff {tta_err:.3g}), GroupNorm launches "
-            f"{tta_launches}; tiled artifact (1024x1024, 9 tiles of 512, f32): export "
-            f"{tiled_export_s:.1f} s, equal (largest float diff {tiled_err:.3g}), launches "
-            f"{tiled_launches}")
-        out.update({"export_tta_s": tta_export_s, "export_tta_gn_launches": tta_launches,
-                    "export_tta_float_err": tta_err, "export_tiled_s": tiled_export_s,
-                    "export_tiled_gn_launches": tiled_launches,
+        log(f"  (b) tiled artifact (1024x1024, 9 tiles of 512, f32): export "
+            f"{tiled_export_s:.1f} s, equal to the live path (largest float diff "
+            f"{tiled_err:.3g}), GroupNorm launches {tiled_launches}")
+        out.update({"export_tiled_s": tiled_export_s, "export_tiled_gn_launches": tiled_launches,
                     "export_tiled_float_err": tiled_err})
 
         marks["tiled"] = time.perf_counter() - t_phase
@@ -2186,9 +2182,60 @@ def phase_export(np, torch, gn, gauss, smi: str) -> dict:
             f"f32 path, {vis_s:.1f} s, GroupNorm launches {vis_launches}; cli.train "
             f"--profile_dir --debug_nans: 2 steps in {train_s:.1f} s, trace {trace_bytes} bytes "
             f"({n_events} events); planted NaN ({name}[0,0,0,0]) stopped cli.test: {stopped}")
+        marks["CLIs"] = time.perf_counter() - t_phase
+        # (b) the TTA artifact, served against the live multi-scale builder
+        cfg, model = serving_model(weights, use_ema=True, input_size=512,
+                                   compute_dtype="float32", **tta_kw)
+        div = required_divisor(cfg.model)
+        stacks = {}
+        for sc in cfg.infer.test_scales:
+            dcfg = dataclasses.replace(cfg.data, input_size=max(round(512 * sc / div), 1) * div)
+            stacks[f"{sc:g}"] = torch.from_numpy(np.stack(
+                [prepare_sample({"image": im, "label_map": gt[i]}, dcfg)["image"]
+                 for im, i in zip(pixels[:8], ids[:8])])).cuda()
+        want = to_np(build_multiscale_fn(model, cfg)(stacks))
+        try:
+            rc = tta_proc.wait(timeout=max(EXPORT_PHASE_S - (time.perf_counter() - t_phase),
+                                           1))
+        except subprocess.TimeoutExpired:
+            rc = None
+        with open(tta_log) as f:
+            require(rc == 0 and os.path.exists(tta_art),
+                    f"the TTA export exited with {rc}: {f.read()[-3000:]}")
+        tta_export_s = os.path.getmtime(tta_art) - tta_t0
+        gn.launches = 0
+        got = to_np(load_serving(tta_art)(stacks))
+        tta_launches = gn.launches
+        tta_err = same_outputs(np, got, want, 1e-4)
+        require(tta_launches > 0 and int(want["valid"].sum()) > 0, "TTA artifact: no launch "
+                "or no detection")
+        del model
+        torch.cuda.empty_cache()
+        log(f"  (b) TTA artifact (3 scales + flip, batch 8, f32): the export CLI's process "
+            f"wrote it {tta_export_s:.1f} s after its start, equal to the live path (largest "
+            f"float diff {tta_err:.3g}), GroupNorm launches {tta_launches}")
+        out.update({"export_tta_s": tta_export_s, "export_tta_gn_launches": tta_launches,
+                    "export_tta_float_err": tta_err})
+        # (a)'s timings, on a host no longer shared with the export process
+        for dtype, (serve, live, batch) in timed.items():
+            short = "f32" if dtype == "float32" else "bf16"
+            art_ms = 1e3 * np.median(timed_repeats(torch, lambda: serve(batch), 5))
+            live_ms = 1e3 * np.median(timed_repeats(torch, lambda: live(batch), 5))
+            art_syncs, live_syncs = count_syncs(torch, lambda: serve(batch)), count_syncs(
+                torch, lambda: live(batch))
+            log(f"  (a) single {dtype}, timed after (c): artifact {art_ms:.2f} ms per batch of "
+                f"16 against live {live_ms:.2f} ms (median of 5); host syncs per call "
+                f"{art_syncs} (live {live_syncs}); {smi}")
+            out.update({f"export_single_ms_b16_{short}": art_ms,
+                        f"live_single_ms_b16_{short}": live_ms,
+                        f"export_single_syncs_{short}": art_syncs,
+                        f"live_single_syncs_{short}": live_syncs})
+        del timed, serve, live, batch
+        torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
     log("  phase [13] elapsed at the end of each part: " + ", ".join(
-        f"{k} {v:.1f} s" for k, v in marks.items()) + f", CLIs {phase_s:.1f} s")
+        f"{k} {v:.1f} s" for k, v in marks.items()) + f", TTA served and (a) timed "
+        f"{phase_s:.1f} s")
     log(f"  phase [13]: {phase_s:.1f} s (budget {EXPORT_PHASE_S} s)")
     require(phase_s <= EXPORT_PHASE_S, f"phase [13] took {phase_s:.0f} s")
     return {**out, "vis_cli_s": vis_s, "vis_gn_launches": vis_launches,
@@ -2987,6 +3034,15 @@ def main() -> int:
     log(f"  [17] (c): {j2stats['jpeg2000_styles_s']:.1f} s (budget {JPEG2000_STYLES_S} s)")
     require(j2stats["jpeg2000_styles_s"] <= JPEG2000_STYLES_S,
             f"[17] (c) took {j2stats['jpeg2000_styles_s']:.0f} s")
+    log("[17] (d) JPEG 2000 HT code-blocks and Part 2 markers: formats/jpeg2000_ht decoded as "
+        "cv2 decodes it, each kind timed once")
+    t = time.perf_counter()
+    j2stats.update(folder_decodes(np, smi, "jpeg2000_ht", JPEG2000_HT_DIR, "jpeg2000_ht",
+                                  workers=JPEG2000_WORKERS, reads=1))
+    j2stats["jpeg2000_ht_s"] = time.perf_counter() - t
+    log(f"  [17] (d): {j2stats['jpeg2000_ht_s']:.1f} s (budget {JPEG2000_HT_S} s)")
+    require(j2stats["jpeg2000_ht_s"] <= JPEG2000_HT_S,
+            f"[17] (d) took {j2stats['jpeg2000_ht_s']:.0f} s")
 
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,

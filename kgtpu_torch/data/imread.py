@@ -32,8 +32,10 @@ its CCITT recovery).  A file cv2 reads and the port does not yet raises
 the variants (`QUEUED`) only 16- to 64-bit separate-plane TIFF in
 "unchanged" (cv2's result not defined) and a Group 3 CCITT strip whose data
 ends before its last row (libtiff reads on past the end); or AVIF content,
-recognised by the signature cv2's decoder checks, and JPEG 2000 HT
-code-blocks and Part 2 multi-component transforms (`CONTAINERS`).
+recognised by the signature cv2's decoder checks (`CONTAINERS`).  JPEG 2000
+is read whole as OpenJPEG 2.5.3 reads it for cv2: every Part 1 code-block
+style, HT code-blocks (Part 15) and Part 2's multi-component markers (see
+`data/jpeg2000.py`).
 """
 
 from __future__ import annotations

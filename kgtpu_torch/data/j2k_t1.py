@@ -365,6 +365,11 @@ def decode_blocks(blocks: list) -> list:
     shift included), mb (numbps without the ROI shift), style (the
     code-block style byte), data and segs ((passes, bytes) of each codeword
     segment): returns each one's [h, w] int32 coefficients at twice their
-    scale (OpenJPEG's data before it halves or scales them)."""
-    return [decode_one(b) if b["passes"] and b["numbps"] >= 1
+    scale (OpenJPEG's data before it halves or scales them).  HT code-blocks
+    (style 0x40) go to `data/j2k_ht.py`, which takes `Mb` (the band's
+    bit-planes), `roi` and `base` (where the block's data starts, modulo
+    4) as well."""
+    from kgtpu_torch.data.j2k_ht import decode_ht
+    return [decode_ht(b) if b["style"] & 0x40
+            else decode_one(b) if b["passes"] and b["numbps"] >= 1
             else np.zeros((b["h"], b["w"]), np.int32) for b in blocks]

@@ -20,14 +20,20 @@ packet's header and body.
     the number of passes (1, 2, 3-5, 6-36, 37-164), Lblock increments and
     codeword lengths of Lblock + floor(log2(passes)) bits, one for each
     codeword segment the new passes reach (no length over 32 bits); a 0xFF
-    byte is followed by 7 bits; the header ends byte-aligned, then an
-    optional EPH marker.  SOP markers are skipped before a packet, and
-    packed headers (PPM, PPT) are read from their own stream.
+    byte is followed by 7 bits; the header ends byte-aligned, then, when
+    COD asks for them, an EPH marker, which must be there (OpenJPEG fails
+    the tile without it).  An SOP marker before a packet is skipped where
+    more than 5 bytes are left (a missing one only warns), and packed
+    headers (PPM, PPT) are read from their own stream.
   * Codeword segments (`opj_t2_init_seg`): a segment holds at most 109
     passes; with TERMALL (code-block style 0x04) one; with BYPASS (0x01)
     10 in the first, then 2 and 1 in turn (the raw significance and
     refinement passes, then the MQ cleanup pass).  A packet's passes fill
-    the code-block's last segment, then open new ones.
+    the code-block's last segment (a new one once it is full), then open
+    new ones.  HT code-blocks (0x40) keep those limits for when a segment
+    is full, but a length covers one pass in the first segment and all the
+    packet's passes left in any later one (`opj_t2_read_packet_header`'s
+    HT branch), so a segment can hold more passes than its limit.
 
 A code-block keeps its data as the concatenation of its contributions and
 the length and number of passes of each segment: tier-1 decodes the
@@ -142,12 +148,14 @@ def _num_passes(bio: Bits) -> int:
 
 
 class CodeBlock:
-    __slots__ = ("x0", "y0", "x1", "y1", "chunks", "passes", "numbps", "lblock", "included",
-                 "segs", "coef")
+    __slots__ = ("x0", "y0", "x1", "y1", "chunks", "pieces", "at", "passes", "numbps",
+                 "lblock", "included", "segs", "coef")
 
     def __init__(self, x0, y0, x1, y1):
         self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
         self.chunks: list[bytes] = []
+        self.at = 0                          # where its first chunk starts in the tile's data
+        self.pieces = 0                      # OpenJPEG's chunks: one per segment a packet reaches
         self.passes = 0
         self.numbps = 0
         self.lblock = 3
@@ -376,9 +384,11 @@ def read_packets(data: bytes, headers: bytes | None, comps: list, tile: tuple, c
         style = styles[c]
         if headers is None:
             hpos = pos
-        if cod["sop"] and headers is None and data[hpos:hpos + 2] == b"\xff\x91":
+        if cod["sop"] and headers is None and end - hpos > 5 and \
+                data[hpos:hpos + 2] == b"\xff\x91":
             hpos += 6
-        elif cod["sop"] and headers is not None and data[pos:pos + 2] == b"\xff\x91":
+        elif cod["sop"] and headers is not None and end - pos > 5 and \
+                data[pos:pos + 2] == b"\xff\x91":
             pos += 6
         if hpos >= len(hdr):
             ended = True
@@ -406,12 +416,15 @@ def read_packets(data: bytes, headers: bytes | None, comps: list, tile: tuple, c
                     while bio.bit():
                         cb.lblock += 1
                     # a length for each codeword segment the passes reach
-                    length, left = 0, n
+                    length, left, pieces = 0, n, 0
+                    if not cb.segs or cb.segs[-1][1] == cb.segs[-1][0]:
+                        cb.segs.append([_max_passes(style, cb.segs), 0, 0])
                     while left:
-                        if not cb.segs or cb.segs[-1][1] == cb.segs[-1][0]:
-                            cb.segs.append([_max_passes(style, cb.segs), 0, 0])
                         seg = cb.segs[-1]
-                        take = min(seg[0] - seg[1], left)
+                        if style & 0x40:        # HT: the first segment 1 pass, then the rest
+                            take = 1 if len(cb.segs) == 1 else left
+                        else:
+                            take = min(seg[0] - seg[1], left)
                         bits = cb.lblock + take.bit_length() - 1
                         if bits > 32:
                             raise UnreadableImage("JPEG 2000 codeword length of over 32 bits")
@@ -420,18 +433,26 @@ def read_packets(data: bytes, headers: bytes | None, comps: list, tile: tuple, c
                         seg[1] += take
                         seg[2] += piece
                         left -= take
-                    contrib.append((cb, n, length))
+                        pieces += 1
+                        if left:
+                            cb.segs.append([_max_passes(style, cb.segs), 0, 0])
+                    contrib.append((cb, n, length, pieces))
         bio.align()
         hpos = bio.pos
-        if cod["eph"] and hdr[hpos:hpos + 2] == b"\xff\x92":
+        if cod["eph"]:
+            if len(hdr) - hpos <= 1 or hdr[hpos:hpos + 2] != b"\xff\x92":
+                raise UnreadableImage("JPEG 2000 packet header without its EPH marker")
             hpos += 2
         if headers is None:
             pos = hpos
-        for cb, n, length in contrib:
+        for cb, n, length, pieces in contrib:
             if pos + length > end:
                 raise UnreadableImage("JPEG 2000 code-block segment runs past the tile's data "
                                       "(OpenJPEG's strict mode refuses it)")
+            if not cb.chunks:
+                cb.at = pos
             cb.chunks.append(data[pos:pos + length])
+            cb.pieces += pieces
             cb.passes += n
             pos += length
         if spans is not None:

@@ -68,8 +68,15 @@ significance and refinement passes below the fourth bit-plane), RESET
 (contexts reset after each pass), TERMALL (each pass its own segment), VSC
 (stripe-causal contexts), PTERM (predictable termination, which OpenJPEG
 does not check for cv2) and SEGSYM (segmentation symbols after each cleanup
-pass); see `data/j2k_t1.py`.  HT code-blocks (Part 15, style 0x40) and Part
-2's multi-component transform markers raise `UnsupportedImage`.
+pass); see `data/j2k_t1.py`.  HT code-blocks (Part 15, style 0x40, with any
+other style bits but the mixed 0x80, which OpenJPEG refuses) are read as
+OpenJPEG's `ht_dec.c` reads them, malformed ones refused where it stops
+(`data/j2k_ht.py`; tier-2's HT segments in `data/j2k_t2.py`); Rsiz, CAP
+and CPF change nothing.  Part 2's MCT / MCC / MCO (main or tile-part
+headers) and CBD (main header) are read as `j2k.c` reads them: MCO's DC
+level shifts and CBD's precisions reach the pixels, the custom matrices
+never run (cv2 refuses a COD that asks for them); see `data/j2k_part2.py`.
+Nothing of JPEG 2000 raises `UnsupportedImage`.
 """
 
 from __future__ import annotations
@@ -78,7 +85,8 @@ import struct
 
 import numpy as np
 
-from kgtpu_torch.data.imread import CONTAINERS, UnreadableImage, unsupported
+from kgtpu_torch.data import j2k_part2
+from kgtpu_torch.data.imread import UnreadableImage
 from kgtpu_torch.data.j2k_dwt import idwt
 from kgtpu_torch.data.j2k_t1 import decode_blocks
 from kgtpu_torch.data.j2k_t2 import ceildiv, read_packets, tile_component
@@ -91,13 +99,14 @@ TLM, PLM, PLT, CRG, COM = 0xFF55, 0xFF57, 0xFF58, 0xFF63, 0xFF64
 # The markers OpenJPEG knows (`j2k_memory_marker_handler_tab`) and where it
 # takes them: the main header (after SIZ), a tile-part header, or both
 # (SOP nowhere; SOD and EOC are not in the table).  CAP and CPF are
-# skipped; MCT / MCC / MCO / CBD carry Part 2's multi-component transforms.
-PART2 = {0xFF74, 0xFF75, 0xFF77, 0xFF78}
-MAIN_ONLY = {TLM, PLM, PPM, CRG, 0xFF50, 0xFF59}
+# skipped; MCT / MCC / MCO (both) and CBD (main only) carry Part 2's
+# multi-component markers (`data/j2k_part2.py`).
+PART2 = {j2k_part2.MCT, j2k_part2.MCC, j2k_part2.MCO}
+MAIN_ONLY = {TLM, PLM, PPM, CRG, 0xFF50, 0xFF59, j2k_part2.CBD}
 TILE_ONLY = {PLT, PPT}
 BOTH = {COD, COC, RGN, QCD, QCC, POC, COM} | PART2
 KNOWN = MAIN_ONLY | TILE_ONLY | BOTH | {SIZ, SOT, 0xFF91}
-UNPORTED_STYLES = 0x40                   # HT (Part 15)
+HT = 0x40                                # HT code-blocks (Part 15), `data/j2k_ht.py`
 SRGB, GRAY, SYCC, UNKNOWN = "sRGB", "grey", "sYCC", "unknown"
 
 
@@ -233,9 +242,6 @@ def _check_lengths(m: int, seg: bytes) -> None:
     bit to continue) must end."""
     if m in (TLM, PLM, PLT) and not seg or m == PLT and seg[-1] & 0x80 and len(seg) > 1:
         raise UnreadableImage(f"JPEG 2000 marker {m:04x} OpenJPEG cannot read")
-    if m in PART2:
-        raise unsupported("JPEG 2000 Part 2 multi-component transforms (MCT, MCC, MCO, CBD)",
-                          CONTAINERS)
 
 
 class Codestream:
@@ -266,7 +272,8 @@ class Codestream:
         if self.ntx * self.nty > 65535:
             raise UnreadableImage("JPEG 2000 of more than 65535 tiles")
         self.main = {"cod": None, "coc": {}, "qcd": None, "qcc": {}, "rgn": {}, "poc": [],
-                     "ppm": []}
+                     "ppm": [], "p2": j2k_part2.Part2([0 if c["sgnd"] else 1 << (c["prec"] - 1)
+                                                      for c in self.comps])}
         self.tiles: dict[int, dict] = {}
         self.parts: list[int] = []              # the tile of each tile-part, in order
         self._markers(4 + lsiz)
@@ -361,6 +368,7 @@ class Codestream:
             if m == CRG and length - 2 != 4 * len(self.comps):
                 raise UnreadableImage("JPEG 2000 CRG marker of a wrong length")
             _check_lengths(m, cs[pos + 4:pos + 2 + length])
+            self._part2(m, cs[pos + 4:pos + 2 + length], self.main["p2"])
             pos += 2 + length
         while True:
             pos = self._tile_part(pos)
@@ -392,8 +400,10 @@ class Codestream:
             raise UnreadableImage("JPEG 2000 tile-part length past the end of the data")
         else:
             part_end = pos + psot
-        t = self.tiles.setdefault(isot, {"cod": None, "coc": {}, "qcd": None, "qcc": {},
-                                         "rgn": {}, "poc": [], "ppt": [], "data": []})
+        if isot not in self.tiles:
+            self.tiles[isot] = {"cod": None, "coc": {}, "qcd": None, "qcc": {}, "rgn": {},
+                                "poc": [], "ppt": [], "data": [], "p2": self.main["p2"].copy()}
+        t = self.tiles[isot]
         if tpsot != len(t["data"]):
             raise UnreadableImage(f"JPEG 2000 tile-part {tpsot} of tile {isot} out of order")
         t["tnsot"] = tnsot or t.get("tnsot", 0)
@@ -422,10 +432,21 @@ class Codestream:
             elif m in (POC, PPT):
                 self._header_marker(m, body, t)
             _check_lengths(m, body)
+            self._part2(m, body, t["p2"])
             p += 2 + length
         t["data"].append(cs[p:part_end])
         self.parts.append(isot)
         return part_end
+
+    def _part2(self, m: int, seg: bytes, st: j2k_part2.Part2) -> None:
+        if m == j2k_part2.MCT:
+            j2k_part2.read_mct(st, seg)
+        elif m == j2k_part2.MCC:
+            j2k_part2.read_mcc(st, seg)
+        elif m == j2k_part2.MCO:
+            j2k_part2.read_mco(st, seg, len(self.comps))
+        elif m == j2k_part2.CBD:
+            j2k_part2.read_cbd(self.comps, seg)
 
     def params(self, t: dict, c: int) -> tuple[dict, dict, int]:
         """The coding, quantisation and ROI shift of component c in tile t."""
@@ -471,8 +492,6 @@ def tile_packets(cs: Codestream, tno: int, ppm: dict, spans: list | None = None)
     comps, styles = [], []
     for c in range(len(cs.comps)):
         cp, qp, _ = cs.params(t, c)
-        if cp["style"] & UNPORTED_STYLES:
-            raise unsupported(f"JPEG 2000 code-block style {cp['style']:#04x}", CONTAINERS)
         comps.append(tile_component(*tb, cp, qp))
         styles.append(cp["style"])
     headers = None
@@ -502,14 +521,20 @@ def decode_codestream(cs: Codestream) -> list:
                 for band in res.bands:
                     for prc in band.precincts:
                         for cb in prc["cblks"]:
-                            if cb.included and cb.numbps + roi >= 31:
+                            ht = cp["style"] & HT
+                            if not ht and cb.included and cb.numbps + roi >= 31:
                                 raise UnreadableImage("JPEG 2000 code-block of 31 bit-planes "
                                                       "or more (OpenJPEG refuses it)")
+                            if ht and roi:
+                                raise UnreadableImage("JPEG 2000 HT code-blocks with an ROI "
+                                                      "shift (OpenJPEG refuses them)")
                             if cb.passes:
                                 blocks.append({"w": cb.x1 - cb.x0, "h": cb.y1 - cb.y0,
                                                "orient": band.orient, "passes": cb.passes,
                                                "numbps": cb.numbps + roi, "mb": cb.numbps,
-                                               "style": cp["style"],
+                                               "Mb": band.numbps if cb.included else 0,
+                                               "roi": roi, "style": cp["style"],
+                                               "base": cb.at if cb.pieces == 1 else 0,
                                                "data": b"".join(cb.chunks),
                                                "segs": [(n, ln) for _, n, ln in cb.segs],
                                                "cb": cb})
@@ -584,15 +609,7 @@ def _reconstruct(cs: Codestream, t: dict, tb: tuple, cod: dict, comps: list, rd:
         comp = cs.comps[c]
         prec, sgnd = comp["prec"], comp["sgnd"]
         lo, hi = (-(1 << (prec - 1)), (1 << (prec - 1)) - 1) if sgnd else (0, (1 << prec) - 1)
-        shift = 0 if sgnd else 1 << (prec - 1)
-        if buf.dtype == np.float32:
-            big = buf > np.float32(2 ** 31)
-            small = buf < np.float32(-2 ** 31)
-            vals = np.rint(np.where(big | small, 0, buf)).astype(np.int64)
-            vals = np.where(big, hi - shift, np.where(small, lo - shift, vals))
-        else:
-            vals = buf
-        out = np.clip(vals + shift, lo, hi)
+        out = j2k_part2.level_shift(buf, t["p2"].dc[c], lo, hi)
         planes[c][res.y0 - cs.Y0:res.y1 - cs.Y0, res.x0 - cs.X0:res.x1 - cs.X0] = out
 
 

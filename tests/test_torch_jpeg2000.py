@@ -12,7 +12,8 @@ short or with a byte flipped, damaged boxes and markers (one per rule of
 OpenJPEG's reader), random damage anywhere, and a
 seeded sweep of random files; the code-block styles (BYPASS, RESET,
 TERMALL, VSC, PTERM, SEGSYM and their mixes, written by libopenjp2 through
-`tools/variant_encoders.jpeg2000_opj`) and HT, which the port queues.
+`tools/variant_encoders.jpeg2000_opj`) and a Part 1 stream whose COD claims
+HT (`tests/test_torch_jpeg2000_ht.py` holds the HT code-blocks).
 
 Files are written in tmp_path by cv2, PIL and libopenjp2 under a .png name (cv2 picks
 the decoder by content) and held against cv2.imread in the three read
@@ -30,8 +31,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from kgtpu_torch.data.imread import (CONTAINERS, MODES, UnreadableImage, UnsupportedImage,
-                                     read_image)
+from kgtpu_torch.data.imread import MODES, UnreadableImage, read_image
 from tools import variant_encoders as ve
 
 _CV = {"color": cv2.IMREAD_COLOR, "gray": cv2.IMREAD_GRAYSCALE,
@@ -503,16 +503,24 @@ def test_poc_leaving_resolutions_out_reads_like_cv2(tmp_path, case):
     assert read == {"apart_with_mct": 0, "grey_res2": 2}.get(case, 3)
 
 
-def test_ht_codeblocks_raise_unsupported(tmp_path):
-    """A COD asking for HT code-blocks (Part 15, style 0x40): the port names
-    the ROADMAP item that queues them (§1 item 2)."""
+@pytest.mark.parametrize("drop", [None, 0, 5, -1], ids=["every_eph", "first_missing",
+                                                       "sixth_missing", "last_missing"])
+def test_missing_eph_marker_refuses_like_cv2(tmp_path, drop):
+    """COD asks for EPH markers: OpenJPEG fails the tile where a packet
+    header is not followed by one (or two bytes are not left for it); the
+    port read on.  (Found by `tools/probe_jpeg2000.py --damage`.)"""
+    cs = pil(smooth(40, 48), no_jp2=True, num_resolutions=3, tile_size=(32, 32))
+    got = read_all(tmp_path, ve.jpeg2000_eph(cs, drop))
+    assert got == (3 if drop is None else 0)
+
+
+def test_ht_style_on_a_part1_stream_reads_like_cv2(tmp_path):
+    """(Named test_ht_codeblocks_raise_unsupported while the port queued HT.)
+    A Part 1 codestream whose COD claims HT code-blocks (Part 15, style
+    0x40): its MQ-coded blocks go to the HT decoder, as in OpenJPEG, and
+    the port reads or refuses the file exactly as cv2 does, in every mode."""
     b = bytearray(ve.jpeg2000_opj(clean(24, 32), resolutions=3))
     at = b.index(b"\xff\x52") + 4 + 8            # Scod, SGcod, then NL, xcb, ycb, style
     assert b[at] == 0
     b[at] = 0x40
-    path = str(tmp_path / "image.png")
-    with open(path, "wb") as f:
-        f.write(bytes(b))
-    for mode in MODES:
-        with pytest.raises(UnsupportedImage, match=CONTAINERS):
-            read_image(path, mode)
+    read_all(tmp_path, bytes(b))

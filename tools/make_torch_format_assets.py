@@ -3,7 +3,7 @@
 assets_torch/formats/, and kgtpu's references for them.
 
     python tools/make_torch_format_assets.py [--out assets_torch]
-        [--only variants|variants2|containers|jpeg2000|jpeg2000_styles]
+        [--only variants|variants2|containers|jpeg2000|jpeg2000_styles|jpeg2000_ht]
 
 Runs on the CPU where cv2, PIL, jax and kgtpu are installed (after
 tools/make_torch_eval_assets.py, whose synthetic_hard images and flagship it
@@ -92,9 +92,23 @@ reads), and writes:
                                variants.  The lossless ones are checked to
                                decode (cv2) to the pixels written.
 
-`--only variants`, `--only containers`, `--only jpeg2000` or `--only
-jpeg2000_styles` writes that folder alone and adds its keys to the existing kgtpu_reference_formats.npz,
-keeping every other array as it is.  The fixtures and the reference together
+  formats/jpeg2000_ht/<kind>.<ext>  decode-only JPEG 2000 files of HT
+                               code-blocks (Part 15), 128x128 cuts as above,
+                               one per kind of `JPEG2000_HT` (RGB and grey
+                               lossless, 9/7, 16-bit grey, RGBA, tiles with
+                               precincts, 4x4 and 16x8 code-blocks with
+                               RPCL, SigProp + MagRef, two layers with VSC)
+                               and one with Part 2 MCT / MCC / MCO offsets,
+                               written by tools/variant_encoders.jpeg2000_ht;
+                               `jpeg2000_ht_decode_json` /
+                               `jpeg2000_ht_kinds_json` as for the variants.
+                               The lossless ones are checked to decode (cv2)
+                               to the pixels written.
+
+`--only variants`, `--only containers`, `--only jpeg2000`, `--only
+jpeg2000_styles` or `--only jpeg2000_ht` writes that folder alone and adds
+its keys to the existing kgtpu_reference_formats.npz, keeping every other
+array as it is.  The fixtures and the reference together
 stay under 8 MiB (the variants under 8 MiB of their own, the containers and
 the JPEG 2000 folder, each with their keys, under 6 MiB).
 """
@@ -679,6 +693,84 @@ JPEG2000_STYLES = [
 ]
 
 
+def _part2_offsets() -> bytes:
+    """MCT (int32 offsets 10, -20, 30), MCC naming it, MCO applying it."""
+    import struct
+
+    def seg(m, body):
+        return struct.pack(">HH", m, len(body) + 2) + body
+    return (seg(0xFF74, struct.pack(">HHHiii", 0, 1 | 2 << 8 | 1 << 10, 0, 10, -20, 30))
+            + seg(0xFF75, struct.pack(">HBHHBH", 0, 1, 0, 1, 1, 3) + bytes(range(3))
+                  + struct.pack(">H", 3) + bytes(range(3)) + bytes([1, 1, 0]))
+            + seg(0xFF77, b"\1\1"))
+
+
+# (kind, extension, image index, jpeg2000_ht's options); "grey" cuts are the
+# green channel, "grey16" it times 257, "rgba" with a horizontal alpha ramp
+JPEG2000_HT = [
+    ("rgb_lossless", ".jp2", 0, {"jp2": True, "levels": 5}),
+    ("grey_lossless", ".j2k", 1, {"levels": 5}),
+    ("rgb_97", ".jp2", 2, {"irreversible": True, "step": 2.0, "jp2": True}),
+    ("grey16_lossless", ".j2k", 3, {"levels": 4}),
+    ("rgba_lossless", ".jp2", 4, {"jp2": True}),
+    ("rgb_tiles64_precincts", ".j2k", 5, {"tiles": (64, 64), "levels": 3, "cblk": (16, 16),
+                                          "precincts": [(4, 4), (4, 4), (5, 5), (5, 5)]}),
+    ("rgb_cblk4x4", ".j2k", 6, {"cblk": (4, 4), "levels": 2}),
+    ("grey_cblk16x8_rpcl", ".jp2", 7, {"cblk": (16, 8), "order": "RPCL", "jp2": True}),
+    ("rgb_sigprop_magref", ".jp2", 8, {"refine": True, "jp2": True}),
+    ("rgb_two_layers_vsc", ".j2k", 9, {"refine": True, "layers": 2, "style": 0x48}),
+    ("rgb_part2_offsets", ".j2k", 0, {"part2": True}),
+]
+
+
+def make_jpeg2000_ht(out: str) -> int:
+    """formats/jpeg2000_ht and its keys in kgtpu_reference_formats.npz
+    (module docstring), the other keys kept."""
+    import cv2
+    import numpy as np
+
+    from tools.variant_encoders import jpeg2000_ht
+    src = os.path.join(out, "synthetic_hard", "images")
+    fdir = os.path.join(out, "formats", "jpeg2000_ht")
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.makedirs(fdir)
+    ids = sorted(f[:-4] for f in os.listdir(src))
+    kinds = {}
+    for kind, ext, k, opts in JPEG2000_HT:
+        rgb = cv2.imread(os.path.join(src, f"{ids[k]}.png"), cv2.IMREAD_COLOR)[..., ::-1]
+        px = np.ascontiguousarray(rgb[192:320, 192:320])
+        if kind.startswith("grey16"):
+            px = px[..., 1].astype(np.uint16) * 257
+        elif kind.startswith("grey"):
+            px = px[..., 1]
+        elif kind.startswith("rgba"):
+            ramp = np.arange(128)[None, :] * 2 + np.zeros((128, 1), int)
+            px = np.dstack([px, ramp.astype(np.uint8)])
+        opts = dict(opts)
+        if opts.pop("part2", False):
+            opts["main_extra"] = _part2_offsets()
+        rel = kind + ext
+        data = jpeg2000_ht(px, **opts)
+        with open(os.path.join(fdir, rel), "wb") as f:
+            f.write(data)
+        if "lossless" in kind:
+            back = cv2.imread(os.path.join(fdir, rel), cv2.IMREAD_UNCHANGED)
+            back = back[..., [2, 1, 0, 3][:back.shape[2]]] if back.ndim == 3 else back
+            assert np.array_equal(back, px), f"{rel} does not decode to its pixels"
+        kinds[rel] = kind
+    decodes = cv2_decodes(fdir, sorted(kinds))
+    path = os.path.join(out, "kgtpu_reference_formats.npz")
+    with np.load(path) as ref:
+        result = {k: ref[k] for k in ref.files if not k.startswith("jpeg2000_ht_")}
+    result.update({"jpeg2000_ht_decode_json": np.array(json.dumps(decodes)),
+                   "jpeg2000_ht_kinds_json": np.array(json.dumps(kinds))})
+    np.savez_compressed(path, **result)
+    size = sum(os.path.getsize(os.path.join(fdir, f)) for f in kinds)
+    print(f"{len(kinds)} jpeg2000_ht files, {len(decodes)} decodes "
+          f"({sum(d['sha256'] is None for d in decodes)} None), {size / 2**20:.3f} MiB")
+    return 0
+
+
 def make_jpeg2000_styles(out: str) -> int:
     """formats/jpeg2000_styles and its keys in kgtpu_reference_formats.npz
     (module docstring), the other keys kept."""
@@ -888,7 +980,7 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
     p.add_argument("--only", choices=["variants", "variants2", "containers", "jpeg2000",
-                                       "jpeg2000_styles"], default=None)
+                                       "jpeg2000_styles", "jpeg2000_ht"], default=None)
     a = p.parse_args(argv)
     if a.only == "variants":
         return make_variants(a.out)
@@ -900,6 +992,8 @@ def main(argv: list[str] | None = None) -> int:
         return make_jpeg2000(a.out)
     if a.only == "jpeg2000_styles":
         return make_jpeg2000_styles(a.out)
+    if a.only == "jpeg2000_ht":
+        return make_jpeg2000_ht(a.out)
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -981,7 +1075,7 @@ def main(argv: list[str] | None = None) -> int:
     print(f"{len(decode)} decodes, datasets {[(k, len(v)) for k, v in datasets.items()]}, "
           f"{total / 2**20:.2f} MiB")
     return (make_variants(a.out) or make_variants2(a.out) or make_containers(a.out)
-            or make_jpeg2000(a.out))
+            or make_jpeg2000(a.out) or make_jpeg2000_styles(a.out) or make_jpeg2000_ht(a.out))
 
 
 if __name__ == "__main__":

@@ -5,12 +5,15 @@ outside the test gate (it takes minutes):
     python tools/probe_jpeg2000.py [--files 1000] [--maxsize 299] [--seed 0]
                                    [--workers 8] [--fma | --damage] [--dump DIR]
 
-Every other file is `variant_encoders.jpeg2000_random` (PIL's OpenJPEG
-writer with random size, mode, content and options), the rest
+A third of the files is `variant_encoders.jpeg2000_random` (PIL's OpenJPEG
+writer with random size, mode, content and options), a third
 `variant_encoders.jpeg2000_random_styles` (libopenjp2 through ctypes, with
 random code-block styles, precisions, layers and code-block sizes; each
 encode in a forked child, as the encoder can corrupt its heap on noise with
-TERMALL, and a child that dies counts as a refused draw); each is read in
+TERMALL, and a child that dies counts as a refused draw) and a third
+`variant_encoders.jpeg2000_ht_random` (HT code-blocks from the test writer:
+random kinds, wavelets, code-blocks, tiles, precincts, progressions and
+passes); each is read in
 "color", "gray" and "unchanged" by cv2 and by
 `kgtpu_torch.data.imread.read_image`, which
 must give the same dtype, shape and values, or raise UnreadableImage where
@@ -20,9 +23,11 @@ fused (X(k) + (X(k-1) + X(k+1)) * c rounded once, as a compiler that
 contracts a*b+c would build OpenJPEG), and prints how many differ from
 cv2: the check that `data/j2k_dwt.py` keeps the separate multiply and add.
 `--damage` reads each file after damaging it (bytes changed, the file cut,
-or a run replaced by random bytes, anywhere: boxes, headers, packets),
-which cv2 mostly refuses and the port must refuse alike.  `--dump DIR`
-writes each file that mismatches there.
+or a run replaced by random bytes, anywhere: boxes, headers, packets; for
+half the HT files, 1-3 bytes of the code-block data alone), which cv2
+mostly refuses and the port must refuse alike.  `--dump DIR` writes each
+file that mismatches there.  The report lists every read the port left as
+`UnsupportedImage` (the file's kind and the message), for a later slice.
 Needs cv2 and PIL (this CPU box), not the card.
 """
 
@@ -52,6 +57,17 @@ def _fused_lift(x: np.ndarray, start: int, c: np.float32) -> None:
         right = np.where(k + 1 < n, k + 1, 2 * n - 2 - (k + 1))
         s = (x[:, left] + x[:, right]).astype(np.float64)
         x[:, k] = (s * np.float64(c) + x[:, k].astype(np.float64)).astype(np.float32)
+
+
+def _damage_blocks(data: bytes, rng) -> bytes:
+    """1-3 bytes after the first SOD changed or with a bit flipped."""
+    d = bytearray(data)
+    i0 = data.index(b"\xff\x93") + 2
+    for _ in range(int(rng.integers(1, 4))):
+        j = int(rng.integers(i0, max(i0 + 1, len(d) - 2)))
+        d[j] = int(rng.integers(0, 256)) if rng.random() < 0.5 else d[j] ^ (1 << int(
+            rng.integers(0, 8)))
+    return bytes(d)
 
 
 def _damage(data: bytes, rng) -> bytes:
@@ -97,13 +113,14 @@ def _forked(fn):
 def _probe(args: tuple) -> tuple[int, int, int, list, list, int]:
     """(files written, modes cv2 reads, modes refused by both, mismatches,
     reads the port queues: UnsupportedImage and whether cv2 read them,
-    files with a code-block style other than 0) for the files of one
-    seed."""
+    files with a code-block style other than 0, HT files) for the files of
+    one seed."""
     import cv2
 
     from kgtpu_torch.data import j2k_dwt
     from kgtpu_torch.data.imread import UnreadableImage, UnsupportedImage, read_image
-    from tools.variant_encoders import jpeg2000_opj, jpeg2000_random, jpeg2000_random_styles
+    from tools.variant_encoders import (jpeg2000_ht_random, jpeg2000_opj, jpeg2000_random,
+                                        jpeg2000_random_styles)
     seed, n, maxsize, fma, damage, dump = args
     encode = _forked(jpeg2000_opj)
     if fma:
@@ -111,19 +128,24 @@ def _probe(args: tuple) -> tuple[int, int, int, list, list, int]:
     flags = {"color": cv2.IMREAD_COLOR, "gray": cv2.IMREAD_GRAYSCALE,
              "unchanged": cv2.IMREAD_UNCHANGED}
     rng = np.random.default_rng(seed)
-    written, read, refused, bad, queued, styled = 0, 0, 0, [], [], 0
+    written, read, refused, bad, queued, styled, ht = 0, 0, 0, [], [], 0, 0
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "image.png")
         for k in range(n):
-            if k % 2 and not fma:
+            is_ht = k % 3 == 2 and not fma
+            if is_ht:
+                data, info = jpeg2000_ht_random(rng, min(maxsize, 64))
+            elif k % 3 == 1 and not fma:
                 data, info = jpeg2000_random_styles(rng, maxsize, encode)
             else:
                 data, info = jpeg2000_random(rng, maxsize)
             if data is None or fma and not info[3].get("irreversible"):
                 continue
             if damage:
-                data = _damage(data, rng)
+                data = _damage_blocks(data, rng) if is_ht and rng.random() < 0.5 else \
+                    _damage(data, rng)
             written += 1
+            ht += is_ht
             styled += bool(info[3].get("style"))
             with open(path, "wb") as f:
                 f.write(data)
@@ -159,7 +181,7 @@ def _probe(args: tuple) -> tuple[int, int, int, list, list, int]:
                                 else "values differ"))
                 else:
                     read += 1
-    return written, read, refused, bad, queued, styled
+    return written, read, refused, bad, queued, styled, ht
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -184,8 +206,10 @@ def main(argv: list[str] | None = None) -> int:
     bad = [b for r in results for b in r[3]]
     queued = [q for r in results for q in r[4]]
     styled = sum(r[5] for r in results)
+    ht = sum(r[6] for r in results)
     what = "9/7 files, the lifting fused" if a.fma else "damaged files" if a.damage else "files"
-    print(f"{written} {what} (of {a.files} drawn; {styled} with code-block styles), {read} "
+    print(f"{written} {what} (of {a.files} drawn; {styled} with code-block styles, {ht} HT), "
+          f"{read} "
           f"reads equal to cv2's, {refused} "
           f"refused by both, {len(bad)} mismatches "
           f"({len({repr(b[0]) for b in bad})} files), {len(queued)} queued "
@@ -193,6 +217,8 @@ def main(argv: list[str] | None = None) -> int:
           f"{time.perf_counter() - t:.0f} s")
     if a.fma:
         return 0
+    for q in queued:
+        print("UNSUPPORTED", q)
     for b in bad:
         print("MISMATCH", b)
     return 1 if bad else 0

@@ -1398,6 +1398,36 @@ def jpeg2000_packed_headers(cs: bytes, marker: str = "ppt") -> bytes:
     return out + b"\xff\xd9"
 
 
+def jpeg2000_eph(cs: bytes, drop: int | None = None) -> bytes:
+    """A raw codestream (one tile-part a tile, no SOP / EPH) rewritten with
+    COD's EPH flag and an EPH marker after every packet header (empty
+    packets too), but the one of packet `drop` (counted over the whole
+    codestream, negative from its end); the packets are found with the
+    port's tier-2 as in `jpeg2000_packed_headers`."""
+    from kgtpu_torch.data.jpeg2000 import COD, SOT, Codestream, tile_packets
+    c = Codestream(cs)
+    main_end = cs.index(struct.pack(">H", SOT))
+    tiles = []
+    for tno in c.parts:
+        spans: list = []
+        tile_packets(c, tno, {}, spans)
+        tiles.append((tno, c.tiles[tno]["data"][0], spans))
+    n = sum(len(sp) for _, _, sp in tiles)
+    skip = None if drop is None else drop % n
+    head = bytearray(cs[:main_end])
+    at = head.index(struct.pack(">H", COD))
+    head[at + 4] |= 0x04
+    out, k = bytes(head), 0
+    for tno, data, spans in tiles:
+        body = b""
+        for a, b, e in spans:
+            body += data[a:b] + (b"" if k == skip else b"\xff\x92") + data[b:e]
+            k += 1
+        psot = 12 + 2 + len(body)
+        out += struct.pack(">HHHIBB", SOT, 10, tno, psot, 0, 1) + b"\xff\x93" + body
+    return out + b"\xff\xd9"
+
+
 _OPJ: list = []
 
 
@@ -1743,3 +1773,72 @@ def jpeg_keep_scans(jpeg: bytes, keep) -> bytes:
         else:
             out += seg
     return bytes(out + b"\xff\xd9")
+
+
+def jpeg2000_ht(px: np.ndarray, irreversible: bool = False, levels: int = 3,
+                cblk: tuple = (64, 64), tiles: tuple | None = None,
+                precincts: list | None = None, order: str = "LRCP", refine: bool = False,
+                sets: int = 1, step: float = 1.0, jp2: bool = False, **kw) -> bytes:
+    """A JPEG 2000 file of HT code-blocks (Part 15), which OpenJPEG's encoder
+    cannot write: `px` uint8 or uint16, grey [h, w], RGB or RGBA [h, w, c];
+    the reversible 5/3 wavelet with RCT, or the 9/7 with ICT and step sizes
+    from `step`; `levels` decompositions, tiles (multiples of 2^levels) and
+    precincts ((PPx, PPy) per resolution) optional, code-blocks of 4x4 to
+    64x64, LRCP or RPCL, one quality layer; the cleanup pass alone, or
+    (`refine`) with SigProp and MagRef over the last bit-plane; `sets` > 1
+    signals further HT sets (more than the 3 passes OpenJPEG decodes).
+    Rsiz and CAP as HT writers set them; a JP2 file around it (sRGB or
+    greyscale) with `jp2`.  Other keywords go to
+    `tools/j2k_ht_writer.codestream` (code-block style bits, Rsiz, CAP's
+    body, marker segments spliced into the main or tile-part headers, two
+    or three quality layers, and `tamper(coefficients, Mb, p, passes,
+    segments, missing MSBs)`, which may rewrite each code-block's coding).
+    See `tools/j2k_ht_writer.py`."""
+    from tools import j2k_ht_writer as hw
+    cs = hw.codestream(px, irreversible=irreversible, levels=levels, cblk=cblk, tiles=tiles,
+                       precincts=precincts, order=order, refine=refine, sets=sets, step=step,
+                       **kw)
+    if not jp2:
+        return cs
+    h, w = px.shape[:2]
+    nc = 1 if px.ndim == 2 else px.shape[2]
+    return hw.jp2(cs, w, h, nc, 16 if px.dtype == np.uint16 else 8, 17 if nc == 1 else 16)
+
+
+def jpeg2000_ht_random(rng, maxsize: int = 64):
+    """A random `jpeg2000_ht` file: size 1..maxsize, grey, RGB, RGBA or
+    16-bit grey, random or smooth content, 5/3 or 9/7 (random step), 0-5
+    levels, code-blocks of 4x4 to 64x64, tiles and precincts or not, LRCP
+    or RPCL, the cleanup pass alone or with SigProp and MagRef, VSC, JP2 or
+    a raw codestream.  Returns (bytes, info)."""
+    h, w = (int(v) for v in rng.integers(1, maxsize + 1, 2))
+    kind = ["grey", "rgb", "rgba", "grey16"][int(rng.integers(0, 4))]
+    c = {"grey": 1, "rgb": 3, "rgba": 4, "grey16": 1}[kind]
+    top = 65535 if kind == "grey16" else 255
+    if rng.random() < 0.5:
+        px = rng.integers(0, top + 1, (h, w, c))
+    else:
+        y, x = np.mgrid[:h, :w]
+        px = np.stack([(0.5 + 0.45 * np.sin(x * rng.uniform(0.05, 0.6) + y * rng.uniform(0.05, 0.6)
+                                              + k)) * top for k in range(c)], -1)
+    px = px.astype(np.uint16 if kind == "grey16" else np.uint8)
+    px = px[..., 0] if c == 1 else px
+    levels = int(rng.integers(0, 6))
+    while levels and max(h, w) >> levels == 0:
+        levels -= 1
+    cw = 1 << int(rng.integers(2, 7))
+    ch = 1 << int(rng.integers(2, min(7, 13 - cw.bit_length() + 1)))
+    kw = dict(irreversible=bool(rng.random() < 0.4), levels=levels, cblk=(cw, ch),
+              order=["LRCP", "RPCL"][int(rng.integers(0, 2))], refine=bool(rng.random() < 0.35),
+              step=float(2.0 ** rng.integers(-2, 5)), jp2=bool(rng.random() < 0.5),
+              style=0x40 | (0x08 if rng.random() < 0.2 else 0))
+    if rng.random() < 0.3 and levels <= 4:
+        t = 1 << levels
+        kw["tiles"] = (t * int(rng.integers(1, 4)) * (2 if t < 8 else 1),) * 2
+    if rng.random() < 0.3:
+        kw["precincts"] = [tuple(int(rng.integers(3 if r else 2, 7)) for _ in range(2))
+                           for r in range(levels + 1)]
+    try:
+        return jpeg2000_ht(px, **kw), (kind, h, w, kw)
+    except ValueError:
+        return None, (kind, h, w, kw)
