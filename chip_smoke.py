@@ -189,8 +189,7 @@
     lossless JPEG with subsampled chroma, 16-bit grey of three samples, a
     palette with an extra sample and a 16-bit one without a ColorMap, a
     codec libtiff does not know, JPEG TIFF in separate planes, 4x4 YCbCr,
-    SGILog LogL and ThunderScan; `variants2_*` keys), its (a) in
-    VARIANTS_WORKERS processes, and (a) alone over
+    SGILog LogL and ThunderScan; `variants2_*` keys), and (a) alone over
     assets_torch/formats/variants2_extra (256x256 files cv2 reads in
     "unchanged" only, or not at all: 10-, 12- and 14-bit grey, 12-bit RGB,
     a PNG cut mid-file, SGILog24 LogLuv; `variants2_extra_*`).  Budget
@@ -213,9 +212,8 @@
     with RPCL and 64x64 precincts, PCRL with 32x32 code-blocks, 3
     resolutions and no colour transform, RGBA (cdef alpha) with CPRL and 7
     resolutions, and 16-bit grey with RLCP (`jpeg2000_decode_json` and
-    `*_jpeg2000_*`).  The pure-Python decoder takes seconds per image, so
-    (a)'s check against cv2's hashes runs in JPEG2000_WORKERS processes;
-    each kind is then timed alone.  Budget JPEG2000_PHASE_S.  Then (c),
+    `*_jpeg2000_*`).  The pure-Python decoder takes seconds per image; each
+    kind is timed alone.  Budget JPEG2000_PHASE_S.  Then (c),
     decode only: assets_torch/formats/jpeg2000_styles, 128x128 files in the
     code-block styles (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM, all six
     lossless and in 9/7 layers, grey in layers, 16-bit grey) against cv2's
@@ -228,6 +226,22 @@
     tools/variant_encoders.jpeg2000_ht, against cv2's hashes
     (`jpeg2000_ht_decode_json`) in the same processes, each kind timed by
     one read; budget JPEG2000_HT_S.
+[18] AVIF.  (a) assets_torch/formats/avif, 128x128 cuts of the synthetic_hard
+    images: cv2's lossless RGB, grey, RGBA, 10- and 12-bit; PIL's lossy
+    4:2:0 at two qualities (one with quantiser matrices), 4:2:2, 4:4:4
+    without in-loop filters, screen content with palettes, 2x2 tiles,
+    128x128 superblocks and an image sequence; libaom's own encoder's lossy
+    monochrome, intra block copy (a 128x768 strip) and a 2x2 grid; each in
+    every mode against cv2's hashes (`avif_decode_json`), each kind timed by
+    one read; budget AVIF_DECODE_S.  (b) assets_torch/formats/avif_folder,
+    the first 4 synthetic_hard images at 512x512 as cv2's lossless and PIL's
+    filter-free lossy AVIF under .png / .jpg / .tif / .bmp names: their
+    hashes, one read per kind timed, then [15]'s (b) (`avif_folder_*`
+    keys: kgtpu's f32 and bf16 runs on cv2's reads of the same files);
+    budget AVIF_SERVE_S.
+The decode checks of [15]-[18] share one pool of DECODE_WORKERS spawned
+processes, and their folders are served with `cli.test --decode_workers
+DECODE_WORKERS` (the images read in that many processes, in order).
 
 The e2e img/s of [4] is the headline bench's (`kgtpu_torch.cli.bench`): the
 median of 5 repeats of 10 calls, with their min and max.  The metrics line's
@@ -374,7 +388,6 @@ VARIANTS_PHASE_S = 150      # phase [15]'s budget for formats/variants
 VARIANTS2_DIR = os.path.join(FORMATS, "variants2")
 VARIANTS2_EXTRA_DIR = os.path.join(FORMATS, "variants2_extra")
 VARIANTS2_PHASE_S = 150     # ... and for formats/variants2 and variants2_extra
-VARIANTS_WORKERS = 8        # processes of formats/variants2's decode check
 SLOW_DECODE_MS = 1000       # [15] / [16]: a decode over this is timed once, not 3 times
 # phase [16]: the image containers cv2 sniffs, under kgtpu's file names
 CONTAINERS_DIR = os.path.join(FORMATS, "containers")
@@ -382,11 +395,17 @@ CONTAINERS_PHASE_S = 120    # phase [16]'s budget
 # phase [17]: JPEG 2000 under kgtpu's file names
 JPEG2000_DIR = os.path.join(FORMATS, "jpeg2000")
 JPEG2000_PHASE_S = 150      # phase [17]'s budget
-JPEG2000_WORKERS = 8        # processes for [17] (a)'s decodes against cv2's hashes
 JPEG2000_STYLES_DIR = os.path.join(FORMATS, "jpeg2000_styles")
 JPEG2000_STYLES_S = 30      # [17] (c)'s budget
 JPEG2000_HT_DIR = os.path.join(FORMATS, "jpeg2000_ht")
 JPEG2000_HT_S = 20          # [17] (d)'s budget
+DECODE_WORKERS = 8          # [15]-[18]: one process pool for the decode checks, and
+                            # cli.test --decode_workers for the folders served
+# phase [18]: AVIF
+AVIF_DIR = os.path.join(FORMATS, "avif")
+AVIF_DECODE_S = 25          # [18] (a)'s budget
+AVIF_FOLDER_DIR = os.path.join(FORMATS, "avif_folder")
+AVIF_SERVE_S = 60           # [18] (b)'s budget
 HOST_OP_INSTANCES = 120     # [9]: instances of the label map the host ops are timed on
 CAPTURE_PHASE_S = 180       # phase [14]'s budget
 GRAPH_PROFILE_FLAG = "--graph-profile"   # runs [14](b) alone, in a fresh process
@@ -1739,10 +1758,12 @@ class _FolderRun(dict):
 
 
 def folder_vs_kgtpu(np, torch, gn, gauss, data_dir: str, ids: list, gt: dict, ref_labels,
-                    ref_counts, ref_metrics: dict, dtype: str, save: str) -> _FolderRun:
+                    ref_counts, ref_metrics: dict, dtype: str, save: str,
+                    decode_workers: int = 0) -> _FolderRun:
     """`cli.test --dataset folder` over `data_dir` with the flagship (batch 16,
-    512x512, --use_ema) in `dtype`, scored and held against kgtpu's run:
-    mAP_dsb2018, instance counts and label-map pixels off, per image."""
+    512x512, --use_ema) in `dtype` (and --decode_workers), scored and held
+    against kgtpu's run: mAP_dsb2018, instance counts and label-map pixels
+    off, per image."""
     from kgtpu_torch.cli import test as test_cli
     from kgtpu_torch.cli.eval import metrics as eval_metrics
     from kgtpu_torch.cli.eval import records
@@ -1752,7 +1773,7 @@ def folder_vs_kgtpu(np, torch, gn, gauss, data_dir: str, ids: list, gt: dict, re
     rc = test_cli.main(["--dataset", "folder", "--data_dir", data_dir,
                         "--weights", os.path.join(ASSETS, "flagship_ema"), "--use_ema",
                         "--input_size", "512", "--batch_size", "16", "--compute_dtype", dtype,
-                        "--save_dir", save])
+                        "--decode_workers", str(decode_workers), "--save_dir", save])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     with open(os.path.join(save, "detections.json")) as f:
@@ -2669,16 +2690,27 @@ def _read_or_refuse(path: str, mode: str):
         return e
 
 
-def folder_decodes(np, smi: str, key: str, folder: str, stem: str, workers: int = 1,
-                   reads: int = 3) -> dict:
-    """[15] / [16] / [17] (a), [17] (c): every fixture of a folder in every
-    mode against cv2's hash (`<key>_decode_json`; UnreadableImage where cv2
-    returns None), in `workers` processes when more than 1; then the decode
-    time of each, alone (median of `reads` reads, 1 read for a decoder over
-    SLOW_DECODE_MS)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+_POOL: list = []
 
+
+def decode_pool():
+    """The one process pool (DECODE_WORKERS spawned processes) of the decode
+    checks of [15]-[18]; main shuts it down."""
+    if not _POOL:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        _POOL.append(ProcessPoolExecutor(DECODE_WORKERS,
+                                         mp_context=multiprocessing.get_context("spawn")))
+    return _POOL[0]
+
+
+def folder_decodes(np, smi: str, key: str, folder: str, stem: str, reads: int = 3) -> dict:
+    """[15] / [16] / [17] (a), [17] (c), (d), [18]: every fixture of a folder
+    in every mode against cv2's hash (`<key>_decode_json`; UnreadableImage
+    where cv2 returns None), in the shared decode pool; then the decode time
+    of each kind, alone (median of `reads` reads, 1 read for a decoder over
+    SLOW_DECODE_MS; a kind that several files share is timed on its
+    first)."""
     from kgtpu_torch.data.imread import UnreadableImage, read_image
     from tools.make_torch_format_assets import sha
     ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
@@ -2687,11 +2719,7 @@ def folder_decodes(np, smi: str, key: str, folder: str, stem: str, workers: int 
     t = time.perf_counter()
     bad, refused = [], 0
     jobs = [(os.path.join(folder, d["path"]), d["mode"]) for d in decodes]
-    if workers > 1:
-        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-            results = list(ex.map(_read_or_refuse, *zip(*jobs)))
-    else:
-        results = [_read_or_refuse(*job) for job in jobs]
+    results = list(decode_pool().map(_read_or_refuse, *zip(*jobs)))
     for d, got in zip(decodes, results):
         if isinstance(got, UnreadableImage):
             if d["sha256"] is None:
@@ -2707,13 +2735,13 @@ def folder_decodes(np, smi: str, key: str, folder: str, stem: str, workers: int 
     check_s = time.perf_counter() - t
     log(f"  {len(decodes) - len(bad)}/{len(decodes)} {stem} decodes equal cv2's (sha256, "
         f"shape, dtype; {refused} of them UnreadableImage where cv2 returns None) in "
-        f"{check_s:.1f} s ({workers} process(es))")
+        f"{check_s:.1f} s ({DECODE_WORKERS} processes)")
     require(not bad, f"{stem} decodes off cv2's: {bad[:5]}")
     timed = {}
     for f, kind in sorted(kinds.items(), key=lambda kv: kv[1]):
         # timed in the first mode cv2 reads ("color" for a served folder)
         mode = next((d["mode"] for d in decodes if d["path"] == f and d["sha256"]), None)
-        if mode is None:
+        if mode is None or kind in timed:
             continue
         times = []
         while len(times) < reads:
@@ -2735,9 +2763,9 @@ def folder_decodes(np, smi: str, key: str, folder: str, stem: str, workers: int 
 
 
 def folder_serving(np, torch, gn, gauss, xstats: dict, key: str, folder: str) -> dict:
-    """[15] / [16] / [17] (b): the flagship over a folder (f32, bf16) against
-    kgtpu's run on the same files (`labels_<key>_<dtype>`, ...), with
-    [8]'s gates."""
+    """[15] / [16] / [17] / [18] (b): the flagship over a folder (f32, bf16;
+    cli.test --decode_workers DECODE_WORKERS) against kgtpu's run on the
+    same files (`labels_<key>_<dtype>`, ...), with [8]'s gates."""
     from kgtpu_torch.data.png import read_png
     ref = np.load(os.path.join(ASSETS, "kgtpu_reference_formats.npz"))
     ref_metrics = json.loads(str(ref[f"{key}_metrics_json"]))
@@ -2751,7 +2779,7 @@ def folder_serving(np, torch, gn, gauss, xstats: dict, key: str, folder: str) ->
             r = folder_vs_kgtpu(np, torch, gn, gauss, folder, ids, gt,
                                 ref[f"labels_{key}_{dtype}"],
                                 ref[f"counts_{key}_{dtype}"], ref_metrics[dtype], dtype,
-                                os.path.join(tmp, dtype))
+                                os.path.join(tmp, dtype), decode_workers=DECODE_WORKERS)
             jpeg = xstats[f"jpeg_cli_img_per_s_{short}"]
             log(f"  {key} folder {dtype}: mAP_dsb2018 {r['mAP_dsb2018']:.6f} (kgtpu "
                 f"{ref_metrics[dtype]['mAP_dsb2018']:.6f}, diff {r['dmap']:+.6f}, tol "
@@ -2771,11 +2799,11 @@ def folder_serving(np, torch, gn, gauss, xstats: dict, key: str, folder: str) ->
 
 
 def phase_folder(np, torch, gn, gauss, smi: str, xstats: dict, phase: str, key: str,
-                 folder: str, stem: str, budget_s: int, workers: int = 1) -> dict:
-    """[15] / [16] / [17]: (a) and (b) of the module docstring over one
-    folder."""
+                 folder: str, stem: str, budget_s: int) -> dict:
+    """[15] / [16] / [17] / [18]: (a) and (b) of the module docstring over
+    one folder."""
     t_phase = time.perf_counter()
-    out = folder_decodes(np, smi, key, folder, stem, workers)
+    out = folder_decodes(np, smi, key, folder, stem)
     out.update(folder_serving(np, torch, gn, gauss, xstats, key, folder))
     phase_s = time.perf_counter() - t_phase
     log(f"  phase [{phase}]: {phase_s:.1f} s (budget {budget_s} s)")
@@ -3002,10 +3030,9 @@ def main() -> int:
         "formats/variants2_extra decoded and timed")
     t = time.perf_counter()
     vstats.update(phase_folder(np, torch, gn, gauss, smi, xstats, "15", "variants2",
-                               VARIANTS2_DIR, "variant2", VARIANTS2_PHASE_S,
-                               workers=VARIANTS_WORKERS))
+                               VARIANTS2_DIR, "variant2", VARIANTS2_PHASE_S))
     vstats.update(folder_decodes(np, smi, "variants2_extra", VARIANTS2_EXTRA_DIR,
-                                 "variant2_extra", workers=VARIANTS_WORKERS))
+                                 "variant2_extra"))
     vstats["variants2_all_s"] = time.perf_counter() - t
     require(vstats["variants2_all_s"] <= VARIANTS2_PHASE_S,
             f"[15] variants2 took {vstats['variants2_all_s']:.0f} s")
@@ -3024,12 +3051,12 @@ def main() -> int:
         "formats/jpeg2000 (f32, bf16) against kgtpu's run on them")
     torch.cuda.empty_cache()
     j2stats = phase_folder(np, torch, gn, gauss, smi, xstats, "17", "jpeg2000", JPEG2000_DIR,
-                           "jpeg2000", JPEG2000_PHASE_S, workers=JPEG2000_WORKERS)
+                           "jpeg2000", JPEG2000_PHASE_S)
     log("[17] (c) JPEG 2000 code-block styles: formats/jpeg2000_styles decoded as cv2 decodes "
         "it, each kind timed once")
     t = time.perf_counter()
     j2stats.update(folder_decodes(np, smi, "jpeg2000_styles", JPEG2000_STYLES_DIR,
-                                  "jpeg2000_styles", workers=JPEG2000_WORKERS, reads=1))
+                                  "jpeg2000_styles", reads=1))
     j2stats["jpeg2000_styles_s"] = time.perf_counter() - t
     log(f"  [17] (c): {j2stats['jpeg2000_styles_s']:.1f} s (budget {JPEG2000_STYLES_S} s)")
     require(j2stats["jpeg2000_styles_s"] <= JPEG2000_STYLES_S,
@@ -3038,11 +3065,38 @@ def main() -> int:
         "cv2 decodes it, each kind timed once")
     t = time.perf_counter()
     j2stats.update(folder_decodes(np, smi, "jpeg2000_ht", JPEG2000_HT_DIR, "jpeg2000_ht",
-                                  workers=JPEG2000_WORKERS, reads=1))
+                                  reads=1))
     j2stats["jpeg2000_ht_s"] = time.perf_counter() - t
     log(f"  [17] (d): {j2stats['jpeg2000_ht_s']:.1f} s (budget {JPEG2000_HT_S} s)")
     require(j2stats["jpeg2000_ht_s"] <= JPEG2000_HT_S,
             f"[17] (d) took {j2stats['jpeg2000_ht_s']:.0f} s")
+
+    # 18. AVIF
+    log("[18] (a) AVIF: formats/avif (128x128 cuts: cv2's lossless RGB, grey, RGBA, 10 and 12 "
+        "bits; lossy 4:2:0 / 4:2:2 / 4:4:4 / monochrome without in-loop filters, quantiser "
+        "matrices, palettes, intra block copy, tiles, 128x128 superblocks, a grid, a "
+        "sequence) decoded as cv2 decodes it, each kind timed once")
+    t = time.perf_counter()
+    avstats = folder_decodes(np, smi, "avif", AVIF_DIR, "avif", reads=1)
+    avstats["avif_decode_s"] = time.perf_counter() - t
+    log(f"  [18] (a): {avstats['avif_decode_s']:.1f} s (budget {AVIF_DECODE_S} s)")
+    require(avstats["avif_decode_s"] <= AVIF_DECODE_S,
+            f"[18] (a) took {avstats['avif_decode_s']:.0f} s")
+    log("[18] (b) AVIF served: formats/avif_folder (512x512 AVIF under .png / .jpg / .tif / "
+        ".bmp names: cv2's lossless and PIL's lossy without in-loop filters) decoded as cv2 "
+        "decodes it and timed once per kind, the flagship over it (f32, bf16) against "
+        "kgtpu's run on cv2's reads")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    avstats.update(folder_decodes(np, smi, "avif_folder", AVIF_FOLDER_DIR, "avif_folder",
+                                  reads=1))
+    avstats.update(folder_serving(np, torch, gn, gauss, xstats, "avif_folder",
+                                  AVIF_FOLDER_DIR))
+    avstats["avif_serve_s"] = time.perf_counter() - t
+    log(f"  [18] (b): {avstats['avif_serve_s']:.1f} s (budget {AVIF_SERVE_S} s)")
+    require(avstats["avif_serve_s"] <= AVIF_SERVE_S,
+            f"[18] (b) took {avstats['avif_serve_s']:.0f} s")
+    decode_pool().shutdown()
 
     metrics = {"e2e_img_per_s": img_s, "e2e_img_per_s_min": e2e["img_per_s_min"],
                "e2e_img_per_s_max": e2e["img_per_s_max"], "e2e_repeats": REPEATS,
@@ -3061,7 +3115,7 @@ def main() -> int:
                "gauss_exps_within_reach": gstats["exps_within_reach"],
                "gauss_wrapper_host_us": gstats["host_us"],
                **tstats, **fstats, **cstats, **ttastats, **bstats, **xstats, **estats,
-               **capstats, **vstats, **ctstats, **j2stats,
+               **capstats, **vstats, **ctstats, **j2stats, **avstats,
                "device_ms_from_cuda_events": PROFILER_BLIND, "card": smi}
     log("metrics " + json.dumps(metrics))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
@@ -3109,7 +3163,11 @@ def main() -> int:
                                     "jpeg2000 folder f32 [17]":
                                         j2stats["jpeg2000_gn_launches_f32"],
                                     "jpeg2000 folder bf16 [17]":
-                                        j2stats["jpeg2000_gn_launches_bf16"]},
+                                        j2stats["jpeg2000_gn_launches_bf16"],
+                                    "AVIF folder f32 [18]":
+                                        avstats["avif_folder_gn_launches_f32"],
+                                    "AVIF folder bf16 [18]":
+                                        avstats["avif_folder_gn_launches_bf16"]},
               "max_abs_err": kstats["max_abs_err"],
               "ms": kstats["ms"], "device_ms": kstats["device_ms"],
               "plain_ms": kstats["plain_ms"],

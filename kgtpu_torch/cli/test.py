@@ -35,7 +35,10 @@ a NaN with FloatingPointError (`utils/debug.enable_nan_debugging`).
 --ngpus n serves the single-scale and --tiled paths data-parallel over n
 devices (`parallel.make_mesh`: cuda:0..n-1, or n CPU shards with --device
 cpu; `infer.py`'s devices=), the batch split in n shards and a chunk's tiles
-in n runs.  Conflicting flags exit with test.py's messages.
+in n runs.  --decode_workers n reads the dataset's images in n spawned
+processes, up to two batches ahead of the model, in order (the results are
+those of the serial reads; the pure-Python decoders of the image formats
+then run in parallel).  Conflicting flags exit with test.py's messages.
 """
 
 from __future__ import annotations
@@ -153,6 +156,25 @@ def renumber(label: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return relab, ids
 
 
+def _samples(ds, workers: int, ahead: int):
+    """ds[0], ds[1], ... in order: read here, or with `workers` > 0 in that
+    many spawned processes, at most `ahead` reads in flight."""
+    if workers <= 0:
+        yield from (ds[i] for i in range(len(ds)))
+        return
+    import collections
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        pending: collections.deque = collections.deque()
+        for i in range(len(ds)):
+            pending.append(ex.submit(ds.__getitem__, i))
+            if len(pending) >= ahead:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = build_test_parser()
     args = parser.parse_args(argv)
@@ -239,10 +261,11 @@ def main(argv: list[str] | None = None) -> int:
     summary = []
     t0 = time.time()
     bs = max(cfg.infer.batch_size, 1)
+    samples = _samples(ds, args.decode_workers, 2 * bs)
     with profiler:
         if args.tiled:
             for i in range(len(ds)):
-                raw = ds[i]
+                raw = next(samples)
                 iid = raw.get("id", f"img_{i:05d}")
                 image = prepare_sample(raw, cfg.data)["image"]
                 out = fetch(infer(image))
@@ -256,7 +279,7 @@ def main(argv: list[str] | None = None) -> int:
         else:
             for start in range(0, len(ds), bs):
                 idxs = list(range(start, min(start + bs, len(ds))))
-                raws = [ds[i] for i in idxs]
+                raws = [next(samples) for _ in idxs]
                 if multiscale or members:
                     imgs = {}
                     for sc in scales:

@@ -440,6 +440,10 @@ def build_test_parser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu")
     p.add_argument("--compute_dtype", default="", choices=["", "bfloat16", "float32"],
                    help="activation dtype; default: the checkpoint's")
+    p.add_argument("--decode_workers", type=int, default=0,
+                   help="read the images in this many worker processes, a batch "
+                        "ahead (0: in the serving process); the pure-Python "
+                        "decoders then run in parallel")
     return p
 
 

@@ -1,0 +1,90 @@
+"""AV1 intra frame decoding up to the reconstructed frame (specification
+section 7, before decode_frame_wrapup's post-filters): the frame's state,
+its tiles decoded one after another with their own CDF copies
+(`av1_block.TileDecoder`), and the planes cut to the frame's size.
+
+`decode_av1(data)` takes the OBUs of one AVIF item and returns
+(SequenceHeader, FrameHeader, planes): planes a list of [H, W] int32
+arrays, Y then U, V (one plane for monochrome).  A frame that needs an
+in-loop or output filter (`av1_obu.post_filters`) raises `UnsupportedImage`
+naming them: this port's reconstruction stops before them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from kgtpu_torch.data.av1_block import TileDecoder
+from kgtpu_torch.data.av1_obu import parse_frame, post_filters
+from kgtpu_torch.data.av1_symbol import SymbolReader, icdf
+from kgtpu_torch.data.av1_tables import CDF_COEF, CDF_MODE, CDF_MV
+from kgtpu_torch.data.imread import CONTAINERS, unsupported
+
+_TEMPLATE: dict = {}
+
+
+def _inverted(x):
+    if x and isinstance(x[0], int):
+        return icdf(x)
+    return [_inverted(v) for v in x]
+
+
+def _copy(x):
+    if x and isinstance(x[0], int):
+        return x[:]
+    return [_copy(v) for v in x]
+
+
+def _template(qctx: int) -> dict:
+    if qctx not in _TEMPLATE:
+        t = {k: _inverted(v) for k, v in CDF_MODE.items()}
+        t.update({"mv_" + k if k == "joints" else k: _inverted(v) for k, v in CDF_MV.items()})
+        t.update({k: _inverted(v[qctx]) for k, v in CDF_COEF.items()})
+        _TEMPLATE[qctx] = t
+    return _TEMPLATE[qctx]
+
+
+class Frame:
+    """The state one frame's tiles share: planes, the per-position block
+    grid, transform sizes and types, and the coefficient contexts."""
+
+    def __init__(self, seq, fh):
+        self.seq, self.fh = seq, fh
+        self.bit_depth = seq.bit_depth
+        self.ssx, self.ssy = seq.ssx, seq.ssy
+        rows = ((fh.mi_rows + 31) & ~31) + 32
+        cols = ((fh.mi_cols + 31) & ~31) + 32
+        self.planes = []
+        for p in range(seq.num_planes):
+            sx = self.ssx if p else 0
+            sy = self.ssy if p else 0
+            self.planes.append(np.zeros(((rows * 4) >> sy, (cols * 4) >> sx), np.int32))
+        self.mi = [[None] * fh.mi_cols for _ in range(fh.mi_rows)]
+        self.inter_tx = [[0] * cols for _ in range(rows)]
+        self.tx_types = [[0] * cols for _ in range(rows)]
+        self.above_level = [[0] * (cols + 32) for _ in range(3)]
+        self.above_dc = [[0] * (cols + 32) for _ in range(3)]
+        self.left_level = [[0] * (rows + 32) for _ in range(3)]
+        self.left_dc = [[0] * (rows + 32) for _ in range(3)]
+        q = fh.base_q_idx
+        self.qctx = 0 if q <= 20 else 1 if q <= 60 else 2 if q <= 120 else 3
+
+    def new_cdfs(self) -> dict:
+        return {k: _copy(v) for k, v in _template(self.qctx).items()}
+
+
+def decode_av1(data: bytes):
+    seq, fh, tiles = parse_frame(data)
+    need = post_filters(fh)
+    if need:
+        raise unsupported(f"AVIF whose AV1 frame needs {', '.join(need)}", CONTAINERS)
+    fr = Frame(seq, fh)
+    for tile_row, tile_col, start, end in tiles:
+        rd = SymbolReader(data, start, end, bool(fh.disable_cdf_update))
+        TileDecoder(fr, tile_row, tile_col, rd).decode()
+    out = []
+    for p, plane in enumerate(fr.planes):
+        sx = fr.ssx if p else 0
+        sy = fr.ssy if p else 0
+        out.append(plane[:(fh.height + sy) >> sy, :(fh.upscaled_width + sx) >> sx].copy())
+    return seq, fh, out

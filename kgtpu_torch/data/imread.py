@@ -13,10 +13,10 @@ read, with NumPy, zlib and struct only.
 The codec is picked from the file's first bytes, as cv2 sniffs content, not
 from its extension: PNG, JPEG, TIFF and BMP, and the other containers cv2
 5.0 reads whatever the file is called (`_CONTAINER_DECODERS`: PNM / PAM /
-PFM, Sun raster, Radiance HDR, GIF, WebP, JPEG 2000).  Each codec follows
-cv2 5.0 and the library cv2 hands it to (libpng, libjpeg-turbo, libtiff,
-libwebp, OpenJPEG, cv2's own BMP, PxM, PAM, PFM, Sun raster, HDR and GIF
-readers): see the module of each.  EXIF orientation is applied as cv2
+PFM, Sun raster, Radiance HDR, GIF, WebP, JPEG 2000, AVIF).  Each codec
+follows cv2 5.0 and the library cv2 hands it to (libpng, libjpeg-turbo,
+libtiff, libwebp, OpenJPEG, libavif over libaom, cv2's own BMP, PxM, PAM,
+PFM, Sun raster, HDR and GIF readers): see the module of each.  EXIF orientation is applied as cv2
 applies it: to JPEG, PNG and WebP in the "color" and "gray" modes, never in
 "unchanged"; TIFF applies its own Orientation tag in the decoder (see
 `data/tiff.py`).
@@ -30,12 +30,17 @@ smoothing and fake EOI, libtiff's codecs keeping the rows they decoded,
 its CCITT recovery).  A file cv2 reads and the port does not yet raises
 `UnsupportedImage`, a ValueError naming the ROADMAP item that queues it: of
 the variants (`QUEUED`) only 16- to 64-bit separate-plane TIFF in
-"unchanged" (cv2's result not defined) and a Group 3 CCITT strip whose data
-ends before its last row (libtiff reads on past the end); or AVIF content,
-recognised by the signature cv2's decoder checks (`CONTAINERS`).  JPEG 2000
-is read whole as OpenJPEG 2.5.3 reads it for cv2: every Part 1 code-block
-style, HT code-blocks (Part 15) and Part 2's multi-component markers (see
-`data/jpeg2000.py`).
+"unchanged" (cv2's result not defined), a Group 3 CCITT strip whose data
+ends before its last row (libtiff reads on past the end) and an AVIF whose
+av1C promises more bits than its frame holds, in "unchanged" (cv2's result
+not defined); of the containers (`CONTAINERS`) an AVIF frame that needs
+AV1's in-loop or output filters (deblocking, CDEF, loop restoration,
+superres, film grain; named in the message) or whose size differs from its
+ispe (libavif rescales it).  JPEG 2000 is read whole as OpenJPEG 2.5.3
+reads it for cv2: every Part 1 code-block style, HT code-blocks (Part 15)
+and Part 2's multi-component markers (see `data/jpeg2000.py`); AVIF up to
+the in-loop filters as libavif 1.4.2 over libaom 3.14.1 (see
+`data/avif.py`).
 """
 
 from __future__ import annotations
@@ -63,13 +68,12 @@ def unsupported(what: str, item: str = QUEUED) -> UnsupportedImage:
 
 
 def _avif(data: bytes) -> bool:
-    """An ISO-BMFF file whose ftyp box names the brand avif or avis."""
+    """An ISO-BMFF file that cv2's AVIF decoder takes: libavif parses its
+    first 500 bytes (`avif.signature`)."""
     if data[4:8] != b"ftyp":
         return False
-    (size,) = struct.unpack(">I", data[:4])
-    box = data[8:min(size, len(data))]
-    brands = [box[i:i + 4] for i in range(0, len(box) - 3, 4) if i != 4]
-    return bool({b"avif", b"avis"} & set(brands))
+    from kgtpu_torch.data.avif import signature
+    return signature(data)
 
 
 def other_container(data: bytes) -> str | None:
@@ -148,6 +152,7 @@ _CONTAINER_DECODERS = {
     "GIF": ("kgtpu_torch.data.gif", "decode_gif"),
     "WebP": ("kgtpu_torch.data.webp", "decode_webp"),
     "JPEG 2000": ("kgtpu_torch.data.jpeg2000", "decode_jpeg2000"),
+    "AVIF": ("kgtpu_torch.data.avif", "decode_avif"),
 }
 
 

@@ -3,7 +3,8 @@
 assets_torch/formats/, and kgtpu's references for them.
 
     python tools/make_torch_format_assets.py [--out assets_torch]
-        [--only variants|variants2|containers|jpeg2000|jpeg2000_styles|jpeg2000_ht]
+        [--only variants|variants2|containers|jpeg2000|jpeg2000_styles|jpeg2000_ht|avif|
+                avif_folder]
 
 Runs on the CPU where cv2, PIL, jax and kgtpu are installed (after
 tools/make_torch_eval_assets.py, whose synthetic_hard images and flagship it
@@ -105,8 +106,33 @@ reads), and writes:
                                The lossless ones are checked to decode (cv2)
                                to the pixels written.
 
+  formats/avif/<kind>.avif     decode-only AVIF files, 128x128 cuts of the
+                               synthetic_hard images, one per kind of
+                               `AVIF_KINDS` (written by `write_avif`: cv2's
+                               lossless RGB, grey, RGBA, 10 and 12 bits; PIL's
+                               lossy 4:2:0 at two qualities, one with
+                               quantiser matrices, 4:2:2, 4:4:4 with aom's
+                               in-loop filters off, screen content with
+                               palettes, 2x2 tiles, 128x128 superblocks, an
+                               image sequence; libaom's own encoder through
+                               tools/variant_encoders.aom_encode: lossy
+                               monochrome, intra block copy on a 128x768
+                               strip (the copy needs 5 superblocks of 64 to
+                               its left), a 2x2 grid); `avif_decode_json` /
+                               `avif_kinds_json` as for the variants.  The
+                               lossless ones are checked to decode (cv2) to
+                               the pixels written.
+
+  formats/avif_folder/<id><ext>  the first AVIF_FOLDER synthetic_hard
+                               images at 512x512 as AVIF under kgtpu's
+                               extensions (cv2's lossless, PIL's lossy 4:2:0
+                               and 4:4:4 without in-loop filters), served by
+                               `chip_smoke.py` [18](b); `avif_folder_*` and
+                               `*_avif_folder_*` keys as for the variants.
+
 `--only variants`, `--only containers`, `--only jpeg2000`, `--only
-jpeg2000_styles` or `--only jpeg2000_ht` writes that folder alone and adds
+jpeg2000_styles`, `--only jpeg2000_ht`, `--only avif` or `--only
+avif_folder` writes that folder alone and adds
 its keys to the existing kgtpu_reference_formats.npz, keeping every other
 array as it is.  The fixtures and the reference together
 stay under 8 MiB (the variants under 8 MiB of their own, the containers and
@@ -771,6 +797,131 @@ def make_jpeg2000_ht(out: str) -> int:
     return 0
 
 
+# (kind, image index, writer options); see `write_avif`
+AVIF_KINDS = [
+    ("rgb_lossless", 0, {}), ("grey_lossless", 1, {}), ("rgba_lossless", 2, {}),
+    ("rgb_10bit_lossless", 3, {}), ("rgb_12bit_lossless", 4, {}),
+    ("yuv420_q40", 5, {"quality": 40}),
+    ("yuv420_q80_qm", 6, {"quality": 80, "qm": True}),
+    ("yuv422_q60", 7, {"quality": 60, "subsampling": "4:2:2"}),
+    ("yuv444_q70", 8, {"quality": 70, "subsampling": "4:4:4"}),
+    ("mono_lossy", 9, {}), ("screen_palette", 10, {"quality": 60}),
+    ("screen_intrabc", 11, {}), ("tiles_2x2", 12, {"quality": 70}),
+    ("sb128", 13, {"quality": 70}), ("grid_2x2", 14, {}), ("sequence", 15, {"quality": 60}),
+]
+AVIF_FOLDER = [("lossless", ".png"), ("yuv420_q70", ".jpg"), ("lossless", ".tif"),
+               ("yuv444_q85", ".bmp")]
+AVIF_FOLDER_OPTS = {"yuv420_q70": {"quality": 70}, "yuv444_q85": {"quality": 85,
+                                                                   "subsampling": "4:4:4"}}
+
+
+def write_avif(kind: str, rgb, opts: dict | None = None) -> bytes:
+    """An AVIF of `rgb` ([H, W, 3] uint8) as `kind` (AVIF_KINDS or
+    AVIF_FOLDER)."""
+    import cv2
+    import numpy as np
+
+    from tools.variant_encoders import (AVIF_NO_FILTERS, aom_encode, avif_file, avif_grid,
+                                        avif_pil)
+    opts = opts or AVIF_FOLDER_OPTS.get(kind, {})
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    if kind == "lossless" or kind == "rgb_lossless":
+        return cv2.imencode(".avif", bgr, [cv2.IMWRITE_AVIF_QUALITY, 100])[1].tobytes()
+    if kind == "grey_lossless":
+        return cv2.imencode(".avif", bgr[..., 1], [cv2.IMWRITE_AVIF_QUALITY, 100])[1].tobytes()
+    if kind == "rgba_lossless":
+        ramp = (np.arange(rgb.shape[1])[None, :] * 2 + np.zeros((rgb.shape[0], 1), int))
+        bgra = np.dstack([bgr, ramp.astype(np.uint8)])
+        return cv2.imencode(".avif", bgra, [cv2.IMWRITE_AVIF_QUALITY, 100])[1].tobytes()
+    if kind.startswith("rgb_1") and kind.endswith("bit_lossless"):
+        depth = int(kind[4:6])
+        px = (bgr.astype(np.uint16) << (depth - 8)) | (bgr.astype(np.uint16) >> (16 - depth))
+        return cv2.imencode(".avif", px, [cv2.IMWRITE_AVIF_QUALITY, 100,
+                                          cv2.IMWRITE_AVIF_DEPTH, depth])[1].tobytes()
+    if kind.startswith(("yuv", "tiles", "sb128", "screen_palette", "sequence")):
+        kw = {"quality": opts.get("quality", 70),
+              "subsampling": opts.get("subsampling", "4:2:0"), "speed": 6}
+        adv = list(AVIF_NO_FILTERS)
+        if opts.get("qm"):
+            adv += [("enable-qm", "1"), ("qm-min", "5"), ("qm-max", "9")]
+        if kind == "tiles_2x2":
+            adv += [("tile-columns", "1"), ("tile-rows", "1")]
+        if kind == "sb128":
+            adv += [("sb-size", "128")]
+        if kind == "screen_palette":
+            adv += [("tune-content", "screen")]
+        kw["advanced"] = adv
+        if kind == "sequence":
+            from PIL import Image
+            kw["save_all"] = True
+            kw["append_images"] = [Image.fromarray(np.ascontiguousarray(rgb[::-1]))]
+        return avif_pil(np.ascontiguousarray(rgb), **kw)
+    no_filters = {"enable-cdef": 0, "enable-restoration": 0, "loopfilter-control": 0}
+    if kind == "mono_lossy":
+        y = np.ascontiguousarray(rgb[..., 1])
+        u = np.full(((y.shape[0] + 1) // 2, (y.shape[1] + 1) // 2), 128, np.uint8)
+        obus = aom_encode([y, u, u], "420", {"cq-level": 30, **no_filters},
+                          cfg_fields={208: 1})  # aom_codec_enc_cfg_t.monochrome
+        return avif_file(obus, y.shape[1], y.shape[0], mono=True, ssx=1, ssy=1, profile=0,
+                         cicp=(1, 13, 6, 1))
+    if kind == "screen_intrabc":
+        strip = np.concatenate([rgb, rgb[:, ::-1], rgb[::-1], rgb, rgb[:, ::-1], rgb[::-1]], 1)
+        strip[:, 640:] = strip[:, 0:128]
+        obus = aom_encode([strip[..., 1], strip[..., 0], strip[..., 2]], "444",
+                          {"tune-content": "screen", "cq-level": 20, "cpu-used": 4,
+                           "enable-cdef": 0, "enable-restoration": 0})
+        return avif_file(obus, strip.shape[1], strip.shape[0], cicp=(1, 13, 0, 1))
+    if kind == "grid_2x2":
+        h, w = rgb.shape[0] // 2, rgb.shape[1] // 2
+        tiles = [aom_encode([t[..., 1], t[..., 0], t[..., 2]], "444", {"lossless": 1})
+                 for t in (rgb[:h, :w], rgb[:h, w:], rgb[h:, :w], rgb[h:, w:])]
+        return avif_grid(tiles, 2, 2, w, h, 2 * w - 6, 2 * h - 10, cicp=(1, 13, 0, 1))
+    raise ValueError(kind)
+
+
+def make_avif(out: str) -> int:
+    """formats/avif and its keys in kgtpu_reference_formats.npz (module
+    docstring), the other keys kept."""
+    import cv2
+    import numpy as np
+    src = os.path.join(out, "synthetic_hard", "images")
+    fdir = os.path.join(out, "formats", "avif")
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.makedirs(fdir)
+    ids = sorted(f[:-4] for f in os.listdir(src))
+    kinds = {}
+    for kind, k, opts in AVIF_KINDS:
+        rgb = cv2.imread(os.path.join(src, f"{ids[k]}.png"), cv2.IMREAD_COLOR)[..., ::-1]
+        px = np.ascontiguousarray(rgb[192:320, 192:320])
+        rel = kind + ".avif"
+        with open(os.path.join(fdir, rel), "wb") as f:
+            f.write(write_avif(kind, px, opts))
+        if kind in ("rgb_lossless", "grey_lossless", "rgba_lossless"):
+            back = cv2.imread(os.path.join(fdir, rel), cv2.IMREAD_UNCHANGED)
+            want = px[..., ::-1] if kind == "rgb_lossless" else px[..., 1] \
+                if kind == "grey_lossless" else back
+            assert np.array_equal(back[..., :3] if back.ndim == 3 and back.shape[2] == 4
+                                  else back, want if kind != "rgba_lossless"
+                                  else px[..., ::-1]), f"{rel} does not decode to its pixels"
+        kinds[rel] = kind
+    decodes = cv2_decodes(fdir, sorted(kinds))
+    path = os.path.join(out, "kgtpu_reference_formats.npz")
+    with np.load(path) as ref:
+        result = {k: ref[k] for k in ref.files if k not in ("avif_decode_json",
+                                                            "avif_kinds_json")}
+    result.update({"avif_decode_json": np.array(json.dumps(decodes)),
+                   "avif_kinds_json": np.array(json.dumps(kinds))})
+    np.savez_compressed(path, **result)
+    size = sum(os.path.getsize(os.path.join(fdir, f)) for f in kinds)
+    print(f"{len(kinds)} avif files, {len(decodes)} decodes "
+          f"({sum(d['sha256'] is None for d in decodes)} None), {size / 2**20:.3f} MiB")
+    return 0
+
+
+def make_avif_folder(out: str) -> int:
+    return make_folder(out, "avif_folder", AVIF_FOLDER, write_avif)
+
+
 def make_jpeg2000_styles(out: str) -> int:
     """formats/jpeg2000_styles and its keys in kgtpu_reference_formats.npz
     (module docstring), the other keys kept."""
@@ -980,7 +1131,8 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "assets_torch"))
     p.add_argument("--only", choices=["variants", "variants2", "containers", "jpeg2000",
-                                       "jpeg2000_styles", "jpeg2000_ht"], default=None)
+                                       "jpeg2000_styles", "jpeg2000_ht", "avif",
+                                       "avif_folder"], default=None)
     a = p.parse_args(argv)
     if a.only == "variants":
         return make_variants(a.out)
@@ -994,6 +1146,10 @@ def main(argv: list[str] | None = None) -> int:
         return make_jpeg2000_styles(a.out)
     if a.only == "jpeg2000_ht":
         return make_jpeg2000_ht(a.out)
+    if a.only == "avif":
+        return make_avif(a.out)
+    if a.only == "avif_folder":
+        return make_avif_folder(a.out)
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -1075,7 +1231,8 @@ def main(argv: list[str] | None = None) -> int:
     print(f"{len(decode)} decodes, datasets {[(k, len(v)) for k, v in datasets.items()]}, "
           f"{total / 2**20:.2f} MiB")
     return (make_variants(a.out) or make_variants2(a.out) or make_containers(a.out)
-            or make_jpeg2000(a.out) or make_jpeg2000_styles(a.out) or make_jpeg2000_ht(a.out))
+            or make_jpeg2000(a.out) or make_jpeg2000_styles(a.out) or make_jpeg2000_ht(a.out)
+            or make_avif(a.out) or make_avif_folder(a.out))
 
 
 if __name__ == "__main__":

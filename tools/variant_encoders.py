@@ -1842,3 +1842,282 @@ def jpeg2000_ht_random(rng, maxsize: int = 64):
         return jpeg2000_ht(px, **kw), (kind, h, w, kw)
     except ValueError:
         return None, (kind, h, w, kw)
+
+
+# --- AVIF -----------------------------------------------------------------------
+
+AVIF_NO_FILTERS = [("enable-cdef", "0"), ("enable-restoration", "0"),
+                   ("loopfilter-control", "0")]
+
+
+def avif_content(rng, h: int, w: int, c: int, style: str | None = None) -> np.ndarray:
+    """[h, w, c] uint8 test content: smooth waves with noise, noise, flat
+    areas, or screen-like rectangles and repeated text-like runs."""
+    style = style or ("smooth", "noise", "flat", "screen")[int(rng.integers(0, 4))]
+    if style == "noise":
+        return rng.integers(0, 256, (h, w, c)).astype(np.uint8)
+    if style == "flat":
+        return np.broadcast_to(rng.integers(0, 256, c).astype(np.uint8), (h, w, c)).copy()
+    if style == "screen":
+        img = np.broadcast_to(rng.integers(0, 256, c).astype(np.uint8), (h, w, c)).copy()
+        for _ in range(int(rng.integers(1, 20))):
+            y, x = int(rng.integers(0, h)), int(rng.integers(0, w))
+            img[y:y + int(rng.integers(1, 16)), x:x + int(rng.integers(1, 16))] = \
+                rng.integers(0, 256, c)
+        if h >= 8 and w >= 8:
+            t = (rng.random((min(8, h), min(16, w))) < 0.4).astype(np.uint8) * 200
+            for _ in range(3):
+                y, x = int(rng.integers(0, h - t.shape[0] + 1)), int(rng.integers(0, w - t.shape[1] + 1))
+                img[y:y + t.shape[0], x:x + t.shape[1]] = t[..., None]
+        return img
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.zeros((h, w, c))
+    for k in range(c):
+        f = rng.uniform(2, 12, 2)
+        img[..., k] = 128 + 70 * np.sin(x / f[0] + k) + 50 * np.cos(y / f[1]) + \
+            rng.normal(0, float(rng.uniform(0, 20)), (h, w))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def avif_pil(px: np.ndarray, **kw) -> bytes:
+    """PIL's AVIF writer (libavif 1.3 over aom); `advanced` takes aom's
+    options, e.g. AVIF_NO_FILTERS."""
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(px).save(buf, format="AVIF", **kw)
+    return buf.getvalue()
+
+
+def avif_random(rng, maxsize: int = 64):
+    """A random AVIF from cv2's writer (lossless at quality 100, 8, 10 or
+    12 bits, grey / colour / alpha) or PIL's (quality 0-100, 4:2:0 / 4:2:2
+    / 4:4:4, grey, alpha, with or without aom's in-loop filters, screen
+    content tuning, quantiser matrices, tiles, 128x128 superblocks):
+    (bytes, info) with info the writer's settings, or (None, info) where
+    the writer refused the draw."""
+    import cv2
+    h, w = (int(v) for v in rng.integers(1, maxsize + 1, 2))
+    if rng.random() < 0.4:
+        depth = int(rng.choice([8, 8, 10, 12]))
+        c = int(rng.choice([1, 3, 3, 4]))
+        q = 100 if rng.random() < 0.7 else int(rng.integers(0, 100))
+        img = avif_content(rng, h, w, c)
+        if depth > 8:
+            img = (img.astype(np.uint16) << (depth - 8)) | rng.integers(
+                0, 1 << (depth - 8), img.shape).astype(np.uint16)
+        if c == 1:
+            img = img[..., 0]
+        info = ("cv2", h, w, c, depth, q)
+        try:
+            ok, buf = cv2.imencode(".avif", img, [cv2.IMWRITE_AVIF_QUALITY, q,
+                                                  cv2.IMWRITE_AVIF_DEPTH, depth])
+        except cv2.error:
+            return None, info
+        return (buf.tobytes() if ok else None), info
+    mode = str(rng.choice(["RGB", "RGB", "RGBA", "L"]))
+    c = {"RGB": 3, "RGBA": 4, "L": 1}[mode]
+    img = avif_content(rng, h, w, c)
+    if c == 1:
+        img = img[..., 0]
+    kw = {"quality": int(rng.integers(0, 101)),
+          "subsampling": str(rng.choice(["4:2:0", "4:2:2", "4:4:4"])),
+          "speed": int(rng.integers(4, 11))}
+    adv = list(AVIF_NO_FILTERS) if rng.random() < 0.7 else []
+    if rng.random() < 0.3:
+        adv.append(("tune-content", "screen"))
+    if rng.random() < 0.2:
+        adv += [("enable-qm", "1"), ("qm-min", str(int(rng.integers(0, 8)))),
+                ("qm-max", str(int(rng.integers(8, 16))))]
+    if rng.random() < 0.2:
+        adv += [("tile-columns", str(int(rng.integers(0, 3)))),
+                ("tile-rows", str(int(rng.integers(0, 3))))]
+    if rng.random() < 0.2:
+        adv.append(("sb-size", str(rng.choice(["64", "128"]))))
+    if adv:
+        kw["advanced"] = adv
+    if rng.random() < 0.1:
+        from PIL import Image
+        kw["save_all"] = True
+        kw["append_images"] = [Image.fromarray(avif_content(rng, h, w, c)[..., 0] if c == 1
+                                               else avif_content(rng, h, w, c))
+                               for _ in range(int(rng.integers(1, 3)))]
+    info = ("pil", h, w, mode, {k: v for k, v in kw.items() if k != "append_images"})
+    try:
+        return avif_pil(img, **kw), info
+    except (ValueError, OSError):
+        return None, info
+
+
+def _box(typ: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + typ + body
+
+
+def _full(typ: bytes, version: int, flags: int, body: bytes) -> bytes:
+    return _box(typ, struct.pack(">I", (version << 24) | flags) + body)
+
+
+def avif_file(obus: bytes, w: int, h: int, depth: int = 8, mono: bool = False,
+              ssx: int = 0, ssy: int = 0, cicp=(2, 2, 2, 1), profile: int = 1,
+              extra=()) -> bytes:
+    """A minimal still-image AVIF holding `obus` (a sequence header and a
+    frame) as its primary item: ftyp, meta (hdlr, pitm, iloc, iinf, iprp
+    with ispe, av1C, pixi, colr nclx and the (box, essential) pairs of
+    `extra`, e.g. irot / imir / clap), mdat."""
+    ftyp = _box(b"ftyp", b"avif" + b"\0\0\0\0" + b"avifmif1miaf")
+    flags = ((depth > 8) << 6) | ((depth == 12) << 5) | (mono << 4) | (ssx << 3) | (ssy << 2)
+    av1c = _box(b"av1C", bytes([0x81, profile << 5, flags, 0]))
+    n = 1 if mono else 3
+    ipco = _box(b"ipco", _full(b"ispe", 0, 0, struct.pack(">II", w, h)) + av1c +
+                _full(b"pixi", 0, 0, bytes([n] + [depth] * n)) +
+                _box(b"colr", b"nclx" + struct.pack(">HHHB", cicp[0], cicp[1], cicp[2],
+                                                    cicp[3] << 7)) +
+                b"".join(box for box, _ in extra))
+    assoc = [1, 0x82, 3, 4] + [(5 + k) | (0x80 if ess else 0) for k, (_, ess) in enumerate(extra)]
+    ipma = _full(b"ipma", 0, 0, struct.pack(">IHB", 1, 1, len(assoc)) + bytes(assoc))
+
+    def meta(offset: int) -> bytes:
+        iloc = _full(b"iloc", 0, 0, bytes([0x44, 0x00]) + struct.pack(">HHHHII", 1, 1, 0, 1,
+                                                                      offset, len(obus)))
+        iinf = _full(b"iinf", 0, 0, struct.pack(">H", 1) +
+                     _full(b"infe", 2, 0, struct.pack(">HH", 1, 0) + b"av01" + b"\0"))
+        return _full(b"meta", 0, 0, _full(b"hdlr", 0, 0, b"\0\0\0\0pict" + b"\0" * 13) +
+                     _full(b"pitm", 0, 0, struct.pack(">H", 1)) + iloc + iinf +
+                     _box(b"iprp", ipco + ipma))
+    size = len(ftyp) + len(meta(0))
+    return ftyp + meta(size + 8) + _box(b"mdat", obus)
+
+
+_AOM = None
+
+
+def aom_encode(planes, fmt: str = "444", options: dict | None = None, usage: int = 2,
+               cfg_fields: dict | None = None) -> bytes:
+    """libaom's own encoder (the one cv2's wheel bundles, through ctypes) on
+    8-bit YUV planes [Y, U, V] ("444" or "420"): the OBUs of one frame.
+    `options` go to aom_codec_set_option (aomenc's names: "lossless",
+    "cq-level", "end-usage", "tune-content", "enable-intrabc", "cpu-used",
+    "enable-cdef", ...); `cfg_fields` sets 32-bit fields of aom_codec_enc_cfg_t
+    by byte offset (76: rc_superres_mode, 80 / 84: its denominators); usage
+    2 is AOM_USAGE_ALL_INTRA."""
+    import ctypes
+    import glob
+    import os
+
+    import cv2
+    global _AOM
+    if _AOM is None:
+        path = glob.glob(os.path.join(os.path.dirname(cv2.__file__), "..", "opencv_python.libs",
+                                      "libaom*.so*"))[0]
+        _AOM = ctypes.CDLL(path)
+        vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        for name, res, args in (
+                ("aom_codec_av1_cx", vp, []),
+                ("aom_codec_enc_config_default", i, [vp, vp, u]),
+                ("aom_codec_enc_init_ver", i, [vp, vp, vp, ctypes.c_long, i]),
+                ("aom_codec_set_option", i, [vp, ctypes.c_char_p, ctypes.c_char_p]),
+                ("aom_img_wrap", vp, [vp, i, u, u, u, vp]),
+                ("aom_codec_encode", i, [vp, vp, ctypes.c_int64, ctypes.c_ulong, ctypes.c_long]),
+                ("aom_codec_get_cx_data", vp, [vp, vp]),
+                ("aom_codec_error_detail", ctypes.c_char_p, [vp]),
+                ("aom_codec_destroy", i, [vp])):
+            getattr(_AOM, name).restype = res
+            getattr(_AOM, name).argtypes = args
+    lib = _AOM
+    y = np.ascontiguousarray(planes[0], np.uint8)
+    h, w = y.shape
+    iface = lib.aom_codec_av1_cx()
+    cfg = ctypes.create_string_buffer(4096)
+    if lib.aom_codec_enc_config_default(iface, cfg, usage):
+        raise ValueError("aom_codec_enc_config_default failed")
+    struct.pack_into("<III", cfg, 8, 1 if fmt == "444" else 0, w, h)  # g_profile, g_w, g_h
+    for off, v in (cfg_fields or {}).items():
+        struct.pack_into("<I", cfg, off, v)
+    ctx = ctypes.create_string_buffer(512)
+    for ver in range(1, 64):
+        if lib.aom_codec_enc_init_ver(ctx, iface, cfg, 0, ver) == 0:
+            break
+    else:
+        raise ValueError("aom_codec_enc_init_ver refused every ABI version")
+    try:
+        for k, v in (options or {}).items():
+            if lib.aom_codec_set_option(ctx, k.encode(), str(v).encode()):
+                raise ValueError(f"aom option {k}={v} refused")
+        if fmt == "444":
+            data = np.concatenate([y.ravel()] + [np.ascontiguousarray(p, np.uint8).ravel()
+                                                 for p in planes[1:]])
+            code = 0x106
+        else:
+            data = np.concatenate([y.ravel()] + [np.ascontiguousarray(p, np.uint8).ravel()
+                                                 for p in planes[1:]])
+            code = 0x102
+        buf = ctypes.create_string_buffer(data.tobytes(), len(data))
+        img = ctypes.create_string_buffer(1024)
+        if not lib.aom_img_wrap(img, code, w, h, 1, buf):
+            raise ValueError("aom_img_wrap failed")
+        out = bytearray()
+        for frame in (img, None):
+            if lib.aom_codec_encode(ctx, frame, 0, 1, 0):
+                raise ValueError("aom_codec_encode: " +
+                                 (lib.aom_codec_error_detail(ctx) or b"").decode())
+            it = ctypes.c_void_p(0)
+            while True:
+                pkt = lib.aom_codec_get_cx_data(ctx, ctypes.byref(it))
+                if not pkt:
+                    break
+                if ctypes.c_int.from_address(pkt).value == 0:  # AOM_CODEC_CX_FRAME_PKT
+                    p = ctypes.c_void_p.from_address(pkt + 8).value
+                    sz = ctypes.c_size_t.from_address(pkt + 16).value
+                    out += ctypes.string_at(p, sz)
+        return bytes(out)
+    finally:
+        lib.aom_codec_destroy(ctx)
+
+
+def avif_grid(tiles: list, rows: int, cols: int, tile_w: int, tile_h: int, out_w: int,
+              out_h: int, ssx: int = 0, ssy: int = 0, cicp=(2, 2, 2, 1),
+              profile: int = 1, in_idat: bool = True) -> bytes:
+    """An AVIF whose primary item is a `grid` of rows x cols av01 tiles
+    (`tiles`: each tile's OBUs, row-major, all tile_w x tile_h, 8-bit
+    colour), output out_w x out_h (ImageGrid with 16-bit sizes, in `idat`
+    as libavif writes it, or with `in_idat` False after the tiles in mdat:
+    cv2 sniffs AVIF by parsing the file's first 500 bytes, so a grid whose
+    ImageGrid lies past them is not read)."""
+    n = len(tiles)
+    ftyp = _box(b"ftyp", b"avif" + b"\0\0\0\0" + b"avifmif1miaf")
+    flags = (ssx << 3) | (ssy << 2)
+    av1c = _box(b"av1C", bytes([0x81, profile << 5, flags, 0]))
+    ipco = _box(b"ipco", _full(b"ispe", 0, 0, struct.pack(">II", tile_w, tile_h)) + av1c +
+                _full(b"pixi", 0, 0, bytes([3, 8, 8, 8])) +
+                _box(b"colr", b"nclx" + struct.pack(">HHHB", cicp[0], cicp[1], cicp[2],
+                                                    cicp[3] << 7)) +
+                _full(b"ispe", 0, 0, struct.pack(">II", out_w, out_h)))
+    grid_id = n + 1
+    entries = b"".join(struct.pack(">HB", i + 1, 3) + bytes([1, 0x82, 3]) for i in range(n))
+    entries += struct.pack(">HB", grid_id, 3) + bytes([5, 3, 4])
+    ipma = _full(b"ipma", 0, 0, struct.pack(">I", n + 1) + entries)
+    grid_payload = bytes([0, 0, rows - 1, cols - 1]) + struct.pack(">HH", out_w, out_h)
+    iinf = _full(b"iinf", 0, 0, struct.pack(">H", n + 1) + b"".join(
+        _full(b"infe", 2, 0, struct.pack(">HH", i + 1, 0) + b"av01" + b"\0") for i in range(n)) +
+        _full(b"infe", 2, 0, struct.pack(">HH", grid_id, 0) + b"grid" + b"\0"))
+    iref = _full(b"iref", 0, 0, _box(b"dimg", struct.pack(">HH", grid_id, n) +
+                                     b"".join(struct.pack(">H", i + 1) for i in range(n))))
+
+    def meta(offset: int) -> bytes:
+        locs, at = [], offset
+        for i, t in enumerate(tiles):
+            locs.append(struct.pack(">HHHII", i + 1, 0, 1, at, len(t)))
+            at += len(t)
+        locs = [struct.pack(">HH", i + 1, 0) + loc[2:] for i, loc in enumerate(locs)]
+        locs.append(struct.pack(">HHHHII", grid_id, int(in_idat), 0, 1, 0 if in_idat else at,
+                                len(grid_payload)))
+        iloc = _full(b"iloc", 1, 0, bytes([0x44, 0x00]) + struct.pack(">H", n + 1) +
+                     b"".join(locs))
+        return _full(b"meta", 0, 0, _full(b"hdlr", 0, 0, b"\0\0\0\0pict" + b"\0" * 13) +
+                     _full(b"pitm", 0, 0, struct.pack(">H", grid_id)) + iloc + iinf + iref +
+                     _box(b"iprp", ipco + ipma) +
+                     (_box(b"idat", grid_payload) if in_idat else b""))
+    size = len(ftyp) + len(meta(0))
+    return ftyp + meta(size + 8) + _box(b"mdat", b"".join(tiles) +
+                                        (b"" if in_idat else grid_payload))
