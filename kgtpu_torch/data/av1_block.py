@@ -157,7 +157,6 @@ class TileDecoder:
                 fr.left_dc[p] = [0] * len(fr.left_dc[p])
             for c in range(self.col_start, self.col_end, self.sb4):
                 self.read_deltas = self.fh.delta_q_present
-                self.cdef_idx = {}
                 self._clear_block_decoded(r, c)
                 self.decode_partition(r, c, BLOCK_128X128 if s.use_128 else BLOCK_64X64)
                 if rd.overflowed():
@@ -316,8 +315,13 @@ class TileDecoder:
             self.reset_block_context(bw4, bh4)
         rows = fr.mi
         c1 = min(c + bw4, fh.mi_cols)
-        for y in range(r, min(r + bh4, fh.mi_rows)):
+        r1 = min(r + bh4, fh.mi_rows)
+        for y in range(r, r1):
             rows[y][c:c1] = [blk] * (c1 - c)
+        fr.seg_ids[r:r1, c:c1] = blk.seg
+        fr.skips[r:r1, c:c1] = blk.skip
+        if fh.delta_lf_present:
+            fr.delta_lfs[r:r1, c:c1] = self.delta_lf
         self.compute_prediction(blk)
         self.residual(blk)
 
@@ -423,12 +427,12 @@ class TileDecoder:
         fh = self.fh
         if blk.skip or fh.coded_lossless or not self.s.enable_cdef or fh.allow_intrabc:
             return
-        r, c = self.mi_row & ~15, self.mi_col & ~15
-        if (r, c) not in self.cdef_idx:
-            v = self.rd.literal(fh.cdef_bits)
-            for y in range(r, r + BH4[self.mi_size], 16):
-                for x in range(c, c + BW4[self.mi_size], 16):
-                    self.cdef_idx[(y, x)] = v
+        idx = self.fr.cdef_idx
+        r, c = self.mi_row >> 4, self.mi_col >> 4
+        if idx[r, c] == -1:
+            # every 64x64 the block covers (two or four for a 128-wide one)
+            idx[r:r + max(1, BH4[self.mi_size] >> 4),
+                c:c + max(1, BW4[self.mi_size] >> 4)] = self.rd.literal(fh.cdef_bits)
 
     def read_delta_qindex(self, blk: Block) -> None:
         sb = BLOCK_128X128 if self.s.use_128 else BLOCK_64X64
@@ -1017,6 +1021,7 @@ class TileDecoder:
             return
         frame = fr.planes[plane]
         w, h = TXW[t], TXH[t]
+        fr.lf_tx[plane][sy0 >> 2:(sy0 >> 2) + step_y, sx0 >> 2:(sx0 >> 2) + step_x] = t
         if not blk.is_inter:
             if blk.pal[1 if plane else 0]:
                 cols = blk.pal_colors[0] if plane == 0 else (blk.pal_colors[1] if plane == 1

@@ -1,13 +1,15 @@
-"""AV1 intra frame decoding up to the reconstructed frame (specification
-section 7, before decode_frame_wrapup's post-filters): the frame's state,
+"""AV1 intra frame decoding (specification section 7): the frame's state,
 its tiles decoded one after another with their own CDF copies
-(`av1_block.TileDecoder`), and the planes cut to the frame's size.
+(`av1_block.TileDecoder`), then decode_frame_wrapup's deblocking
+(`av1_deblock`) and CDEF (`av1_cdef`), and the planes cut to the frame's
+size.
 
 `decode_av1(data)` takes the OBUs of one AVIF item and returns
 (SequenceHeader, FrameHeader, planes): planes a list of [H, W] int32
-arrays, Y then U, V (one plane for monochrome).  A frame that needs an
-in-loop or output filter (`av1_obu.post_filters`) raises `UnsupportedImage`
-naming them: this port's reconstruction stops before them.
+arrays, Y then U, V (one plane for monochrome).  A frame that needs a
+filter still queued (`av1_obu.post_filters`: loop restoration, superres,
+film grain) raises `UnsupportedImage` naming it, before its tiles are
+decoded.
 """
 
 from __future__ import annotations
@@ -15,12 +17,15 @@ from __future__ import annotations
 import numpy as np
 
 from kgtpu_torch.data.av1_block import TileDecoder
+from kgtpu_torch.data.av1_cdef import cdef
+from kgtpu_torch.data.av1_deblock import deblock
 from kgtpu_torch.data.av1_obu import parse_frame, post_filters
 from kgtpu_torch.data.av1_symbol import SymbolReader, icdf
 from kgtpu_torch.data.av1_tables import CDF_COEF, CDF_MODE, CDF_MV
 from kgtpu_torch.data.imread import CONTAINERS, unsupported
 
 _TEMPLATE: dict = {}
+PORTED = ("deblocking", "CDEF")  # the post-filters decode_av1 applies, in this order
 
 
 def _inverted(x):
@@ -60,6 +65,14 @@ class Frame:
             sy = self.ssy if p else 0
             self.planes.append(np.zeros(((rows * 4) >> sy, (cols * 4) >> sx), np.int32))
         self.mi = [[None] * fh.mi_cols for _ in range(fh.mi_rows)]
+        # what the in-loop filters read: per 4x4 of each plane its transform
+        # size (LoopfilterTxSizes), per 4x4 of luma the segment, skip flag and
+        # loop filter deltas, per 64x64 the CDEF index (-1: none read)
+        self.lf_tx = [np.zeros((p.shape[0] >> 2, p.shape[1] >> 2), np.int8) for p in self.planes]
+        self.seg_ids = np.zeros((fh.mi_rows, fh.mi_cols), np.int8)
+        self.skips = np.zeros((fh.mi_rows, fh.mi_cols), bool)
+        self.delta_lfs = np.zeros((fh.mi_rows, fh.mi_cols, 4), np.int8)
+        self.cdef_idx = np.full((rows >> 4, cols >> 4), -1, np.int8)
         self.inter_tx = [[0] * cols for _ in range(rows)]
         self.tx_types = [[0] * cols for _ in range(rows)]
         self.above_level = [[0] * (cols + 32) for _ in range(3)]
@@ -76,12 +89,17 @@ class Frame:
 def decode_av1(data: bytes):
     seq, fh, tiles = parse_frame(data)
     need = post_filters(fh)
-    if need:
-        raise unsupported(f"AVIF whose AV1 frame needs {', '.join(need)}", CONTAINERS)
+    queued = [f for f in need if f not in PORTED]
+    if queued:
+        raise unsupported(f"AVIF whose AV1 frame needs {', '.join(queued)}", CONTAINERS)
     fr = Frame(seq, fh)
     for tile_row, tile_col, start, end in tiles:
         rd = SymbolReader(data, start, end, bool(fh.disable_cdf_update))
         TileDecoder(fr, tile_row, tile_col, rd).decode()
+    if "deblocking" in need:
+        deblock(fr)
+    if "CDEF" in need:
+        fr.planes = cdef(fr)
     out = []
     for p, plane in enumerate(fr.planes):
         sx = fr.ssx if p else 0

@@ -7,9 +7,9 @@ None for such a file).
 `parse_frame(data)` walks a temporal unit of OBUs (the payload of an AVIF
 item) to the first shown frame and returns (SequenceHeader, FrameHeader,
 tiles), each tile (tile row, tile column, start, end) in `data`.
-`post_filters(fh)` names the in-loop and output filters the frame needs:
-the reconstruction of this port stops before them, so `avif.py` refuses a
-frame that names any.
+`post_filters(fh)` names the in-loop and output filters the frame needs;
+`av1_decode` applies deblocking and CDEF and refuses a frame that names
+any other.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ SEG_FEATURE_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
 SEG_FEATURE_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
 RESTORE_NONE = 0
 REMAP_LR_TYPE = (0, 3, 1, 2)  # lr_type -> FrameRestorationType (NONE, SWITCHABLE, WIENER, SGRPROJ)
+LEVELS_UNDEFINED = frozenset((2, 3, 6, 7, 10, 11) + tuple(range(20, 31)))
+LF_REF_DELTAS = (1, 0, 0, 0, -1, 0, -1, -1)  # INTRA_FRAME, LAST_FRAME .. ALTREF_FRAME
 
 
 class Bits:
@@ -112,6 +114,15 @@ def _trailing_bits(b: Bits, end_byte: int) -> None:
             raise UnreadableImage("AV1 trailing bits are not zero")
 
 
+def _level(b: Bits) -> int:
+    """seq_level_idx; libaom refuses the levels not yet defined (2.2, 2.3,
+    3.2, 3.3, 4.2, 4.3 and 7.0 up; 31 is the unconstrained level)."""
+    lvl = b.f(5)
+    if lvl in LEVELS_UNDEFINED:
+        raise UnreadableImage(f"AV1 seq_level_idx {lvl} is not yet defined")
+    return lvl
+
+
 def parse_sequence_header(data: bytes, start: int, end: int) -> SequenceHeader:
     b = Bits(data, start, end)
     s = SequenceHeader()
@@ -127,7 +138,7 @@ def parse_sequence_header(data: bytes, start: int, end: int) -> SequenceHeader:
     s.op_idc = [0]
     s.decoder_model_present = [0]
     if s.reduced:
-        s.level = [b.f(5)]
+        s.level = [_level(b)]
     else:
         timing = b.f(1)
         if timing:
@@ -148,7 +159,7 @@ def parse_sequence_header(data: bytes, start: int, end: int) -> SequenceHeader:
         s.op_idc, s.level, s.decoder_model_present = [], [], []
         for _ in range(count):
             s.op_idc.append(b.f(12))
-            lvl = b.f(5)
+            lvl = _level(b)
             s.level.append(lvl)
             if lvl > 7:
                 b.f(1)
@@ -398,33 +409,38 @@ def parse_frame_header(b: Bits, s: SequenceHeader, temporal_id: int = 0,
                                            fh.dq_v_dc or fh.dq_v_ac))
     fh.coded_lossless = all(fh.lossless)
     fh.all_lossless = fh.coded_lossless and fh.width == fh.upscaled_width
-    # loop_filter_params
+    # loop_filter_params (the deltas' defaults are setup_past_independence's)
     fh.lf_level = [0, 0, 0, 0]
+    fh.lf_sharpness = 0
+    fh.lf_delta_enabled = 0
+    fh.lf_ref_deltas = list(LF_REF_DELTAS)
+    fh.lf_mode_deltas = [0, 0]
     if not (fh.coded_lossless or fh.allow_intrabc):
         fh.lf_level[0] = b.f(6)
         fh.lf_level[1] = b.f(6)
         if s.num_planes > 1 and (fh.lf_level[0] or fh.lf_level[1]):
             fh.lf_level[2] = b.f(6)
             fh.lf_level[3] = b.f(6)
-        b.f(3)  # loop_filter_sharpness
-        if b.f(1):  # loop_filter_delta_enabled
-            if b.f(1):  # loop_filter_delta_update
-                for _ in range(8):
+        fh.lf_sharpness = b.f(3)
+        fh.lf_delta_enabled = b.f(1)
+        if fh.lf_delta_enabled and b.f(1):  # loop_filter_delta_update
+            for deltas in (fh.lf_ref_deltas, fh.lf_mode_deltas):
+                for i in range(len(deltas)):
                     if b.f(1):
-                        b.su(7)
-                for _ in range(2):
-                    if b.f(1):
-                        b.su(7)
-    # cdef_params
+                        deltas[i] = b.su(7)
+    # cdef_params: each strength (y primary, y secondary, uv primary, uv
+    # secondary), a coded secondary 3 meaning 4
     fh.cdef_bits = 0
+    fh.cdef_damping = 3
     fh.cdef_strengths = []
     if not (fh.coded_lossless or fh.allow_intrabc or not s.enable_cdef):
-        b.f(2)  # cdef_damping_minus_3
+        fh.cdef_damping = b.f(2) + 3
         fh.cdef_bits = b.f(2)
         for _ in range(1 << fh.cdef_bits):
             ys = [b.f(4), b.f(2)]
             uvs = [b.f(4), b.f(2)] if s.num_planes > 1 else [0, 0]
-            fh.cdef_strengths.append(ys + uvs)
+            fh.cdef_strengths.append([v + (v == 3) if k % 2 else v
+                                      for k, v in enumerate(ys + uvs)])
     # lr_params
     fh.lr_type = [RESTORE_NONE] * 3
     if not (fh.all_lossless or fh.allow_intrabc or not s.enable_restoration):
@@ -567,7 +583,8 @@ def qindex(fh: FrameHeader, seg: int, current: int, ignore_delta: bool = True) -
 
 
 def post_filters(fh: FrameHeader) -> list[str]:
-    """The filters of the next slice this frame needs, by name."""
+    """The in-loop and output filters this frame needs, by name, in the
+    specification's order."""
     out = []
     if not (fh.coded_lossless or fh.allow_intrabc) and (fh.lf_level[0] or fh.lf_level[1]):
         out.append("deblocking")

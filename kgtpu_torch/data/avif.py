@@ -16,8 +16,8 @@ returns None):
     property indices inside `ipco`, essential unknown properties disable
     the item), `iinf` (v0-1, exactly its count of `infe` v2-3), `iref`
     (v0-1: `auxl` alpha, `dimg` grid tiles, `thmb`, `cdsc`, `prem`);
-  * properties: `ispe`, `av1C` (marker 0x81), `pixi` (equal depths of 8,
-    10 or 12 matching av1C), `colr` (nclx; ICC read and ignored, as cv2
+  * properties: `ispe`, `av1C` (marker 0x81), `pixi` (equal depths of 1 to
+    16, matching av1C on a decoded item), `colr` (nclx; ICC read and ignored, as cv2
     ignores it), `auxC`, `irot` / `imir` / `clap` / `pasp` (parsed; neither
     libavif nor cv2 applies them to the pixels);
   * the primary item (`av01`, or `grid`: ImageGrid over its `dimg` tiles);
@@ -170,8 +170,10 @@ def _property(data: bytes, typ: bytes, start: int, end: int) -> dict:
         depths = [r.u(1) for _ in range(n)]
         if any(d != depths[0] for d in depths):
             raise _fail("pixi plane depths differ")
-        if depths and depths[0] not in (8, 10, 12):
-            raise _fail(f"pixi plane depth {depths[0]} is not supported")
+        if depths[0] == 0 or depths[0] > 16:
+            raise _fail("pixi plane depth is not 1 to 16")
+        # a depth of 1 to 16 other than 8, 10 or 12 fails only an item that
+        # is decoded (`_check_props`: it differs from av1C's)
         p["depths"] = depths
     elif typ == b"av1C":
         b0, b1, b2 = r.u(1), r.u(1), r.u(1)
@@ -384,9 +386,10 @@ class Source:
     """One image to decode: its OBUs and properties (an item, or a track's
     first sample)."""
 
-    def __init__(self, obus: bytes, props: list):
+    def __init__(self, obus: bytes, props: list, track: bool = False):
         self.obus = obus
         self.props = props
+        self.track = track
 
     def prop(self, t: bytes):
         for p in self.props:
@@ -603,9 +606,10 @@ def _item_source(data: bytes, m: Meta, it: Item):
 
 
 def _check_samples(t: dict, size: int) -> None:
-    """libavif lays out every sample of a track (stsc, stco, stsz) and
-    refuses one that ends past the file ("Exceeded avifIO's sizeHint")."""
-    runs = t.get("stsc", [])
+    """avifCodecDecodeInputFillFromSampleTable: libavif lays out every
+    sample of a track (stsc, stco, stsz) and refuses one that ends past the
+    file ("Exceeded avifIO's sizeHint")."""
+    runs = t["stsc"]
     sizes = t["sizes"]
     k = 0
     for c, off in enumerate(t["chunks"]):
@@ -616,117 +620,175 @@ def _check_samples(t: dict, size: int) -> None:
         if per == 0:
             raise _fail("a track chunk holds no samples")
         for _ in range(per):
-            if k >= len(sizes):
+            if t["all_size"]:
+                step = t["all_size"]
+            elif k >= len(sizes):
                 raise _fail("truncated sample table")
-            if off + sizes[k] > size:
+            else:
+                step = sizes[k]
+            if off + step > size:
                 raise _fail("a track sample runs past the end of the data")
-            off += sizes[k]
+            off += step
             k += 1
 
 
-_V0 = (b"stco", b"co64", b"stsc", b"stsz", b"stss", b"stts", b"stsd", b"hdlr")
-_V01 = (b"tkhd", b"mdhd")
+def _version(data: bytes, typ: bytes, start: int, end: int, ok=(0,)) -> None:
+    v = data[start] if start < end else 0
+    if v not in ok:
+        raise _fail(f"{typ.decode()} version {v} is not supported")
+
+
+def _parse_stbl(data: bytes, start: int, end: int, t: dict) -> None:
+    """avifParseSampleTableBox: chunk offsets and sample sizes append, as
+    libavif's arrays do; every av01 sample entry holds its properties."""
+    if t["stbl"]:
+        raise _fail("duplicate stbl for a single track")
+    t["stbl"] = True
+    for ct, cb, ce in _children(data, start, end):
+        q = _R(data, cb, ce)
+        if ct in (b"stco", b"co64", b"stsc", b"stsz", b"stss", b"stts", b"stsd"):
+            _version(data, ct, cb, ce, (0, 1) if ct == b"stsd" else (0,))
+        if ct in (b"stco", b"co64"):
+            q.full()
+            n = q.u(4)
+            t["chunks"] += [q.u(4 if ct == b"stco" else 8) for _ in range(n)]
+        elif ct == b"stsz":
+            q.full()
+            size = q.u(4)
+            n = q.u(4)
+            if size:
+                t["all_size"] = size
+            else:
+                t["sizes"] += [q.u(4) for _ in range(n)]
+        elif ct == b"stsc":
+            q.full()
+            for k in range(q.u(4)):
+                run = (q.u(4), q.u(4), q.u(4))
+                if (k == 0 and run[0] != 1) or (k and run[0] <= t["stsc"][-1][0]):
+                    raise _fail("stsc first chunks do not start at 1 and increase")
+                t["stsc"].append(run)
+        elif ct in (b"stss", b"stts"):
+            q.full()
+            q.raw(q.u(4) * (4 if ct == b"stss" else 8))
+        elif ct == b"stsd":
+            q.full()
+            for _ in range(q.u(4)):
+                et, eb, ee, _ = q.header()
+                props = []
+                if et == b"av01":
+                    # VisualSampleEntry: 8 + 70 bytes before its boxes
+                    if ee - eb < 78:
+                        raise _fail("av01 sample entry shorter than a VisualSampleEntry")
+                    props = [_property(data, pt, pb, pe)
+                             for pt, pb, pe in _children(data, eb + 78, ee)]
+                t["entries"].append((et, props))
+                q.p = ee
+
+
+def _parse_trak(data: bytes, start: int, end: int) -> dict:
+    """avifParseTrackBox: tkhd (once, mandatory), mdia (mdhd, hdlr, minf's
+    stbl), tref (auxl) and edts, each where libavif looks for it."""
+    t = {"id": 0, "auxl": 0, "stbl": False, "edts": False, "chunks": [], "sizes": [],
+         "all_size": 0, "stsc": [], "entries": []}
+    for ct, cb, ce in _children(data, start, end):
+        q = _R(data, cb, ce)
+        if ct == b"tkhd":
+            if "size" in t:
+                raise _fail("trak holds two tkhd")
+            _version(data, ct, cb, ce, (0, 1))
+            v, _ = q.full()
+            q.raw(16 if v == 1 else 8)
+            t["id"] = q.u(4)
+            q.raw(4 + (8 if v == 1 else 4) + 52)
+            t["size"] = (q.u(4) >> 16, q.u(4) >> 16)
+            # libavif sizes a track's image from tkhd, as an item's from ispe
+            _check_size({"w": t["size"][0], "h": t["size"][1]}, f"track {t['id']}")
+        elif ct == b"mdia":
+            for mt, mb, me in _children(data, cb, ce):
+                if mt == b"mdhd":
+                    _version(data, mt, mb, me, (0, 1))
+                elif mt == b"hdlr":
+                    _version(data, mt, mb, me)
+                    h = _R(data, mb, me)
+                    h.full()
+                    if h.u(4) != 0:
+                        raise _fail("hdlr pre_defined is not zero")
+                    h.raw(16)
+                    h.string()
+                elif mt == b"minf":
+                    for nt, nb, ne in _children(data, mb, me):
+                        if nt == b"stbl":
+                            _parse_stbl(data, nb, ne, t)
+        elif ct == b"tref":
+            for rt, rb, re_ in _children(data, cb, ce):
+                if rt == b"auxl":
+                    t["auxl"] = _R(data, rb, re_).u(4)
+        elif ct == b"edts":
+            if t["edts"]:
+                raise _fail("trak holds two edts")
+            t["edts"] = True
+            lists = [(eb, ee) for et, eb, ee in _children(data, cb, ce) if et == b"elst"]
+            if len(lists) != 1:
+                raise _fail("edts holds no elst, or more than one")
+            eq = _R(data, *lists[0])
+            ev, flags = eq.full()
+            if flags & 1:  # repeating: libavif reads the one entry's duration
+                if eq.u(4) != 1:
+                    raise _fail("elst entry count is not 1")
+                if ev > 1:
+                    raise _fail(f"elst version {ev} is not supported")
+                if eq.u(8 if ev == 1 else 4) == 0:
+                    raise _fail("elst segment duration is 0")
+    if "size" not in t:
+        raise _fail("trak has no tkhd")
+    return t
+
+
+def _av01_props(t: dict):
+    """The properties of a track's first av01 sample entry, or None."""
+    return next((props for et, props in t["entries"] if et == b"av01"), None)
 
 
 def _parse_moov(data: bytes, start: int, end: int):
-    """The first samples of the colour track and of its alpha track."""
-    tracks = []
-    for typ, body, bend in _children(data, start, end):
-        if typ != b"trak":
-            continue
-        t = {"id": 0, "auxl": 0, "handler": b"", "props": [], "chunks": [], "sizes": []}
-        stack = [(body, bend)]
-        while stack:
-            s, e = stack.pop()
-            for ct, cb, ce in _children(data, s, e):
-                q = _R(data, cb, ce)
-                if ct in _V0 or ct in _V01:
-                    v = data[cb] if cb < ce else 0
-                    if v != 0 and not (ct in _V01 and v == 1):
-                        raise _fail(f"{ct.decode()} version {v} is not supported")
-                if ct == b"edts":
-                    if not any(et == b"elst" for et, _, _ in _children(data, cb, ce)):
-                        raise _fail("edts holds no elst")
-                    for et, eb, ee in _children(data, cb, ce):
-                        if et == b"elst":
-                            eq = _R(data, eb, ee)
-                            ev, _ = eq.full()
-                            if ev > 1:
-                                raise _fail(f"elst version {ev} is not supported")
-                            if eq.u(4) != 1:
-                                raise _fail("elst entry count is not 1")
-                            eq.raw(20 if ev == 1 else 12)
-                if ct in (b"mdia", b"minf", b"stbl", b"tref"):
-                    stack.append((cb, ce))
-                elif ct == b"tkhd":
-                    v, _ = q.full()
-                    q.raw(16 if v == 1 else 8)
-                    t["id"] = q.u(4)
-                    q.raw(4 + (8 if v == 1 else 4) + 52)
-                    t["size"] = (q.u(4) >> 16, q.u(4) >> 16)
-                elif ct == b"auxl":
-                    t["auxl"] = q.u(4)
-                elif ct == b"hdlr":
-                    q.full()
-                    if q.u(4) != 0:
-                        raise _fail("hdlr pre_defined is not zero")
-                    t["handler"] = q.raw(4)
-                    q.raw(12)
-                    q.string()
-                elif ct == b"stsd":
-                    q.full()
-                    for k in range(q.u(4)):
-                        et, eb, ee, _ = q.header()
-                        if k == 0:
-                            t["entry"] = et
-                            # VisualSampleEntry: 8 + 70 bytes before its boxes
-                            if ee - eb >= 78:
-                                t["props"] = [_property(data, pt, pb, pe)
-                                              for pt, pb, pe in _children(data, eb + 78, ee)]
-                        q.p = ee
-                elif ct in (b"stco", b"co64"):
-                    q.full()
-                    n = q.u(4)
-                    t["chunks"] = [q.u(4 if ct == b"stco" else 8) for _ in range(n)]
-                elif ct == b"stsz":
-                    q.full()
-                    size = q.u(4)
-                    n = q.u(4)
-                    t["sizes"] = [size] * n if size else [q.u(4) for _ in range(n)]
-                elif ct == b"stsc":
-                    q.full()
-                    t["stsc"] = [(q.u(4), q.u(4), q.u(4)) for _ in range(q.u(4))]
-                elif ct in (b"stss", b"stts"):
-                    q.full()
-                    q.raw(q.u(4) * (4 if ct == b"stss" else 8))
-        tracks.append(t)
-    color = alpha = None
-    for t in tracks:
-        if t.get("entry") != b"av01" or not t["chunks"] or not t["sizes"]:
+    """The first samples of the colour track and of its alpha track, as
+    libavif's avifDecoderReset picks them: the first track with a sample
+    table, an ID, chunks and an av01 entry that is no auxiliary is the
+    colour track; the first such track auxiliary to it whose auxi, if it
+    has one, names alpha is its alpha track; both tracks' samples must lay
+    out (`_check_samples`)."""
+    tracks = [_parse_trak(data, body, bend)
+              for typ, body, bend in _children(data, start, end) if typ == b"trak"]
+    if not tracks:
+        raise _fail("moov holds no track")
+    usable = [t for t in tracks if t["stbl"] and t["id"] and t["chunks"] and
+              _av01_props(t) is not None]
+    color = next((t for t in usable if t["auxl"] == 0), None)
+    if color is None:
+        return None, None
+    alpha = None
+    for t in usable:
+        auxi = next((p for p in _av01_props(t) if p["type"] == b"auxi"), None)
+        if t["auxl"] == color["id"] and (auxi is None or auxi.get("urn") in ALPHA_URNS):
+            alpha = t
+            break
+    out = []
+    for t in (color, alpha):
+        if t is None:
+            out.append(None)
             continue
         _check_samples(t, len(data))
-        # libavif sizes a track's image from tkhd, as an item's from ispe
-        ispe = {"type": b"ispe", "w": t.get("size", (0, 0))[0], "h": t.get("size", (0, 0))[1]}
-        _check_size(ispe, f"track {t['id']}")
-        src = Source(data[t["chunks"][0]:t["chunks"][0] + t["sizes"][0]], t["props"] + [ispe])
-        if t["chunks"][0] + t["sizes"][0] > len(data):
-            raise _fail("track sample is truncated")
-        if t["auxl"] == 0 and color is None:
-            color = (src, t["id"])
-    if color is not None:
-        for t in tracks:
-            auxi = next((p for p in t["props"] if p["type"] == b"auxi"), None)
-            if t.get("entry") == b"av01" and t["auxl"] == color[1] and t["chunks"] and \
-                    t["sizes"] and auxi is not None and auxi.get("urn") in ALPHA_URNS:
-                size = t.get("size", (0, 0))
-                alpha = Source(data[t["chunks"][0]:t["chunks"][0] + t["sizes"][0]],
-                               t["props"] + [{"type": b"ispe", "w": size[0], "h": size[1]}])
-                break
-    return (color[0] if color else None), alpha
+        first = t["all_size"] or t["sizes"][0]
+        out.append(Source(data[t["chunks"][0]:t["chunks"][0] + first], _av01_props(t) + [
+            {"type": b"ispe", "w": t["size"][0], "h": t["size"][1]}], track=True))
+    return out[0], out[1]
 
 
 def _check_props(src, what: str) -> dict:
+    """av1C (which an alpha track may lack: libavif reads it only for the
+    colour) and a pixi that agrees with it."""
     av1c = src.prop(b"av1C")
+    if av1c is None and src.track and what == "alpha image":
+        return {}
     if av1c is None:
         raise _fail(f"{what} has no av1C")
     pixi = src.prop(b"pixi")

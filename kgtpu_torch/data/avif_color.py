@@ -32,17 +32,27 @@ from __future__ import annotations
 
 import numpy as np
 
-from kgtpu_torch.data.av1_tables import LIBYUV_CONSTANTS
+from kgtpu_torch.data.av1_tables import AVIF_KR_KB, AVIF_KR_KB_DERIVED, LIBYUV_CONSTANTS
 from kgtpu_torch.data.imread import UnreadableImage
 from kgtpu_torch.data.pnm import cvt_gray
 
 F32 = np.float32
-# matrix coefficients -> (kr, kb) (libavif's table)
-KRKB = {1: (0.2126, 0.0722), 2: (0.299, 0.114), 4: (0.30, 0.11), 5: (0.299, 0.114),
-        6: (0.299, 0.114), 7: (0.212, 0.087), 9: (0.2627, 0.0593), 10: (0.2627, 0.0593)}
+CHROMA_DERIVED_NCL = 12
 
 
-def _libyuv_constants(mc: int, full: bool):
+def kr_kb(cp: int, mc: int) -> tuple:
+    """libavif's avifCalcYUVCoefficients: its table by matrix coefficients,
+    or for chroma-derived NCL kr / kb derived from the colour primaries."""
+    if mc == CHROMA_DERIVED_NCL:
+        return AVIF_KR_KB_DERIVED.get(cp, AVIF_KR_KB_DERIVED[2])
+    return AVIF_KR_KB.get(mc, AVIF_KR_KB[2])
+
+
+def _libyuv_constants(cp: int, mc: int, full: bool):
+    """The libyuv matrix libavif picks (chroma-derived NCL by its
+    primaries), or None for its own float path."""
+    if mc == CHROMA_DERIVED_NCL:
+        mc = {1: 1, 2: 1, 5: 6, 6: 6, 9: 9}.get(cp, -1)
     if mc in (2, 5, 6):
         return LIBYUV_CONSTANTS["JPEG" if full else "I601"]
     if mc == 1:
@@ -148,13 +158,14 @@ def _float_upsample(c: np.ndarray, w: int, h: int, ssx: int, ssy: int) -> np.nda
             dia * F32(1.0 / 16.0)).astype(F32)
 
 
-def _float_rgb(planes, depth: int, ssx: int, ssy: int, mc: int, full: bool,
+def _float_rgb(planes, depth: int, ssx: int, ssy: int, cp: int, mc: int, full: bool,
                out_depth: int) -> np.ndarray:
     ymax = (1 << depth) - 1
     h, w = planes[0].shape
-    if mc == 0:
-        bias_y, range_y = 0.0, float(ymax)
-        bias_uv, range_uv = 0.0, float(ymax)
+    if mc == 0:  # identity: every plane takes luma's range
+        bias_y, range_y = (0.0, float(ymax)) if full else (float(16 << (depth - 8)),
+                                                             float(219 << (depth - 8)))
+        bias_uv, range_uv = bias_y, range_y
     elif full:
         bias_y, range_y = 0.0, float(ymax)
         bias_uv, range_uv = float(1 << (depth - 1)), float(ymax)
@@ -172,7 +183,7 @@ def _float_rgb(planes, depth: int, ssx: int, ssy: int, mc: int, full: bool,
         t = Y - Cb
         R, G, B = t + Cr, Y + Cb, t - Cr
     else:
-        kr, kb = (F32(v) for v in KRKB.get(mc, (0.299, 0.114)))
+        kr, kb = (F32(v) for v in kr_kb(cp, mc))
         kg = F32(1) - kr - kb
         R = Y + (F32(2) * (F32(1) - kr)) * Cr
         B = Y + (F32(2) * (F32(1) - kb)) * Cb
@@ -196,13 +207,15 @@ def _alpha(a: np.ndarray, depth: int, full: bool, out_depth: int) -> np.ndarray:
     return v.astype(np.int64).astype(np.uint8 if out_depth == 8 else np.uint16)
 
 
-def reformat_supported(mc: int, subsampled: bool) -> bool:
-    """libavif's avifPrepareReformatState: BT.2020 CL, SMPTE 2085, chroma-
-    derived CL and ICtCp or later matrices fail (cv2: "Cannot convert from
-    AVIF to Mat", imread returns None), and so does identity unless 4:4:4."""
-    if mc in (10, 11, 13) or mc >= 14:
+def reformat_supported(mc: int, subsampled: bool, full: bool) -> bool:
+    """libavif's avifPrepareReformatState: the reserved 3, BT.2020 CL, SMPTE
+    2085, chroma-derived CL, ICtCp, YCgCo-Re / Ro (which cv2's equal
+    depths never allow) and later matrices fail (cv2: "Cannot convert
+    from AVIF to Mat", imread returns None), and so do identity unless
+    4:4:4 and YCgCo at limited range; 15 converts with BT.601's kr / kb."""
+    if mc in (3, 10, 11, 13, 14) or mc >= 16:
         return False
-    return not (mc == 0 and subsampled)
+    return not ((mc == 0 and subsampled) or (mc == 8 and not full))
 
 
 def to_rgb(planes, seq, cicp, out_depth: int, alpha: bool = False) -> np.ndarray:
@@ -213,13 +226,13 @@ def to_rgb(planes, seq, cicp, out_depth: int, alpha: bool = False) -> np.ndarray
     chroma sample (libyuv has no filtered 12-bit rows); deep YUV without
     alpha is first cut to 8 bits by libyuv's Convert16To8 ((v * 2^(24 -
     depth)) >> 16, clamped) and then converted as 8-bit YUV."""
-    _, _, mc, full = cicp
+    cp, _, mc, full = cicp
     depth = seq.bit_depth
     h, w = planes[0].shape
     if mc == 0 and depth == out_depth and full:
         out = np.stack([planes[1], planes[0], planes[2]], -1)
         return out.astype(np.uint8 if depth == 8 else np.uint16)
-    k = _libyuv_constants(mc, bool(full))
+    k = _libyuv_constants(cp, mc, bool(full))
     if depth > 8 and alpha and out_depth == 8 and k is not None:
         if depth == 10:
             u = _libyuv_upsample(planes[1], w, h, seq.ssx, seq.ssy)
@@ -236,7 +249,7 @@ def to_rgb(planes, seq, cicp, out_depth: int, alpha: bool = False) -> np.ndarray
         u = _libyuv_upsample(planes[1], w, h, seq.ssx, seq.ssy)
         v = _libyuv_upsample(planes[2], w, h, seq.ssx, seq.ssy)
         return _libyuv_rgb(planes[0], u, v, k)
-    return _float_rgb(planes, depth, seq.ssx, seq.ssy, mc, bool(full), out_depth)
+    return _float_rgb(planes, depth, seq.ssx, seq.ssy, cp, mc, bool(full), out_depth)
 
 
 def _gray_scale(y: np.ndarray, depth: int) -> np.ndarray:
@@ -254,8 +267,6 @@ def to_mat(planes, seq, cicp, alpha, mode: str, wide: bool = True,
         mode = "color8"
     if mono is None:
         mono = seq.num_planes == 1
-    if not mono and seq.num_planes == 1:
-        raise UnreadableImage("AVIF colour header over a monochrome frame")
     channels = (1 if mono else 3) + (alpha is not None)
     if channels == 2:
         raise UnreadableImage("AVIF grey with alpha: cv2 reads no two-channel AVIF")
@@ -270,9 +281,20 @@ def to_mat(planes, seq, cicp, alpha, mode: str, wide: bool = True,
             return g
         return np.repeat(g[..., None], 3, 2)
     out_depth = depth if mode == "unchanged" else 8
-    if not reformat_supported(cicp[2], bool(seq.ssx | seq.ssy)):
+    cp, _, mc, full = cicp
+    if seq.num_planes == 1:
+        # a monochrome frame under a colour header: libavif converts YUV
+        # 4:0:0 in its float path with neutral chroma, identity and YCgCo
+        # as grey too (so as BT.601, whose luma range they share)
+        if not reformat_supported(mc, False, bool(full)):
+            raise UnreadableImage("AVIF matrix coefficients libavif cannot convert")
+        neutral = np.full_like(planes[0], 1 << (depth - 1))
+        bgr = _float_rgb([planes[0], neutral, neutral], depth, 0, 0, cp,
+                         6 if mc in (0, 8) else mc, bool(full), out_depth)
+    elif not reformat_supported(mc, bool(seq.ssx | seq.ssy), bool(full)):
         raise UnreadableImage("AVIF matrix coefficients libavif cannot convert")
-    bgr = to_rgb(planes, seq, cicp, out_depth, alpha is not None)
+    else:
+        bgr = to_rgb(planes, seq, cicp, out_depth, alpha is not None)
     if alpha is not None and mode in ("unchanged", "color8"):
         a = _alpha(alpha[0], alpha[1], alpha[2], out_depth)
         return np.concatenate([bgr, a[..., None]], -1)

@@ -9,9 +9,10 @@ PIL's (libavif 1.3 over aom, lossy with aom's in-loop filters off), and
 libaom's own encoder (`variant_encoders.aom_encode`: monochrome, intra
 block copy, grids, filter intra, colour matrices, superres, film grain),
 named `.png` as kgtpu would meet them; each is read in "color", "gray" and
-"unchanged".  A frame that needs an in-loop or output filter raises
-`UnsupportedImage` naming it; where cv2 returns None the port raises
-`UnreadableImage`.
+"unchanged".  A frame that needs a filter still queued (loop restoration,
+superres, film grain) raises `UnsupportedImage` naming it; where cv2
+returns None the port raises `UnreadableImage`.  Deblocking and CDEF have
+their own file, `test_torch_av1_filters.py`.
 
 Tolerance: none for every file read (dtype, shape and every value).  The
 float reference of the transforms is held to within 2 per position (the
@@ -204,11 +205,42 @@ def _cases() -> dict:
     c["aom_unknown_essential"] = functools.partial(transformed, ve._box(b"zzzz", b"abcd"))
     for label, cicp in {"bt709_full": (1, 1, 1, 1), "bt709_limited": (1, 1, 1, 0),
                         "bt601_limited": (6, 6, 6, 0), "bt2020_full": (9, 16, 9, 1),
-                        "ycgco": (2, 2, 8, 1), "fcc": (2, 2, 4, 1)}.items():
+                        "ycgco": (2, 2, 8, 1), "fcc": (2, 2, 4, 1),
+                        # libavif derives kr / kb from the primaries (by its
+                        # libyuv matrix for BT.709, BT.601 and BT.2020 ones)
+                        "chroma_derived_bt709": (1, 13, 12, 1),
+                        "chroma_derived_bt470bg": (5, 13, 12, 0),
+                        "chroma_derived_bt2020": (9, 13, 12, 1),
+                        "chroma_derived_bt470m": (4, 13, 12, 1),
+                        "chroma_derived_p3": (12, 13, 12, 0),
+                        "chroma_derived_ebu3213": (22, 13, 12, 1),
+                        "chroma_derived_unknown": (200, 13, 12, 1),
+                        "mc15": (1, 13, 15, 1), "mc15_limited": (1, 13, 15, 0),
+                        # cv2 returns None for these two
+                        "reserved": (1, 13, 3, 1), "ycgco_limited": (2, 2, 8, 0)}.items():
         c[f"aom_matrix_{label}"] = functools.partial(
             _aom, ve.avif_content(_rng(label), 34, 46, 3, "smooth"), "420",
             {"cq-level": 25, **NOF_AOM}, cicp)
+    c["aom_matrix_identity_limited"] = functools.partial(
+        _aom, ve.avif_content(_rng("identity"), 34, 46, 3, "smooth"), "444",
+        {"cq-level": 25, **NOF_AOM}, (1, 13, 0, 0))
+
+    def mono_under_colour(depth, cicp):
+        """A monochrome frame in an item whose av1C says 4:2:0 colour:
+        libavif converts it as YUV 4:0:0 (grey)."""
+        y = ve.avif_content(_rng(f"muc{depth}"), 40, 36, 1, "smooth")[..., 0]
+        u = np.full((20, 18), 128, np.uint8)
+        obus = ve.aom_encode([y, u, u], "420", {"cq-level": 30, **NOF_AOM},
+                             cfg_fields={208: 1})
+        return ve.avif_file(obus, 36, 40, depth=depth, ssx=1, ssy=1, profile=0, cicp=cicp)
+    c["aom_mono_under_colour_header"] = functools.partial(mono_under_colour, 8, (1, 13, 6, 0))
+    c["aom_mono_under_colour_header_identity"] = functools.partial(
+        mono_under_colour, 8, (1, 13, 0, 1))
     return c
+
+
+NOT_READ = ("aom_grid_tiles_under_64", "aom_unknown_essential", "aom_matrix_reserved",
+            "aom_matrix_ycgco_limited")
 
 
 CASES = _cases()
@@ -222,10 +254,10 @@ def case(name: str) -> bytes:
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_avif_reads_like_cv2(tmp_path, name):
     """Every kind in every mode equals cv2's read (cv2 reads all three; a
-    grid of tiles under 64 px, which MIAF forbids, and an item with an
-    essential property libavif does not know, none)."""
-    assert check(tmp_path, case(name)) == (0 if name in ("aom_grid_tiles_under_64",
-                                                         "aom_unknown_essential") else 3)
+    grid of tiles under 64 px, which MIAF forbids, an item with an
+    essential property libavif does not know, the reserved matrix
+    coefficients 3 and YCgCo at limited range, none)."""
+    assert check(tmp_path, case(name)) == (0 if name in NOT_READ else 3)
 
 
 def test_cases_reach_the_tools_they_name():
@@ -268,20 +300,7 @@ def test_cases_reach_the_tools_they_name():
 
 # --- refusals -------------------------------------------------------------------
 
-def _pil_default():
-    return ve.avif_pil(ve.avif_content(_rng("d"), 48, 56, 3, "smooth"), quality=60)
-
-
-def _synthetic(q):
-    """cv2's lossy AVIF of the first synthetic_hard image (512x512)."""
-    d = os.path.join(ROOT, "assets_torch", "synthetic_hard", "images")
-    img = cv2.imread(os.path.join(d, sorted(os.listdir(d))[0]), cv2.IMREAD_COLOR)
-    return cv2.imencode(".avif", img, [cv2.IMWRITE_AVIF_QUALITY, q])[1].tobytes()
-
-
 REFUSED = {
-    "deblocking": _pil_default,
-    "CDEF": functools.partial(_synthetic, 80),  # cv2's quality 80: deblocking and CDEF
     "loop restoration": lambda: _aom(ve.avif_content(np.random.default_rng(30), 64, 64, 3,
                                                      "smooth"), "420",
                                      {"cq-level": 30, "enable-cdef": 0,
@@ -295,8 +314,8 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_post_filter_frames_raise_unsupported(tmp_path, name):
-    """A frame that needs an in-loop or output filter (the next slice) is
-    refused by name in every mode, where cv2 reads it."""
+    """A frame that needs a filter still queued is refused by name in every
+    mode, where cv2 reads it."""
     path = str(tmp_path / "image.tif")
     with open(path, "wb") as f:
         f.write(REFUSED[name]())
@@ -371,6 +390,30 @@ def test_damaged_headers_refused_where_cv2_refuses(tmp_path, name):
     assert check(tmp_path, _damaged()[name]) == 0
 
 
+def _seq_level(data: bytes, level: int) -> bytes:
+    """`data` (an item whose sequence header is reduced, as libavif writes a
+    still image's) with seq_level_idx `level`: bits 5-9 of the header's
+    payload, after the temporal delimiter and the OBU header and size."""
+    from kgtpu_torch.data import avif
+    obus = avif.parse(data)[0].obus
+    i = data.index(obus) + obus.index(b"\x0a") + 2
+    assert (data[i] >> 3) & 1, "not a reduced sequence header"
+    v = (int.from_bytes(data[i:i + 2], "big") & ~(0x1f << 6)) | (level << 6)
+    return data[:i] + v.to_bytes(2, "big") + data[i + 2:]
+
+
+@pytest.mark.parametrize("level", range(32))
+def test_sequence_levels_as_cv2(tmp_path, level):
+    """libaom refuses a seq_level_idx not yet defined (2.2, 2.3, 3.2, 3.3,
+    4.2, 4.3, 7.0 and up but 31): cv2 reads none of its modes and the port
+    raises UnreadableImage; the defined ones read as cv2 reads them (a
+    fault `tools/probe_avif.py --damage --sequences` found: the port read
+    every level)."""
+    from kgtpu_torch.data.av1_obu import LEVELS_UNDEFINED
+    want = 0 if level in LEVELS_UNDEFINED else 3
+    assert check(tmp_path, _seq_level(case("pil_20_q35_33x47"), level)) == want
+
+
 def test_ispe_other_than_the_frame_is_queued(tmp_path):
     """libavif rescales a frame whose size differs from ispe (libyuv's
     ScalePlane): cv2 reads it, the port queues it by name."""
@@ -392,6 +435,49 @@ def test_intra_block_copy_reads_past_the_frame_width(tmp_path):
     with open(os.path.join(ROOT, "assets_torch", "formats", "avif_faults",
                            "intrabc_past_the_width.avif"), "rb") as f:
         assert check(tmp_path, f.read()) == 3
+
+
+# damaged image sequences that tools/probe_avif.py --damage --sequences found
+# (one a damage of the same kind from a targeted run), each a box of the
+# alpha track or the meta renamed or resized: name -> channels cv2 reads
+# (0: imread returns None)
+DAMAGED_SEQUENCES = {
+    # the alpha track's mdhd grew over its hdlr and minf's header: its stbl
+    # now lies in mdia, where libavif does not look, so it has no samples
+    # and is no alpha track (the port took it as one)
+    "sequence_alpha_stbl_outside_minf": 3,
+    # no auxi: libavif takes the auxl track as alpha (the port wanted one)
+    "sequence_alpha_auxi_renamed": 4,
+    # no stsz: the alpha track's samples do not lay out, libavif fails
+    # (the port dropped the track and read the colour)
+    "sequence_alpha_stsz_renamed": 0,
+    # no av01 entry: no alpha track (the port failed)
+    "sequence_alpha_entry_renamed": 3,
+    # no av1C: libavif reads av1C only for the colour track (the port failed)
+    "sequence_alpha_av1c_renamed": 4,
+    # an avis file decodes its tracks: a pixi depth of 4 in the meta's
+    # properties fails nothing (the port failed at parse)
+    "sequence_meta_pixi_depth_4": 4,
+    # but a pixi depth above 16 fails the parse, whichever item it is on
+    # (the port read the tracks)
+    "sequence_meta_pixi_depth_206": 0,
+}
+
+
+@pytest.mark.parametrize("name", sorted(DAMAGED_SEQUENCES))
+def test_damaged_sequences_read_like_cv2(tmp_path, name):
+    """Each file in every mode as cv2 reads it, or UnreadableImage where it
+    returns None; each failed on the port before libavif's track rules
+    (`avif._parse_trak`, `_parse_moov`) were followed."""
+    with open(os.path.join(ROOT, "assets_torch", "formats", "avif_faults", name + ".avif"),
+              "rb") as f:
+        data = f.read()
+    path = str(tmp_path / "image.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    assert (0 if want is None else want.shape[2]) == DAMAGED_SEQUENCES[name]
+    assert check(tmp_path, data) == (3 if DAMAGED_SEQUENCES[name] else 0)
 
 
 def test_damaged_tile_data_as_cv2(tmp_path):

@@ -1,10 +1,13 @@
 """The libraries cv2 decodes AVIF with, called through ctypes, for tests
 and tools only (the port never opens a library):
 
-    LibaomOracle()       libaom 3.14's C reference transforms (av1_idct4 ..
-                         av1_idct64, av1_iadst4 .. 16, av1_iidentity*_c, the
-                         2-D av1_inv_txfm2d_add_WxH_c and the lossless WHT),
-                         found by name in the library's symbol table
+    LibaomOracle()       libaom 3.14's C reference functions, found by name
+                         in the library's symbol table: the transforms
+                         (av1_idct4 .. av1_idct64, av1_iadst4 .. 16,
+                         av1_iidentity*_c, the 2-D av1_inv_txfm2d_add_WxH_c
+                         and the lossless WHT), the deblocking filters
+                         (aom_[highbd_]lpf_{horizontal,vertical}_{4,6,8,14}_c)
+                         and CDEF's (cdef_find_dir_c, cdef_filter_{8,16}_*_c)
     avif_planes(data)    what libavif 1.4.2 (cv2's) decodes from an AVIF
                          file before any RGB conversion: the Y, U, V and
                          alpha planes, bit depth, format, range and CICP
@@ -71,6 +74,56 @@ class LibaomOracle:
                     ctypes.c_int, ctypes.c_int)
         f(inp.ctypes.data, out.ctypes.data >> 1, 4, bd)  # CONVERT_TO_BYTEPTR
         return out.astype(np.int64)
+
+    def lpf(self, edge: str, taps: int, lines: np.ndarray, blimit: int, limit: int,
+            thresh: int, bd: int) -> np.ndarray:
+        """aom_[highbd_]lpf_{edge}_{taps}_c (edge "horizontal" or
+        "vertical", taps 4, 6, 8 or 14) on 4 `lines` [4, 16] of samples
+        across one edge (p7 .. p0, q0 .. q7): the lines after the call."""
+        lines = np.asarray(lines)
+        buf = np.ascontiguousarray(lines if edge == "vertical" else lines.T,
+                                   np.uint8 if bd == 8 else np.uint16)
+        pitch = buf.shape[1]
+        at = buf.ctypes.data + (8 if edge == "vertical" else 8 * pitch) * buf.itemsize
+        lims = [ctypes.c_uint8(v) for v in (blimit, limit, thresh)]
+        args = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+        vals = [at, pitch] + [ctypes.addressof(v) for v in lims]
+        name = f"aom_lpf_{edge}_{taps}_c"
+        if bd > 8:
+            name, args, vals = "aom_highbd" + name[3:], args + [ctypes.c_int], vals + [bd]
+        self.fn(name, *args)(*vals)
+        return (buf if edge == "vertical" else buf.T).astype(np.int64)
+
+    def cdef_find_dir(self, block: np.ndarray, coeff_shift: int) -> tuple[int, int]:
+        """cdef_find_dir_c on an [8, 8] block: (direction, variance)."""
+        img = np.ascontiguousarray(block, np.uint16)
+        var = ctypes.c_int32()
+        f = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_int)(self.base + self.lib.syms["cdef_find_dir_c"][0][0])
+        d = f(img.ctypes.data, 8, ctypes.addressof(var), coeff_shift)
+        return d, var.value
+
+    def cdef_filter(self, variant: int, src: np.ndarray, w: int, h: int, pri: int, sec: int,
+                    direction: int, damping: int, coeff_shift: int,
+                    high: bool = False) -> np.ndarray:
+        """cdef_filter_{8,16}_{variant}_c (0: primary and secondary, 1:
+        primary, 2: secondary, 3: copy) of the w x h block at [2, 2] of
+        `src` [h + 4, w + 4] (CDEF_VERY_LARGE where a sample is not
+        available), laid out at CDEF_BSTRIDE (144) as libaom's CDEF buffer
+        is: the [h, w] result, 8- or (`high`) 16-bit."""
+        buf = np.zeros((h + 8, CDEF_BSTRIDE), np.uint16)
+        buf[2:h + 6, 6:w + 10] = src
+        dst = np.zeros((h, w), np.uint16 if high else np.uint8)
+        i = ctypes.c_int
+        f = self.fn(f"cdef_filter_{16 if high else 8}_{variant}_c", ctypes.c_void_p, i,
+                    ctypes.c_void_p, i, i, i, i, i, i, i, i)
+        f(dst.ctypes.data, w, buf.ctypes.data + (4 * CDEF_BSTRIDE + 8) * 2, pri, sec, direction,
+          damping, damping, coeff_shift, w, h)
+        return dst.astype(np.int64)
+
+
+CDEF_BSTRIDE = 144  # libaom's ALIGN_POWER_OF_TWO(128 + 2 * CDEF_HBORDER, 3)
+CDEF_VERY_LARGE = 30000
 
 
 def libavif_path() -> str:

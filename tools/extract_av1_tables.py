@@ -123,6 +123,41 @@ def extract_libyuv(path: str) -> dict:
     return out
 
 
+def extract_avif_kr_kb(path: str) -> tuple[dict, dict]:
+    """libavif's kr / kb (avifCalcYUVCoefficients, called through ctypes on
+    an empty avifImage whose colour primaries and matrix coefficients are
+    set at their 1.x offsets 104 and 108): ({mc: (kr, kb)} for the matrix
+    coefficients 0-255 but 12, {cp: (kr, kb)} for matrix coefficients 12,
+    chroma-derived NCL, over the colour primaries 0-255); each as floats
+    that are exactly the library's float32 values, and only where they
+    differ from those of mc 2 / cp 2 (unspecified), which are also kept."""
+    lib = Lib(path)
+    dl = ctypes.CDLL(path)
+    base = ctypes.cast(dl.avifImageCreateEmpty, ctypes.c_void_p).value - \
+        lib.syms["avifImageCreateEmpty"][0][0]
+    calc = ctypes.CFUNCTYPE(None, *[ctypes.c_void_p] * 4)(
+        base + lib.syms["avifCalcYUVCoefficients"][0][0])
+    dl.avifImageCreateEmpty.restype = ctypes.c_void_p
+    dl.avifImageDestroy.argtypes = [ctypes.c_void_p]
+    img = dl.avifImageCreateEmpty()
+    r, g, b = ctypes.c_float(), ctypes.c_float(), ctypes.c_float()
+
+    def krkb(cp: int, mc: int) -> tuple:
+        ctypes.c_uint16.from_address(img + 104).value = cp
+        ctypes.c_uint16.from_address(img + 108).value = mc
+        calc(img, ctypes.addressof(r), ctypes.addressof(g), ctypes.addressof(b))
+        return (r.value, b.value)
+    try:
+        by_mc = {mc: krkb(2, mc) for mc in range(256) if mc != 12}
+        derived = {cp: krkb(cp, 12) for cp in range(256)}
+    finally:
+        dl.avifImageDestroy(img)
+    if by_mc[1] != (float(np.float32(0.2126)), float(np.float32(0.0722))):
+        raise SystemExit(f"avifCalcYUVCoefficients gives {by_mc[1]} for BT.709")
+    return ({k: v for k, v in by_mc.items() if v != by_mc[2] or k == 2},
+            {k: v for k, v in derived.items() if v != derived[2] or k == 2})
+
+
 class Lib:
     def __init__(self, path: str):
         self.path = path
@@ -422,6 +457,11 @@ followed by the adaptation counter 0.
                        by name (JPEG = BT.601 full range, I601 limited,
                        F709 / H709, V2020 / 2020), from the libavif cv2
                        bundles, for `avif_color.py`
+    AVIF_KR_KB         libavif's (kr, kb) by matrix coefficients, where they
+                       are not those of mc 2 (kept, the default), and
+    AVIF_KR_KB_DERIVED for matrix coefficients 12 (chroma-derived NCL) by
+                       colour primaries, where not those of cp 2 (kept):
+                       float32 values, from avifCalcYUVCoefficients
 """
 
 '''
@@ -456,7 +496,11 @@ def main(argv: list[str] | None = None) -> int:
     parts.append(f"FILTER_INTRA_TAPS = {fmt(t['taps'])}\n\n")
     parts.append(f"PALETTE_COLOR_CONTEXT = {t['palette_ctx']!r}\n\n")
     parts.append("LIBYUV_CONSTANTS = {\n" + "".join(
-        f"    {k!r}: {v!r},\n" for k, v in yuv.items()) + "}\n")
+        f"    {k!r}: {v!r},\n" for k, v in yuv.items()) + "}\n\n")
+    by_mc, derived = extract_avif_kr_kb(a.avif_lib or default_lib("libavif"))
+    for name, table in (("AVIF_KR_KB", by_mc), ("AVIF_KR_KB_DERIVED", derived)):
+        parts.append(f"{name} = {{\n" + "".join(
+            f"    {k!r}: {v!r},\n" for k, v in table.items()) + "}\n")
     with open(a.out, "w") as f:
         f.write("".join(parts))
     print(f"wrote {a.out} ({os.path.getsize(a.out)} bytes)")

@@ -118,15 +118,22 @@ reads), and writes:
                                tools/variant_encoders.aom_encode: lossy
                                monochrome, intra block copy on a 128x768
                                strip (the copy needs 5 superblocks of 64 to
-                               its left), a 2x2 grid); `avif_decode_json` /
+                               its left), a 2x2 grid; and kinds whose frames
+                               need AV1's deblocking, or deblocking and CDEF
+                               (`AVIF_FILTERS`): cv2's quality 90 and 80 and
+                               10-bit quality 80, PIL's default, 4:2:2 with
+                               CDEF and 128x128 superblocks with CDEF,
+                               libaom's delta loop filter levels);
+                               `avif_decode_json` /
                                `avif_kinds_json` as for the variants.  The
                                lossless ones are checked to decode (cv2) to
                                the pixels written.
 
   formats/avif_folder/<id><ext>  the first AVIF_FOLDER synthetic_hard
                                images at 512x512 as AVIF under kgtpu's
-                               extensions (cv2's lossless, PIL's lossy 4:2:0
-                               and 4:4:4 without in-loop filters), served by
+                               extensions (cv2's lossless and quality 80,
+                               PIL's lossy 4:2:0 and 4:4:4 without in-loop
+                               filters and its default), served by
                                `chip_smoke.py` [18](b); `avif_folder_*` and
                                `*_avif_folder_*` keys as for the variants.
 
@@ -808,9 +815,19 @@ AVIF_KINDS = [
     ("mono_lossy", 9, {}), ("screen_palette", 10, {"quality": 60}),
     ("screen_intrabc", 11, {}), ("tiles_2x2", 12, {"quality": 70}),
     ("sb128", 13, {"quality": 70}), ("grid_2x2", 14, {}), ("sequence", 15, {"quality": 60}),
+    # the in-loop filters AV1's encoders turn on: deblocking, CDEF
+    ("cv2_q90", 0, {}), ("cv2_q80", 1, {}), ("pil_default", 2, {}),
+    ("pil_422_cdef", 3, {"quality": 60, "subsampling": "4:2:2"}),
+    ("cv2_10bit_q80", 4, {}), ("aom_delta_lf", 5, {}), ("pil_sb128_cdef", 6, {"quality": 30}),
 ]
+# the filters each filtered kind's frame needs (av1_obu.post_filters)
+AVIF_FILTERS = {"cv2_q90": ["deblocking"], "cv2_q80": ["deblocking", "CDEF"],
+                "pil_default": ["deblocking"], "pil_422_cdef": ["deblocking", "CDEF"],
+                "cv2_10bit_q80": ["deblocking", "CDEF"], "aom_delta_lf": ["deblocking"],
+                "pil_sb128_cdef": ["deblocking", "CDEF"], "pil_default_512": ["deblocking"],
+                "cv2_q80_512": ["deblocking", "CDEF"]}
 AVIF_FOLDER = [("lossless", ".png"), ("yuv420_q70", ".jpg"), ("lossless", ".tif"),
-               ("yuv444_q85", ".bmp")]
+               ("yuv444_q85", ".bmp"), ("pil_default_512", ".png"), ("cv2_q80_512", ".tif")]
 AVIF_FOLDER_OPTS = {"yuv420_q70": {"quality": 70}, "yuv444_q85": {"quality": 85,
                                                                    "subsampling": "4:4:4"}}
 
@@ -825,6 +842,28 @@ def write_avif(kind: str, rgb, opts: dict | None = None) -> bytes:
                                         avif_pil)
     opts = opts or AVIF_FOLDER_OPTS.get(kind, {})
     bgr = np.ascontiguousarray(rgb[..., ::-1])
+    if kind in ("cv2_q90", "cv2_q80", "cv2_q80_512"):
+        q = 90 if kind == "cv2_q90" else 80
+        return cv2.imencode(".avif", bgr, [cv2.IMWRITE_AVIF_QUALITY, q])[1].tobytes()
+    if kind == "cv2_10bit_q80":
+        px = (bgr.astype(np.uint16) << 2) | (bgr.astype(np.uint16) >> 6)
+        return cv2.imencode(".avif", px, [cv2.IMWRITE_AVIF_QUALITY, 80,
+                                          cv2.IMWRITE_AVIF_DEPTH, 10])[1].tobytes()
+    if kind in ("pil_default", "pil_default_512"):
+        return avif_pil(np.ascontiguousarray(rgb))
+    if kind in ("pil_422_cdef", "pil_sb128_cdef"):
+        adv = [("enable-cdef", "1")] + ([("sb-size", "128")] if kind == "pil_sb128_cdef" else [])
+        return avif_pil(np.ascontiguousarray(rgb), quality=opts["quality"],
+                        subsampling=opts.get("subsampling", "4:2:0"), advanced=adv)
+    if kind == "aom_delta_lf":
+        # libaom's all-intra usage codes delta loop filter levels (with delta q
+        # in its mode 3) where a frame's quantiser is coarse enough
+        yuv = [np.ascontiguousarray(rgb[..., k]) for k in (1, 0, 2)]
+        yuv = yuv[:1] + [np.ascontiguousarray(p[::2, ::2]) for p in yuv[1:]]
+        obus = aom_encode(yuv, "420", {"cq-level": 50, "enable-restoration": 0, "cpu-used": 6,
+                                       "deltaq-mode": 3, "delta-lf-mode": 1}, usage=2)
+        return avif_file(obus, rgb.shape[1], rgb.shape[0], ssx=1, ssy=1, profile=0,
+                         cicp=(1, 13, 6, 1))
     if kind == "lossless" or kind == "rgb_lossless":
         return cv2.imencode(".avif", bgr, [cv2.IMWRITE_AVIF_QUALITY, 100])[1].tobytes()
     if kind == "grey_lossless":

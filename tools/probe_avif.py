@@ -3,23 +3,27 @@
 outside the test gate (it takes minutes):
 
     python tools/probe_avif.py [--files 1000] [--maxsize 299] [--seed 0]
-                               [--workers 8] [--damage] [--dump DIR]
+                               [--workers 8] [--damage] [--sequences] [--dump DIR]
 
 The files are `variant_encoders.avif_random`: cv2's writer (lossless at
 quality 100 in 8, 10 and 12 bits, grey, colour and alpha, or lossy) and
 PIL's (libavif 1.3 over aom: any quality, 4:2:0 / 4:2:2 / 4:4:4, grey and
 alpha, aom's in-loop filters off or on, screen-content tuning, quantiser
-matrices, tiles, 128x128 superblocks), sizes 1 to --maxsize.  Each is read
+matrices, tiles, 128x128 superblocks) and libaom's own in a container with
+a random nclx (colour primaries, transfer, matrix coefficients, range),
+sizes 1 to --maxsize.  Each is read
 in "color", "gray" and "unchanged" by cv2 and by
 `kgtpu_torch.data.imread.read_image`, which must give the same dtype,
 shape and values, or raise UnreadableImage where cv2 returns None.  The
 only other outcome allowed is UnsupportedImage for a frame that needs a
-post-filter (deblocking, CDEF, loop restoration, superres, film grain), a
+post-filter still queued (loop restoration, superres, film grain), a
 frame libavif would rescale to its ispe, or a damaged header whose cv2
-read is not defined; the report counts those by name.  `--damage` reads each file
+read is not defined; the report counts those by name, and by filter.  `--damage` reads each file
 after damaging it (bytes changed, the file cut, or a run replaced,
-anywhere: boxes, headers, tile data).  Prints the counts and every
-mismatch; exits 1 on any.  `--dump DIR` writes each mismatching file.
+anywhere: boxes, headers, tile data); `--sequences` draws only PIL's image
+sequences (`variant_encoders.avif_random_sequence`, RGB and RGBA), whose
+track boxes a damage then hits far more often.  Prints the counts and
+every mismatch; exits 1 on any.  `--dump DIR` writes each mismatching file.
 Needs cv2 and PIL (this CPU box), not the card.
 """
 
@@ -62,18 +66,20 @@ def probe(args: tuple) -> tuple:
     import cv2
 
     from kgtpu_torch.data.imread import UnreadableImage, UnsupportedImage, read_image
-    from tools.variant_encoders import avif_random
-    seed, n, maxsize, dmg, dump = args
+    from tools.variant_encoders import avif_random, avif_random_sequence
+    seed, n, maxsize, dmg, dump, sequences = args
+    draw = avif_random_sequence if sequences else avif_random
     cv2.utils.logging.setLogLevel(cv2.utils.logging.LOG_LEVEL_SILENT)
     flags = {"color": cv2.IMREAD_COLOR, "gray": cv2.IMREAD_GRAYSCALE,
              "unchanged": cv2.IMREAD_UNCHANGED}
     rng = np.random.default_rng(seed)
     written, equal, refused, bad = 0, 0, 0, []
     queued: collections.Counter = collections.Counter()
+    by_filter: collections.Counter = collections.Counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "image.png")
         while written < n:
-            data, info = avif_random(rng, maxsize)
+            data, info = draw(rng, maxsize)
             if data is None:
                 continue
             if dmg:
@@ -94,6 +100,8 @@ def probe(args: tuple) -> tuple:
                     m = re.search(r"needs (.*) is not ported", str(e))
                     if m is not None:
                         queued[m.group(1)] += 1
+                        for name in m.group(1).split(", "):
+                            by_filter[name] += 1
                     elif "ispe size differs" in str(e):
                         queued["libavif's rescale to ispe"] += 1
                     elif "not defined" in str(e):
@@ -123,7 +131,7 @@ def probe(args: tuple) -> tuple:
                     with open(os.path.join(dump, f"{seed}_{written}.avif"), "wb") as f:
                         f.write(data)
                 bad.append((info, mode, why))
-    return written, equal, refused, bad, queued
+    return written, equal, refused, bad, queued, by_filter
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -133,6 +141,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--damage", action="store_true")
+    p.add_argument("--sequences", action="store_true")
     p.add_argument("--dump", default=None)
     a = p.parse_args(argv)
     if a.dump:
@@ -142,23 +151,28 @@ def main(argv: list[str] | None = None) -> int:
     jobs = []
     left, s = a.files, a.seed * 100003
     while left > 0:
-        jobs.append((s, min(per, left), a.maxsize, a.damage, a.dump))
+        jobs.append((s, min(per, left), a.maxsize, a.damage, a.dump, a.sequences))
         left -= per
         s += 1
     files = equal = refused = 0
     bad: list = []
     queued: collections.Counter = collections.Counter()
+    by_filter: collections.Counter = collections.Counter()
     with ProcessPoolExecutor(a.workers) as ex:
-        for w, e, r, b, q in ex.map(probe, jobs):
+        for w, e, r, b, q, f in ex.map(probe, jobs):
             files, equal, refused = files + w, equal + e, refused + r
             bad += b
             queued.update(q)
-    print(f"{files} files ({'damaged' if a.damage else 'intact'}), {3 * files} reads: "
+            by_filter.update(f)
+    print(f"{files} {'sequences' if a.sequences else 'files'} "
+          f"({'damaged' if a.damage else 'intact'}), {3 * files} reads: "
           f"{equal} equal to cv2's, {refused} refused by both, "
           f"{sum(queued.values())} UnsupportedImage, {len(bad)} mismatches "
           f"({time.time() - t0:.1f} s)")
     for k, v in sorted(queued.items()):
         print(f"  UnsupportedImage, {k}: {v}")
+    for k, v in sorted(by_filter.items()):
+        print(f"  UnsupportedImage naming {k} (alone or with others): {v}")
     for info, mode, why in bad[:50]:
         print("MISMATCH", mode, why, info)
     return 1 if bad else 0

@@ -1894,11 +1894,14 @@ def avif_random(rng, maxsize: int = 64):
     """A random AVIF from cv2's writer (lossless at quality 100, 8, 10 or
     12 bits, grey / colour / alpha) or PIL's (quality 0-100, 4:2:0 / 4:2:2
     / 4:4:4, grey, alpha, with or without aom's in-loop filters, screen
-    content tuning, quantiser matrices, tiles, 128x128 superblocks):
+    content tuning, quantiser matrices, tiles, 128x128 superblocks), or
+    libaom's with a random nclx colour box (`avif_random_cicp`):
     (bytes, info) with info the writer's settings, or (None, info) where
     the writer refused the draw."""
     import cv2
     h, w = (int(v) for v in rng.integers(1, maxsize + 1, 2))
+    if rng.random() < 0.15:
+        return avif_random_cicp(rng, h, w)
     if rng.random() < 0.4:
         depth = int(rng.choice([8, 8, 10, 12]))
         c = int(rng.choice([1, 3, 3, 4]))
@@ -1948,6 +1951,47 @@ def avif_random(rng, maxsize: int = 64):
         return avif_pil(img, **kw), info
     except (ValueError, OSError):
         return None, info
+
+
+def avif_random_sequence(rng, maxsize: int = 64):
+    """PIL's image sequence (2 or 3 frames, RGB or RGBA, any quality, aom's
+    in-loop filters off): the (bytes, info) of avif_random."""
+    from PIL import Image
+    h, w = (int(v) for v in rng.integers(8, maxsize + 1, 2))
+    c = int(rng.choice([3, 4]))
+    frames = [avif_content(rng, h, w, c) for _ in range(int(rng.integers(2, 4)))]
+    q = int(rng.integers(20, 100))
+    info = ("pil sequence", h, w, c, len(frames), q)
+    try:
+        return avif_pil(frames[0], quality=q, advanced=AVIF_NO_FILTERS, save_all=True,
+                        append_images=[Image.fromarray(f) for f in frames[1:]]), info
+    except (ValueError, OSError):
+        return None, info
+
+
+def avif_random_cicp(rng, h: int, w: int):
+    """libaom's own encode (4:2:0 or 4:4:4, any quality, its in-loop
+    filters on or off) in `avif_file`'s container with a random nclx:
+    colour primaries, transfer and matrix coefficients each a common value
+    or any of 0-255, and either range; the (bytes, info) of avif_random."""
+    fmt = str(rng.choice(["420", "444"]))
+    common = {0: [1, 2, 5, 6, 9, 12], 1: [1, 2, 6, 13, 16], 2: [0, 1, 2, 3, 5, 6, 9, 12, 15]}
+    cicp = [int(rng.choice(common[k])) if rng.random() < 0.6 else int(rng.integers(0, 256))
+            for k in range(3)] + [int(rng.integers(0, 2))]
+    opts = {"cq-level": int(rng.integers(0, 64)), "cpu-used": int(rng.integers(4, 10))}
+    if rng.random() < 0.5:
+        opts.update({"enable-cdef": 0, "enable-restoration": 0, "loopfilter-control": 0})
+    img = avif_content(rng, h, w, 3)
+    planes = [np.ascontiguousarray(img[..., k]) for k in range(3)]
+    if fmt == "420":
+        planes = planes[:1] + [np.ascontiguousarray(p[::2, ::2]) for p in planes[1:]]
+    info = ("aom", h, w, fmt, tuple(cicp), opts)
+    try:
+        obus = aom_encode(planes, fmt, opts)
+    except ValueError:
+        return None, info
+    sub = int(fmt == "420")
+    return avif_file(obus, w, h, ssx=sub, ssy=sub, profile=int(fmt == "444"), cicp=cicp), info
 
 
 def _box(typ: bytes, body: bytes) -> bytes:
