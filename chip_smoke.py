@@ -237,12 +237,18 @@
     kinds whose frames need AV1's deblocking, or deblocking and CDEF: cv2's
     quality 90 and 80, PIL's default, PIL's 4:2:2 with CDEF, cv2's 10-bit
     quality 80, libaom's delta loop filter levels and its 128x128
-    superblocks with CDEF; each in every mode against cv2's hashes
+    superblocks with CDEF; the kinds whose frames need loop restoration or
+    superres, from libaom's good-quality usage: 4:2:0 and 4:4:4 with
+    restoration in luma and chroma, 128x128 superblocks, 2x2 tiles and 10
+    bits with restoration, superres at denominator 12 with deblocking and
+    CDEF and at 16 with restoration; each in every mode against cv2's hashes
     (`avif_decode_json`), each kind timed by one read (the filters' host ms
-    beside it); budget AVIF_DECODE_S.  (b) assets_torch/formats/avif_folder,
-    the first 6 synthetic_hard images at 512x512 as cv2's lossless and
-    quality 80 and PIL's filter-free lossy and default AVIF under .png /
-    .jpg / .tif / .bmp names: their hashes, one read per kind timed, then
+    beside it: deblocking + CDEF, superres + loop restoration); budget
+    AVIF_DECODE_S.  (b) assets_torch/formats/avif_folder, the first 6
+    synthetic_hard images at 512x512 as cv2's lossless and quality 80,
+    PIL's filter-free lossy and default and libaom's good-quality AVIF
+    (loop restoration) under .png / .jpg / .tif / .bmp names: their hashes,
+    one read per kind timed, then
     [15]'s (b) (`avif_folder_*` keys: kgtpu's f32 and bf16 runs on cv2's
     reads of the same files; the f32 mAP must equal kgtpu's exactly);
     budget AVIF_SERVE_S.
@@ -2777,20 +2783,21 @@ def _read_or_refuse(path: str, mode: str):
 
 
 def _timed_reads(path: str, mode: str, reads: int, clock_filters: bool):
-    """A pool worker's job: ([(ms, AV1 deblocking + CDEF ms or None), ...],
+    """A pool worker's job: ([(ms, {AV1 filter group: ms} or None), ...],
     shape) of `reads` reads of one file, or of one where it takes over
-    SLOW_DECODE_MS."""
+    SLOW_DECODE_MS (the groups: `av1_filter_clock`)."""
     from kgtpu_torch.data.imread import read_image
     filters_ms = av1_filter_clock() if clock_filters else None
     out = []
     try:
         while len(out) < reads and not (out and out[0][0] > SLOW_DECODE_MS):
             if filters_ms is not None:
-                filters_ms.clear()
+                for v in filters_ms.values():
+                    v.clear()
             t = time.perf_counter()
             img = read_image(path, mode)
-            out.append(((time.perf_counter() - t) * 1e3,
-                        None if filters_ms is None else sum(filters_ms)))
+            out.append(((time.perf_counter() - t) * 1e3, None if filters_ms is None else
+                        {k: sum(v) for k, v in filters_ms.items()}))
     finally:
         if filters_ms is not None:
             av1_filter_clock(stop=True)
@@ -2862,9 +2869,10 @@ def folder_decodes(np, smi: str, key: str, folder: str, stem: str, reads: int = 
                        "bytes": os.path.getsize(os.path.join(folder, f))}
         share = ""
         if spent is not None:
-            timed[kind]["av1_filters_ms"] = spent
-            if spent:
-                share = f", AV1 deblocking + CDEF {spent:.1f} ms ({spent / ms:.3f} of it)"
+            timed[kind]["av1_filters_ms"] = spent["deblocking + CDEF"]
+            timed[kind]["av1_superres_lr_ms"] = spent["superres + loop restoration"]
+            share = "".join(f", AV1 {k} {v:.1f} ms ({v / ms:.3f} of it)"
+                            for k, v in spent.items() if v)
         log(f"  decode {kind} ({mode}): {ms:.1f} ms per {shape[0]}x{shape[1]} image (median "
             f"of {len(times)} read(s)), {timed[kind]['ms_per_512x512']:.1f} ms per 512x512 of "
             f"pixels, {timed[kind]['bytes']} bytes{share}; {smi}")
@@ -2873,25 +2881,30 @@ def folder_decodes(np, smi: str, key: str, folder: str, stem: str, reads: int = 
 
 
 def av1_filter_clock(stop: bool = False):
-    """Host ms spent in the AV1 decoder's deblocking and CDEF (the list that
-    each call to them appends to), by wrapping `av1_decode`'s two filters
+    """Host ms spent in the AV1 decoder's post-filters, by group ({"deblocking
+    + CDEF": [...], "superres + loop restoration": [...]}, each call
+    appending to its group's list), by wrapping `av1_decode`'s four filters
     in this process (a pool worker); `stop` puts them back."""
     from kgtpu_torch.data import av1_decode
+    names = ("deblock", "cdef", "upscale", "restore")
     if stop:
-        av1_decode.deblock, av1_decode.cdef = _AV1_FILTERS.pop()
+        for name, fn in zip(names, _AV1_FILTERS.pop()):
+            setattr(av1_decode, name, fn)
         return None
-    spent: list = []
+    spent: dict = {"deblocking + CDEF": [], "superres + loop restoration": []}
 
-    def clocked(fn):
-        def run(fr):
+    def clocked(fn, group):
+        def run(*a):
             t = time.perf_counter()
             try:
-                return fn(fr)
+                return fn(*a)
             finally:
-                spent.append((time.perf_counter() - t) * 1e3)
+                group.append((time.perf_counter() - t) * 1e3)
         return run
-    _AV1_FILTERS.append((av1_decode.deblock, av1_decode.cdef))
-    av1_decode.deblock, av1_decode.cdef = clocked(av1_decode.deblock), clocked(av1_decode.cdef)
+    _AV1_FILTERS.append(tuple(getattr(av1_decode, name) for name in names))
+    groups = ("deblocking + CDEF",) * 2 + ("superres + loop restoration",) * 2
+    for name, group in zip(names, groups):
+        setattr(av1_decode, name, clocked(getattr(av1_decode, name), spent[group]))
     return spent
 
 
@@ -3219,8 +3232,10 @@ def main() -> int:
         "bits; lossy 4:2:0 / 4:2:2 / 4:4:4 / monochrome without in-loop filters, quantiser "
         "matrices, palettes, intra block copy, tiles, 128x128 superblocks, a grid, a "
         "sequence; with deblocking and CDEF: cv2's quality 90 / 80 and 10-bit, PIL's "
-        "default and 4:2:2, delta loop filter levels, 128x128 superblocks) decoded as cv2 "
-        "decodes it, each kind timed once")
+        "default and 4:2:2, delta loop filter levels, 128x128 superblocks; with loop "
+        "restoration and superres: libaom's good quality at 4:2:0 / 4:4:4, 128x128 "
+        "superblocks, 2x2 tiles, 10 bits, superres 12 / 16) decoded as cv2 decodes it, each "
+        "kind timed once")
     t = time.perf_counter()
     avstats = folder_decodes(np, smi, "avif", AVIF_DIR, "avif", reads=1)
     avstats["avif_decode_s"] = time.perf_counter() - t
@@ -3229,8 +3244,9 @@ def main() -> int:
             f"[18] (a) took {avstats['avif_decode_s']:.0f} s")
     log("[18] (b) AVIF served: formats/avif_folder (512x512 AVIF under .png / .jpg / .tif / "
         ".bmp names: cv2's lossless and quality 80, PIL's lossy without in-loop filters and "
-        "at its default) decoded as cv2 decodes it and timed once per kind, the flagship "
-        "over it (f32, bf16) against kgtpu's run on cv2's reads")
+        "at its default, libaom's good quality with loop restoration) decoded as cv2 decodes "
+        "it and timed once per kind, the flagship over it (f32, bf16) against kgtpu's run on "
+        "cv2's reads")
     torch.cuda.empty_cache()
     t = time.perf_counter()
     avstats.update(folder_decodes(np, smi, "avif_folder", AVIF_FOLDER_DIR, "avif_folder",

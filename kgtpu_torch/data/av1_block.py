@@ -7,7 +7,10 @@ wavefront colour maps, filter intra), intra block copy (its spatial MV
 stack, the default and rounded reference vectors, libaom's validity rules
 and the bilinear copy from the frame being decoded), transform sizes
 (fixed, selected or split for intra block copy) and types, then each
-transform block's prediction, coefficients and residual.
+transform block's prediction, coefficients and residual; before each
+superblock, the loop restoration units whose corner it holds (read_lr:
+each unit's type, Wiener taps or self-guided set and projection, coded
+against the tile's previous unit of its plane).
 
 `TileDecoder(frame, tile_row, tile_col, reader).decode()` decodes one
 tile into the frame's planes.  A fault libaom treats as a corrupt tile
@@ -22,8 +25,10 @@ from kgtpu_torch.data import av1_coeffs as co
 from kgtpu_torch.data.av1_intra import (DC_PRED, SMOOTH_H_PRED, SMOOTH_PRED, SMOOTH_V_PRED,
                                         UV_CFL_PRED, V_PRED, cfl_predict, is_directional,
                                         predict_intra)
-from kgtpu_torch.data.av1_obu import qindex
-from kgtpu_torch.data.av1_tables import DC_QLOOKUP, AC_QLOOKUP, PALETTE_COLOR_CONTEXT
+from kgtpu_torch.data.av1_obu import (RESTORE_NONE, RESTORE_SGRPROJ, RESTORE_WIENER,
+                                      SUPERRES_NUM, qindex)
+from kgtpu_torch.data.av1_tables import (AC_QLOOKUP, DC_QLOOKUP, PALETTE_COLOR_CONTEXT,
+                                         SGR_PARAMS)
 from kgtpu_torch.data.imread import UnreadableImage
 
 # Block sizes (section 6.10.4's order) as (width, height) in pixels.
@@ -52,6 +57,11 @@ INTRA_INV = {1: (9, 0, 10, 11, 3, 1, 2), 2: (9, 0, 3, 1, 2)}
 INTER_INV = {1: (9, 10, 11, 12, 13, 14, 15, 0, 1, 2, 4, 5, 3, 6, 7, 8),
              2: (9, 10, 11, 0, 1, 2, 4, 5, 3, 6, 7, 8), 3: (9, 0)}
 MODE_TO_TXFM = (0, 1, 2, 0, 3, 1, 2, 2, 1, 3, 1, 2, 3, 0)
+# the coded ranges and mid values of the Wiener taps (outermost first) and of
+# the self-guided projection (section 5.11.58)
+WIENER_TAPS_MIN, WIENER_TAPS_MAX, WIENER_TAPS_K = (-5, -23, -17), (10, 8, 46), (1, 2, 3)
+WIENER_TAPS_MID = (3, -7, 15)
+SGRPROJ_XQD_MIN, SGRPROJ_XQD_MAX, SGRPROJ_XQD_MID = (-96, -32), (31, 95), (-32, 31)
 MV_BORDER = 128
 INTRABC_DELAY_PIXELS = 256
 
@@ -151,6 +161,10 @@ class TileDecoder:
             fr.above_level[p][lo:hi] = [0] * (hi - lo)
             fr.above_dc[p][lo:hi] = [0] * (hi - lo)
         rd = self.rd
+        self.ref_wiener = [[list(WIENER_TAPS_MID) for _ in range(2)] for _ in range(np_)]
+        self.ref_sgr_xqd = [list(SGRPROJ_XQD_MID) for _ in range(np_)]
+        sb = BLOCK_128X128 if s.use_128 else BLOCK_64X64
+        lr = any(t != RESTORE_NONE for t in self.fh.lr_type) and not self.fh.allow_intrabc
         for r in range(self.row_start, self.row_end, self.sb4):
             for p in range(np_):
                 fr.left_level[p] = [0] * len(fr.left_level[p])
@@ -158,11 +172,67 @@ class TileDecoder:
             for c in range(self.col_start, self.col_end, self.sb4):
                 self.read_deltas = self.fh.delta_q_present
                 self._clear_block_decoded(r, c)
-                self.decode_partition(r, c, BLOCK_128X128 if s.use_128 else BLOCK_64X64)
+                if lr:
+                    self.read_lr(r, c, sb)
+                self.decode_partition(r, c, sb)
                 if rd.overflowed():
                     raise UnreadableImage("AV1 tile data ends early (corrupt tile)")
         if not rd.trailing_ok():
             raise UnreadableImage("AV1 tile padding is not a 1 then zeros (corrupt tile)")
+
+    # ------------------------------------------------- loop restoration units
+    def read_lr(self, r: int, c: int, b: int) -> None:
+        """read_lr (5.11.57): the restoration units whose top-left corner
+        lies in the superblock at (r, c), in each plane that restores."""
+        fh, fr = self.fh, self.fr
+        for p in range(self.s.num_planes):
+            if fh.lr_type[p] == RESTORE_NONE:
+                continue
+            sx = fr.ssx if p else 0
+            sy = fr.ssy if p else 0
+            size = fh.lr_unit_size[p]
+            rows, cols = fr.lr_types[p].shape
+            row0 = (r * (4 >> sy) + size - 1) // size
+            row1 = min(rows, ((r + BH4[b]) * (4 >> sy) + size - 1) // size)
+            num = (4 >> sx) * fh.superres_denom
+            den = size * SUPERRES_NUM
+            col0 = (c * num + den - 1) // den
+            col1 = min(cols, ((c + BW4[b]) * num + den - 1) // den)
+            for ur in range(row0, row1):
+                for uc in range(col0, col1):
+                    self.read_lr_unit(p, ur, uc)
+
+    def read_lr_unit(self, p: int, ur: int, uc: int) -> None:
+        """read_lr_unit (5.11.58): the unit's type and its Wiener taps or
+        self-guided set and projection, each coded against the tile's
+        previous unit of the plane."""
+        fr, rd = self.fr, self.rd
+        frame_type = self.fh.lr_type[p]
+        if frame_type == RESTORE_WIENER:
+            kind = RESTORE_WIENER if rd.symbol(self.cdf["use_wiener"]) else RESTORE_NONE
+        elif frame_type == RESTORE_SGRPROJ:
+            kind = RESTORE_SGRPROJ if rd.symbol(self.cdf["use_sgrproj"]) else RESTORE_NONE
+        else:
+            kind = rd.symbol(self.cdf["switchable_restore"])
+        fr.lr_types[p][ur, uc] = kind
+        if kind == RESTORE_WIENER:
+            for pas in range(2):
+                ref = self.ref_wiener[p][pas]
+                for j in range(1 if p else 0, 3):
+                    ref[j] = _subexp_with_ref(rd, WIENER_TAPS_MIN[j], WIENER_TAPS_MAX[j] + 1,
+                                              WIENER_TAPS_K[j], ref[j])
+                fr.lr_wiener[p][ur, uc, pas] = ref if p == 0 else [0] + ref[1:]
+        elif kind == RESTORE_SGRPROJ:
+            st = rd.literal(4)
+            fr.lr_sgr_set[p][ur, uc] = st
+            ref = self.ref_sgr_xqd[p]
+            for i in range(2):
+                lo, hi = SGRPROJ_XQD_MIN[i], SGRPROJ_XQD_MAX[i]
+                if SGR_PARAMS[st][i]:
+                    ref[i] = _subexp_with_ref(rd, lo, hi + 1, 4, ref[i])
+                else:
+                    ref[i] = 0 if i == 0 else min(hi, max(lo, 128 - ref[0]))
+            fr.lr_sgr_xqd[p][ur, uc] = ref
 
     def _clear_block_decoded(self, r: int, c: int) -> None:
         fr = self.fr
@@ -1275,6 +1345,35 @@ def _ns_literal(rd, n: int) -> int:
     if v < m:
         return v
     return (v << 1) - m + rd.literal(1)
+
+
+def _subexp_with_ref(rd, low: int, high: int, k: int, ref: int) -> int:
+    """decode_signed_subexp_with_ref_bool (5.11.59): a value in [low, high)
+    coded as a sub-exponential code recentred on `ref`."""
+    mx, r = high - low, ref - low
+    i = mk = 0
+    while True:
+        b2 = k + i - 1 if i else k
+        a = 1 << b2
+        if mx <= mk + 3 * a:
+            v = _ns_literal(rd, mx - mk) + mk
+            break
+        if not rd.literal(1):
+            v = rd.literal(b2) + mk
+            break
+        i += 1
+        mk += a
+    if (r << 1) <= mx:
+        x = _inverse_recenter(r, v)
+    else:
+        x = mx - 1 - _inverse_recenter(mx - 1 - r, v)
+    return x + low
+
+
+def _inverse_recenter(r: int, v: int) -> int:
+    if v > 2 * r:
+        return v
+    return r - ((v + 1) >> 1) if v & 1 else r + (v >> 1)
 
 
 def _neg_deinterleave(diff: int, ref: int, mx: int) -> int:

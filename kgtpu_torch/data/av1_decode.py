@@ -1,15 +1,17 @@
 """AV1 intra frame decoding (specification section 7): the frame's state,
 its tiles decoded one after another with their own CDF copies
-(`av1_block.TileDecoder`), then decode_frame_wrapup's deblocking
-(`av1_deblock`) and CDEF (`av1_cdef`), and the planes cut to the frame's
-size.
+(`av1_block.TileDecoder`, which also reads the loop restoration units),
+then decode_frame_wrapup's post-filters in the specification's order:
+deblocking (`av1_deblock`), CDEF (`av1_cdef`), superres (`av1_superres`:
+the CDEF frame, and the deblocked frame where loop restoration reads it)
+and loop restoration (`av1_restoration`), and the planes cut to the
+frame's (upscaled) size.
 
 `decode_av1(data)` takes the OBUs of one AVIF item and returns
 (SequenceHeader, FrameHeader, planes): planes a list of [H, W] int32
 arrays, Y then U, V (one plane for monochrome).  A frame that needs a
-filter still queued (`av1_obu.post_filters`: loop restoration, superres,
-film grain) raises `UnsupportedImage` naming it, before its tiles are
-decoded.
+filter still queued (`av1_obu.post_filters`: film grain) raises
+`UnsupportedImage` naming it, before its tiles are decoded.
 """
 
 from __future__ import annotations
@@ -19,13 +21,16 @@ import numpy as np
 from kgtpu_torch.data.av1_block import TileDecoder
 from kgtpu_torch.data.av1_cdef import cdef
 from kgtpu_torch.data.av1_deblock import deblock
-from kgtpu_torch.data.av1_obu import parse_frame, post_filters
+from kgtpu_torch.data.av1_obu import RESTORE_NONE, parse_frame, post_filters
+from kgtpu_torch.data.av1_restoration import restore, unit_count
+from kgtpu_torch.data.av1_superres import upscale
 from kgtpu_torch.data.av1_symbol import SymbolReader, icdf
 from kgtpu_torch.data.av1_tables import CDF_COEF, CDF_MODE, CDF_MV
 from kgtpu_torch.data.imread import CONTAINERS, unsupported
 
 _TEMPLATE: dict = {}
-PORTED = ("deblocking", "CDEF")  # the post-filters decode_av1 applies, in this order
+# the post-filters decode_av1 applies, in this order
+PORTED = ("deblocking", "CDEF", "superres", "loop restoration")
 
 
 def _inverted(x):
@@ -79,6 +84,21 @@ class Frame:
         self.above_dc = [[0] * (cols + 32) for _ in range(3)]
         self.left_level = [[0] * (rows + 32) for _ in range(3)]
         self.left_dc = [[0] * (rows + 32) for _ in range(3)]
+        # the loop restoration units of each plane (5.11.57-58; a plane that
+        # does not restore keeps an empty grid): LrType, LrWiener [pass][tap],
+        # LrSgrSet and LrSgrXqd
+        self.lr_types, self.lr_wiener, self.lr_sgr_set, self.lr_sgr_xqd = [], [], [], []
+        for p in range(seq.num_planes):
+            sx = self.ssx if p else 0
+            sy = self.ssy if p else 0
+            shape = (0, 0)
+            if fh.lr_type[p] != RESTORE_NONE:
+                shape = (unit_count(fh.lr_unit_size[p], (fh.height + sy) >> sy),
+                         unit_count(fh.lr_unit_size[p], (fh.upscaled_width + sx) >> sx))
+            self.lr_types.append(np.zeros(shape, np.int8))
+            self.lr_wiener.append(np.zeros(shape + (2, 3), np.int64))
+            self.lr_sgr_set.append(np.zeros(shape, np.int64))
+            self.lr_sgr_xqd.append(np.zeros(shape + (2,), np.int64))
         q = fh.base_q_idx
         self.qctx = 0 if q <= 20 else 1 if q <= 60 else 2 if q <= 120 else 3
 
@@ -98,11 +118,23 @@ def decode_av1(data: bytes):
         TileDecoder(fr, tile_row, tile_col, rd).decode()
     if "deblocking" in need:
         deblock(fr)
+    deblocked = planes = fr.planes
     if "CDEF" in need:
-        fr.planes = cdef(fr)
+        planes = cdef(fr)
+    restoring = "loop restoration" in need
+    if "superres" in need:
+        up_planes = [upscale(pl, fr, p) for p, pl in enumerate(planes)]
+        if restoring and planes is not deblocked:
+            deblocked = [upscale(pl, fr, p) for p, pl in enumerate(deblocked)]
+        else:
+            deblocked = up_planes
+        planes = up_planes
+    if restoring:
+        planes = restore(fr, planes, deblocked)
     out = []
-    for p, plane in enumerate(fr.planes):
+    for p, plane in enumerate(planes):
         sx = fr.ssx if p else 0
         sy = fr.ssy if p else 0
-        out.append(plane[:(fh.height + sy) >> sy, :(fh.upscaled_width + sx) >> sx].copy())
+        out.append(plane[:(fh.height + sy) >> sy, :(fh.upscaled_width + sx) >> sx]
+                   .astype(np.int32))
     return seq, fh, out

@@ -8,8 +8,8 @@ None for such a file).
 item) to the first shown frame and returns (SequenceHeader, FrameHeader,
 tiles), each tile (tile row, tile column, start, end) in `data`.
 `post_filters(fh)` names the in-loop and output filters the frame needs;
-`av1_decode` applies deblocking and CDEF and refuses a frame that names
-any other.
+`av1_decode` applies deblocking, CDEF, superres and loop restoration and
+refuses a frame that names film grain.
 """
 
 from __future__ import annotations
@@ -24,8 +24,9 @@ SELECT = 2
 SEG_FEATURE_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
 SEG_FEATURE_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
 SEG_FEATURE_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
-RESTORE_NONE = 0
+RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
 REMAP_LR_TYPE = (0, 3, 1, 2)  # lr_type -> FrameRestorationType (NONE, SWITCHABLE, WIENER, SGRPROJ)
+SUPERRES_NUM = 8
 LEVELS_UNDEFINED = frozenset((2, 3, 6, 7, 10, 11) + tuple(range(20, 31)))
 LF_REF_DELTAS = (1, 0, 0, 0, -1, 0, -1, -1)  # INTRA_FRAME, LAST_FRAME .. ALTREF_FRAME
 
@@ -333,9 +334,17 @@ def parse_frame_header(b: Bits, s: SequenceHeader, temporal_id: int = 0,
         fh.width, fh.height = s.max_width, s.max_height
     fh.use_superres = b.f(1) if s.enable_superres else 0
     fh.upscaled_width = fh.width
+    fh.superres_denom = SUPERRES_NUM
     if fh.use_superres:
         denom = b.f(3) + 9
-        fh.width = (fh.upscaled_width * 8 + denom // 2) // denom
+        # libaom's av1_calculate_scaled_superres_size keeps FrameWidth at
+        # least 16 (or the upscaled width, where that is less); a frame it
+        # leaves at its upscaled width is not upscaled (av1_superres_scaled),
+        # and its restoration units are laid out unscaled: denominator 8
+        fh.width = max((fh.upscaled_width * SUPERRES_NUM + denom // 2) // denom,
+                       min(16, fh.upscaled_width))
+        if fh.width != fh.upscaled_width:
+            fh.superres_denom = denom
     if b.f(1):  # render_and_frame_size_different
         b.f(16)
         b.f(16)
@@ -441,8 +450,9 @@ def parse_frame_header(b: Bits, s: SequenceHeader, temporal_id: int = 0,
             uvs = [b.f(4), b.f(2)] if s.num_planes > 1 else [0, 0]
             fh.cdef_strengths.append([v + (v == 3) if k % 2 else v
                                       for k, v in enumerate(ys + uvs)])
-    # lr_params
+    # lr_params: each plane's FrameRestorationType and LoopRestorationSize
     fh.lr_type = [RESTORE_NONE] * 3
+    fh.lr_unit_size = [64] * 3
     if not (fh.all_lossless or fh.allow_intrabc or not s.enable_restoration):
         uses_lr = uses_chroma = False
         for p in range(s.num_planes):
@@ -452,11 +462,14 @@ def parse_frame_header(b: Bits, s: SequenceHeader, temporal_id: int = 0,
                 uses_chroma = uses_chroma or p > 0
         if uses_lr:
             if s.use_128:
-                b.f(1)
-            elif b.f(1):
-                b.f(1)
-            if s.ssx and s.ssy and uses_chroma:
-                b.f(1)
+                shift = 1 + b.f(1)
+            else:
+                shift = b.f(1)
+                if shift:
+                    shift += b.f(1)  # lr_unit_extra_shift
+            uv_shift = b.f(1) if s.ssx and s.ssy and uses_chroma else 0
+            luma = 64 << shift
+            fh.lr_unit_size = [luma, luma >> uv_shift, luma >> uv_shift]
     # read_tx_mode
     if fh.coded_lossless:
         fh.tx_mode_select = 0
@@ -584,7 +597,9 @@ def qindex(fh: FrameHeader, seg: int, current: int, ignore_delta: bool = True) -
 
 def post_filters(fh: FrameHeader) -> list[str]:
     """The in-loop and output filters this frame needs, by name, in the
-    specification's order."""
+    order of the specification's syntax (`av1_decode.PORTED` runs superres
+    before loop restoration, as decode_frame_wrapup does; film grain is
+    the one still queued)."""
     out = []
     if not (fh.coded_lossless or fh.allow_intrabc) and (fh.lf_level[0] or fh.lf_level[1]):
         out.append("deblocking")
@@ -592,7 +607,7 @@ def post_filters(fh: FrameHeader) -> list[str]:
         out.append("CDEF")
     if any(t != RESTORE_NONE for t in fh.lr_type):
         out.append("loop restoration")
-    if fh.use_superres:
+    if fh.width != fh.upscaled_width:
         out.append("superres")
     if fh.apply_grain:
         out.append("film grain")

@@ -34,12 +34,13 @@ the variants (`QUEUED`) only 16- to 64-bit separate-plane TIFF in
 ends before its last row (libtiff reads on past the end) and an AVIF whose
 av1C promises more bits than its frame holds, in "unchanged" (cv2's result
 not defined); of the containers (`CONTAINERS`) an AVIF frame that needs
-an AV1 filter still queued (loop restoration, superres, film grain; named
-in the message) or whose size differs from its ispe (libavif rescales it).
+an AV1 filter still queued (film grain; named in the message) or whose
+size differs from its ispe (libavif rescales it).
 JPEG 2000 is read whole as OpenJPEG 2.5.3 reads it for cv2: every Part 1
 code-block style, HT code-blocks (Part 15) and Part 2's multi-component
-markers (see `data/jpeg2000.py`); AVIF, its frames' deblocking and CDEF
-included, as libavif 1.4.2 over libaom 3.14.1 (see `data/avif.py`).
+markers (see `data/jpeg2000.py`); AVIF, its frames' deblocking, CDEF,
+superres and loop restoration included, as libavif 1.4.2 over libaom
+3.14.1 (see `data/avif.py`).
 """
 
 from __future__ import annotations

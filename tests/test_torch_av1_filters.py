@@ -69,7 +69,7 @@ def _aom_420(img, opts, usage) -> bytes:
 
 
 def _aom_mono() -> bytes:
-    y = _smooth("m2", 57, 45, 1)[..., 0]
+    y = _smooth("m4", 57, 45, 1)[..., 0]
     u = np.full((29, 23), 128, np.uint8)
     obus = ve.aom_encode([y, u, u], "420", {"cq-level": 58, "enable-restoration": 0},
                          cfg_fields={208: 1})  # aom_codec_enc_cfg_t.monochrome

@@ -9,10 +9,11 @@ PIL's (libavif 1.3 over aom, lossy with aom's in-loop filters off), and
 libaom's own encoder (`variant_encoders.aom_encode`: monochrome, intra
 block copy, grids, filter intra, colour matrices, superres, film grain),
 named `.png` as kgtpu would meet them; each is read in "color", "gray" and
-"unchanged".  A frame that needs a filter still queued (loop restoration,
-superres, film grain) raises `UnsupportedImage` naming it; where cv2
-returns None the port raises `UnreadableImage`.  Deblocking and CDEF have
-their own file, `test_torch_av1_filters.py`.
+"unchanged".  A frame that needs a filter still queued (film grain) raises
+`UnsupportedImage` naming it; where cv2 returns None the port raises
+`UnreadableImage`.  Deblocking and CDEF have their own file,
+`test_torch_av1_filters.py`, and so have loop restoration and superres,
+`test_torch_av1_restoration.py`.
 
 Tolerance: none for every file read (dtype, shape and every value).  The
 float reference of the transforms is held to within 2 per position (the
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from kgtpu_torch.data.av1_decode import PORTED
 from kgtpu_torch.data.imread import MODES, UnreadableImage, UnsupportedImage, read_image
 from tools import variant_encoders as ve
 
@@ -300,6 +302,7 @@ def test_cases_reach_the_tools_they_name():
 
 # --- refusals -------------------------------------------------------------------
 
+# frames that need a filter that was or is queued (av1_decode.PORTED says which)
 REFUSED = {
     "loop restoration": lambda: _aom(ve.avif_content(np.random.default_rng(30), 64, 64, 3,
                                                      "smooth"), "420",
@@ -314,12 +317,21 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_post_filter_frames_raise_unsupported(tmp_path, name):
-    """A frame that needs a filter still queued is refused by name in every
-    mode, where cv2 reads it."""
+    """A frame that needs a filter still queued (film grain) is refused by
+    name in every mode, where cv2 reads it; the frames that need loop
+    restoration or superres, refused until those filters were ported, read
+    as cv2 reads them (their own cases: test_torch_av1_restoration.py)."""
     path = str(tmp_path / "image.tif")
     with open(path, "wb") as f:
         f.write(REFUSED[name]())
     assert all(cv2.imread(path, flag) is not None for flag in _CV.values())
+    if name in PORTED:
+        from kgtpu_torch.data import avif
+        from kgtpu_torch.data.av1_obu import parse_frame, post_filters
+        data = REFUSED[name]()
+        assert name in post_filters(parse_frame(avif.parse(data)[0].obus)[1])
+        assert check(tmp_path, data) == 3
+        return
     for mode in MODES:
         with pytest.raises(UnsupportedImage, match=name) as e:
             read_image(path, mode)

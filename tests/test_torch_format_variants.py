@@ -515,14 +515,17 @@ def _containers():
         buf = io.BytesIO()
         Image.fromarray(a).save(buf, fmt)
         out[name] = buf.getvalue()
-    # an AVIF whose frame needs loop restoration, a filter still queued
-    # (libaom's all-intra encode; PIL's default only deblocks)
+    # AVIF whose frame needs loop restoration (read since it was ported) and
+    # film grain, a filter still queued (libaom's all-intra encodes; PIL's
+    # default only deblocks)
     img = ve.avif_content(np.random.default_rng(30), 64, 64, 3, "smooth")
     planes = [np.ascontiguousarray(img[..., 0])] + \
         [np.ascontiguousarray(img[::2, ::2, k]) for k in (1, 2)]
-    out["avif"] = ve.avif_file(ve.aom_encode(planes, "420", {
-        "cq-level": 30, "enable-cdef": 0, "loopfilter-control": 0, "enable-restoration": 1},
-        usage=2), 64, 64, ssx=1, ssy=1, profile=0, cicp=(1, 13, 6, 1))
+    for name, opts in (("avif_restored", {"enable-restoration": 1}),
+                       ("avif", {"film-grain-test": 1, "enable-restoration": 0})):
+        out[name] = ve.avif_file(ve.aom_encode(planes, "420", {
+            "cq-level": 30, "enable-cdef": 0, "loopfilter-control": 0, **opts},
+            usage=2), 64, 64, ssx=1, ssy=1, profile=0, cicp=(1, 13, 6, 1))
     buf = io.BytesIO()
     Image.fromarray(a).save(buf, "JPEG2000", no_jp2=True)
     out["j2k"] = buf.getvalue()
@@ -535,7 +538,7 @@ def _containers():
 
 
 PORTED_CONTAINERS = ("webp", "gif", "ppm", "pgm", "pgm_ascii", "pam", "pfm", "sun", "hdr",
-                     "jp2", "j2k", "avif_deblocked")
+                     "jp2", "j2k", "avif_deblocked", "avif_restored")
 
 
 @pytest.mark.parametrize("name", sorted(PORTED_CONTAINERS))
@@ -543,7 +546,8 @@ def test_containers_cv2_sniffs_decode_like_cv2(tmp_path, name):
     """cv2 5.0 reads WebP, PNM / PAM / PFM, Sun raster, Radiance HDR, GIF,
     JPEG 2000 and AVIF content whatever the file is called; the port reads
     them as cv2 does (data/webp.py, pnm.py, sunras.py, hdr.py, gif.py,
-    jpeg2000.py, avif.py; PIL's default AVIF is deblocked) in every mode,
+    jpeg2000.py, avif.py; PIL's default AVIF is deblocked, libaom's
+    `avif_restored` needs loop restoration) in every mode,
     and raises UnreadableImage where cv2 returns None (a colour PFM in
     "gray")."""
     path = str(tmp_path / "image.png")
@@ -556,8 +560,9 @@ def test_containers_cv2_sniffs_decode_like_cv2(tmp_path, name):
 @pytest.mark.parametrize("name", sorted(set(_containers()) - set(PORTED_CONTAINERS)))
 def test_containers_cv2_sniffs_raise_unsupported(tmp_path, name):
     """cv2 5.0 reads AVIF content whatever the file is called; where its
-    frame needs a filter still queued (loop restoration), the port names
-    the ROADMAP item that queues it instead of saying cv2 cannot."""
+    frame needs a filter still queued (film grain; loop restoration until
+    it was ported), the port names the ROADMAP item that queues it instead
+    of saying cv2 cannot."""
     path = str(tmp_path / "image.png")
     with open(path, "wb") as f:
         f.write(_containers()[name])

@@ -385,6 +385,17 @@ def extract(lib_path: str) -> dict:
     if taps[:, :, 7].any():
         raise SystemExit("av1_filter_intra_taps: the eighth tap is not padding")
     ctx = lib.array("av1_palette_color_index_context_lookup", np.int32)
+    sgr = lib.array("av1_sgr_params", np.int32).reshape(16, 4)  # {r[2], s[2]} per set
+    if sgr[:, :2].max() > 2 or (sgr[:, 0] == 0).sum() + (sgr[:, 1] == 0).sum() != 6:
+        raise SystemExit("av1_sgr_params: radii are not those of 16 sets, 6 with one off")
+    upscale = lib.array("av1_resize_filter_normative", np.int16).reshape(64, 8)
+    if (upscale.astype(int).sum(1) != 128).any() or list(upscale[0]) != [0, 0, 0, 128, 0, 0, 0, 0]:
+        raise SystemExit("av1_resize_filter_normative: a phase's taps do not sum to 128")
+    one_by_x = lib.array("av1_one_by_x", np.int32)
+    x_by_xplus1 = lib.array("av1_x_by_xplus1", np.uint32)
+    if len(one_by_x) != 25 or one_by_x[0] != 4096 or len(x_by_xplus1) != 256 or \
+            x_by_xplus1[0] != 1 or x_by_xplus1[255] != 256 or any(np.diff(x_by_xplus1) < 0):
+        raise SystemExit("av1_one_by_x / av1_x_by_xplus1")
     return dict(
         mode=mode, coef=coef, scans=extract_scans(lib), q=q, qm=extract_qm(lib),
         smooth=[int(v) for v in sw],
@@ -392,6 +403,10 @@ def extract(lib_path: str) -> dict:
         angle=[int(v) for v in lib.array("mode_to_angle_map", np.uint8)],
         taps=[[[int(v) for v in row[:7]] for row in mode_] for mode_ in taps],
         palette_ctx=[int(v) for v in ctx],
+        sgr=[[int(v) for v in row] for row in sgr],
+        upscale=[[int(v) for v in row] for row in upscale],
+        one_by_x=[int(v) for v in one_by_x],
+        x_by_xplus1=[int(v) for v in x_by_xplus1],
     )
 
 
@@ -453,6 +468,13 @@ followed by the adaptation counter 0.
     FILTER_INTRA_TAPS  Filter_Intra_Taps [mode][8 positions][7 taps] of
                        section 7.11.2.3
     PALETTE_COLOR_CONTEXT  Palette_Color_Context of section 7.11.4 (by hash)
+    SGR_PARAMS         Sgr_Params of section 7.17.3 in libaom's layout: per
+                       set (r0, r1, s0, s1), a radius 0 meaning that pass is
+                       off (s -1 there)
+    UPSCALE_FILTER     Upscale_Filter of section 7.16: 64 phases x 8 taps
+    ONE_BY_X           libaom's av1_one_by_x: round(4096 / n), n = 1 .. 25
+    X_BY_XPLUS1        libaom's av1_x_by_xplus1: the self-guided filter's
+                       a2 of section 7.17.3 by min(z, 255)
     LIBYUV_CONSTANTS   libyuv's YUV -> RGB constants (ub, ug, vg, vr, yg, yb)
                        by name (JPEG = BT.601 full range, I601 limited,
                        F709 / H709, V2020 / 2020), from the libavif cv2
@@ -495,6 +517,10 @@ def main(argv: list[str] | None = None) -> int:
     parts.append(f"MODE_TO_ANGLE = {t['angle']!r}\n\n")
     parts.append(f"FILTER_INTRA_TAPS = {fmt(t['taps'])}\n\n")
     parts.append(f"PALETTE_COLOR_CONTEXT = {t['palette_ctx']!r}\n\n")
+    parts.append(f"SGR_PARAMS = {fmt(t['sgr'])}\n\n")
+    parts.append(f"UPSCALE_FILTER = {fmt(t['upscale'])}\n\n")
+    parts.append(f"ONE_BY_X = {fmt(t['one_by_x'])}\n\n")
+    parts.append(f"X_BY_XPLUS1 = {fmt(t['x_by_xplus1'])}\n\n")
     parts.append("LIBYUV_CONSTANTS = {\n" + "".join(
         f"    {k!r}: {v!r},\n" for k, v in yuv.items()) + "}\n\n")
     by_mc, derived = extract_avif_kr_kb(a.avif_lib or default_lib("libavif"))

@@ -819,17 +819,34 @@ AVIF_KINDS = [
     ("cv2_q90", 0, {}), ("cv2_q80", 1, {}), ("pil_default", 2, {}),
     ("pil_422_cdef", 3, {"quality": 60, "subsampling": "4:2:2"}),
     ("cv2_10bit_q80", 4, {}), ("aom_delta_lf", 5, {}), ("pil_sb128_cdef", 6, {"quality": 30}),
+    # loop restoration and superres: libaom's good-quality usage (aomenc's and
+    # libavif's default outside all-intra), superres at a fixed denominator
+    ("aom_lr_420", 14, {"cq-level": 10}), ("aom_lr_444", 15, {"cq-level": 30}),
+    ("aom_lr_sb128", 9, {"cq-level": 30, "sb-size": 128}),
+    ("aom_lr_tiles", 10, {"cq-level": 30, "tile-columns": 1, "tile-rows": 1}),
+    ("aom_superres_12", 11, {"cq-level": 30, "enable-restoration": 0, "denom": 12}),
+    ("aom_superres_16_lr", 12, {"cq-level": 30, "denom": 16}),
+    ("aom_lr_10bit", 13, {"cq-level": 30, "bit_depth": 10}),
 ]
 # the filters each filtered kind's frame needs (av1_obu.post_filters)
 AVIF_FILTERS = {"cv2_q90": ["deblocking"], "cv2_q80": ["deblocking", "CDEF"],
                 "pil_default": ["deblocking"], "pil_422_cdef": ["deblocking", "CDEF"],
                 "cv2_10bit_q80": ["deblocking", "CDEF"], "aom_delta_lf": ["deblocking"],
                 "pil_sb128_cdef": ["deblocking", "CDEF"], "pil_default_512": ["deblocking"],
-                "cv2_q80_512": ["deblocking", "CDEF"]}
-AVIF_FOLDER = [("lossless", ".png"), ("yuv420_q70", ".jpg"), ("lossless", ".tif"),
+                "cv2_q80_512": ["deblocking", "CDEF"],
+                "aom_lr_420": ["deblocking", "loop restoration"],
+                "aom_lr_444": ["deblocking", "CDEF", "loop restoration"],
+                "aom_lr_sb128": ["deblocking", "CDEF", "loop restoration"],
+                "aom_lr_tiles": ["deblocking", "CDEF", "loop restoration"],
+                "aom_superres_12": ["deblocking", "CDEF", "superres"],
+                "aom_superres_16_lr": ["deblocking", "CDEF", "loop restoration", "superres"],
+                "aom_lr_10bit": ["deblocking", "CDEF", "loop restoration"],
+                "aom_lr_512": ["deblocking", "CDEF", "loop restoration"]}
+AVIF_FOLDER = [("lossless", ".png"), ("yuv420_q70", ".jpg"), ("aom_lr_512", ".tif"),
                ("yuv444_q85", ".bmp"), ("pil_default_512", ".png"), ("cv2_q80_512", ".tif")]
 AVIF_FOLDER_OPTS = {"yuv420_q70": {"quality": 70}, "yuv444_q85": {"quality": 85,
-                                                                   "subsampling": "4:4:4"}}
+                                                                   "subsampling": "4:4:4"},
+                    "aom_lr_512": {"cq-level": 30}}
 
 
 def write_avif(kind: str, rgb, opts: dict | None = None) -> bytes:
@@ -864,6 +881,24 @@ def write_avif(kind: str, rgb, opts: dict | None = None) -> bytes:
                                        "deltaq-mode": 3, "delta-lf-mode": 1}, usage=2)
         return avif_file(obus, rgb.shape[1], rgb.shape[0], ssx=1, ssy=1, profile=0,
                          cicp=(1, 13, 6, 1))
+    if kind.startswith("aom_lr") or kind.startswith("aom_superres"):
+        # libaom's good-quality usage turns loop restoration on by default
+        opts = dict(opts)
+        denom = opts.pop("denom", 0)
+        depth = opts.pop("bit_depth", 8)
+        fmt = "444" if kind == "aom_lr_444" else "420"
+        px = rgb[..., [1, 0, 2]].astype(np.uint16 if depth > 8 else np.uint8) << (depth - 8)
+        yuv = [np.ascontiguousarray(px[..., k]) for k in range(3)]
+        if fmt == "420":
+            yuv = yuv[:1] + [np.ascontiguousarray(p[::2, ::2]) for p in yuv[1:]]
+        cfg = {96: 3}  # rc_end_usage AOM_Q: cq-level sets the quantiser
+        if denom:
+            cfg.update({76: 1, 80: denom, 84: denom})  # rc_superres_mode FIXED
+        obus = aom_encode(yuv, fmt, {"cpu-used": 4, **opts}, usage=0, cfg_fields=cfg,
+                          bit_depth=depth)
+        sub = int(fmt == "420")
+        return avif_file(obus, rgb.shape[1], rgb.shape[0], depth=depth, ssx=sub, ssy=sub,
+                         profile=1 - sub, cicp=(1, 13, 0 if fmt == "444" else 6, 1))
     if kind == "lossless" or kind == "rgb_lossless":
         return cv2.imencode(".avif", bgr, [cv2.IMWRITE_AVIF_QUALITY, 100])[1].tobytes()
     if kind == "grey_lossless":

@@ -1970,10 +1970,13 @@ def avif_random_sequence(rng, maxsize: int = 64):
 
 
 def avif_random_cicp(rng, h: int, w: int):
-    """libaom's own encode (4:2:0 or 4:4:4, any quality, its in-loop
-    filters on or off) in `avif_file`'s container with a random nclx:
-    colour primaries, transfer and matrix coefficients each a common value
-    or any of 0-255, and either range; the (bytes, info) of avif_random."""
+    """libaom's own encode (4:2:0 or 4:4:4, 8, 10 or 12 bits, any quality,
+    its good-quality usage (aomenc's default, loop restoration on) or its
+    all-intra one, superres at a fixed denominator 9-16 in a share, its
+    in-loop filters on or off) in `avif_file`'s container with a random
+    nclx: colour primaries, transfer and matrix coefficients each a common
+    value or any of 0-255, and either range; the (bytes, info) of
+    avif_random."""
     fmt = str(rng.choice(["420", "444"]))
     common = {0: [1, 2, 5, 6, 9, 12], 1: [1, 2, 6, 13, 16], 2: [0, 1, 2, 3, 5, 6, 9, 12, 15]}
     cicp = [int(rng.choice(common[k])) if rng.random() < 0.6 else int(rng.integers(0, 256))
@@ -1981,17 +1984,28 @@ def avif_random_cicp(rng, h: int, w: int):
     opts = {"cq-level": int(rng.integers(0, 64)), "cpu-used": int(rng.integers(4, 10))}
     if rng.random() < 0.5:
         opts.update({"enable-cdef": 0, "enable-restoration": 0, "loopfilter-control": 0})
+    usage = 0 if rng.random() < 0.5 else 2
+    cfg = {96: 3} if usage == 0 else {}  # rc_end_usage AOM_Q, so cq-level counts
+    if rng.random() < 0.3:
+        denom = int(rng.integers(9, 17))
+        cfg.update({76: 1, 80: denom, 84: denom})  # rc_superres_mode FIXED
+    depth = int(rng.choice([8, 8, 8, 10, 12]))
     img = avif_content(rng, h, w, 3)
+    if depth > 8:
+        img = (img.astype(np.uint16) << (depth - 8)) | rng.integers(
+            0, 1 << (depth - 8), img.shape).astype(np.uint16)
     planes = [np.ascontiguousarray(img[..., k]) for k in range(3)]
     if fmt == "420":
         planes = planes[:1] + [np.ascontiguousarray(p[::2, ::2]) for p in planes[1:]]
-    info = ("aom", h, w, fmt, tuple(cicp), opts)
+    info = ("aom", h, w, fmt, depth, tuple(cicp), opts, usage, cfg)
     try:
-        obus = aom_encode(planes, fmt, opts)
+        obus = aom_encode(planes, fmt, opts, usage=usage, cfg_fields=cfg, bit_depth=depth)
     except ValueError:
         return None, info
     sub = int(fmt == "420")
-    return avif_file(obus, w, h, ssx=sub, ssy=sub, profile=int(fmt == "444"), cicp=cicp), info
+    profile = 2 if depth == 12 else int(fmt == "444")
+    return avif_file(obus, w, h, depth=depth, ssx=sub, ssy=sub, profile=profile,
+                     cicp=cicp), info
 
 
 def _box(typ: bytes, body: bytes) -> bytes:
@@ -2037,14 +2051,15 @@ _AOM = None
 
 
 def aom_encode(planes, fmt: str = "444", options: dict | None = None, usage: int = 2,
-               cfg_fields: dict | None = None) -> bytes:
+               cfg_fields: dict | None = None, bit_depth: int = 8) -> bytes:
     """libaom's own encoder (the one cv2's wheel bundles, through ctypes) on
-    8-bit YUV planes [Y, U, V] ("444" or "420"): the OBUs of one frame.
+    YUV planes [Y, U, V] ("444", "422" or "420") of `bit_depth` bits (uint16
+    planes above 8; 12 bits and 4:2:2 are profile 2): the OBUs of one frame.
     `options` go to aom_codec_set_option (aomenc's names: "lossless",
     "cq-level", "end-usage", "tune-content", "enable-intrabc", "cpu-used",
     "enable-cdef", ...); `cfg_fields` sets 32-bit fields of aom_codec_enc_cfg_t
     by byte offset (76: rc_superres_mode, 80 / 84: its denominators); usage
-    2 is AOM_USAGE_ALL_INTRA."""
+    2 is AOM_USAGE_ALL_INTRA, 0 AOM_USAGE_GOOD_QUALITY (aomenc's default)."""
     import ctypes
     import glob
     import os
@@ -2069,18 +2084,22 @@ def aom_encode(planes, fmt: str = "444", options: dict | None = None, usage: int
             getattr(_AOM, name).restype = res
             getattr(_AOM, name).argtypes = args
     lib = _AOM
-    y = np.ascontiguousarray(planes[0], np.uint8)
+    dt = np.uint8 if bit_depth == 8 else np.uint16
+    y = np.ascontiguousarray(planes[0], dt)
     h, w = y.shape
     iface = lib.aom_codec_av1_cx()
     cfg = ctypes.create_string_buffer(4096)
     if lib.aom_codec_enc_config_default(iface, cfg, usage):
         raise ValueError("aom_codec_enc_config_default failed")
-    struct.pack_into("<III", cfg, 8, 1 if fmt == "444" else 0, w, h)  # g_profile, g_w, g_h
+    profile = 2 if bit_depth == 12 or fmt == "422" else 1 if fmt == "444" else 0
+    struct.pack_into("<III", cfg, 8, profile, w, h)  # g_profile, g_w, g_h
+    struct.pack_into("<II", cfg, 32, bit_depth, bit_depth)  # g_bit_depth, g_input_bit_depth
     for off, v in (cfg_fields or {}).items():
         struct.pack_into("<I", cfg, off, v)
     ctx = ctypes.create_string_buffer(512)
+    flags = 0x40000 if bit_depth > 8 else 0  # AOM_CODEC_USE_HIGHBITDEPTH
     for ver in range(1, 64):
-        if lib.aom_codec_enc_init_ver(ctx, iface, cfg, 0, ver) == 0:
+        if lib.aom_codec_enc_init_ver(ctx, iface, cfg, flags, ver) == 0:
             break
     else:
         raise ValueError("aom_codec_enc_init_ver refused every ABI version")
@@ -2088,15 +2107,16 @@ def aom_encode(planes, fmt: str = "444", options: dict | None = None, usage: int
         for k, v in (options or {}).items():
             if lib.aom_codec_set_option(ctx, k.encode(), str(v).encode()):
                 raise ValueError(f"aom option {k}={v} refused")
-        if fmt == "444":
-            data = np.concatenate([y.ravel()] + [np.ascontiguousarray(p, np.uint8).ravel()
-                                                 for p in planes[1:]])
-            code = 0x106
-        else:
-            data = np.concatenate([y.ravel()] + [np.ascontiguousarray(p, np.uint8).ravel()
-                                                 for p in planes[1:]])
-            code = 0x102
-        buf = ctypes.create_string_buffer(data.tobytes(), len(data))
+        # aom_img_wrap lays subsampled planes out at even sizes (the luma
+        # stride and height rounded up, the chroma planes half of them): pad
+        ssx, ssy = {"444": (0, 0), "422": (1, 0), "420": (1, 1)}[fmt]
+        hh, ww = h + (h & ssy), w + (w & ssx)
+        data = np.concatenate(
+            [np.pad(np.asarray(p, dt), ((0, (hh >> sy) - p.shape[0]),
+                                        (0, (ww >> sx) - p.shape[1])), mode="edge").ravel()
+             for p, sx, sy in zip([y] + list(planes[1:]), (0, ssx, ssx), (0, ssy, ssy))])
+        code = {"444": 0x106, "422": 0x105, "420": 0x102}[fmt] | (0x800 if bit_depth > 8 else 0)
+        buf = ctypes.create_string_buffer(data.tobytes(), data.nbytes)
         img = ctypes.create_string_buffer(1024)
         if not lib.aom_img_wrap(img, code, w, h, 1, buf):
             raise ValueError("aom_img_wrap failed")
@@ -2117,6 +2137,175 @@ def aom_encode(planes, fmt: str = "444", options: dict | None = None, usage: int
         return bytes(out)
     finally:
         lib.aom_codec_destroy(ctx)
+
+
+def _lr_header(obus: bytes) -> dict:
+    """Where the loop restoration fields of an intra frame's header lie
+    (the frame in an OBU_FRAME, as aom_encode writes it): the OBU's
+    position, payload start and end, the sequence and frame headers, the
+    header's bits up to its end, the bit offsets (from the payload's start)
+    of each plane's 2-bit lr_type and the [lo, hi) run of lr_unit_shift,
+    lr_unit_extra_shift and lr_uv_shift."""
+    from kgtpu_torch.data import av1_obu
+
+    class Recording(av1_obu.Bits):
+        def __init__(self, *a):
+            super().__init__(*a)
+            self.calls = []
+
+        def f(self, n):
+            at = self.pos
+            v = super().f(n)
+            self.calls.append((at, n))
+            return v
+    pos, seq = 0, None
+    while pos < len(obus):
+        typ, start, end = av1_obu._obu_at(obus, pos)
+        if typ == av1_obu.OBU_SEQUENCE_HEADER:
+            seq = av1_obu.parse_sequence_header(obus, start, end)
+        if typ == av1_obu.OBU_FRAME:
+            break
+        pos = end
+    else:
+        raise ValueError("no OBU_FRAME")
+    b = Recording(obus, start, end)
+    fh = av1_obu.parse_frame_header(b, seq)
+    if fh.apply_grain or not any(fh.lr_type):
+        raise ValueError("the frame has film grain or no loop restoration")
+    tail = 1 + (not fh.coded_lossless)  # tx_mode_select, reduced_tx_set
+    has_uv = bool(seq.ssx and seq.ssy and any(fh.lr_type[1:]))
+    k = len(b.calls) - tail - has_uv
+    first = k
+    while b.calls[first - 1][1] == 1:  # the shift bits follow the 2-bit lr_types
+        first -= 1
+    bits = [(obus[i >> 3] >> (7 - (i & 7))) & 1 for i in range(start * 8, b.pos)]
+    return {"pos": pos, "start": start, "end": end, "seq": seq, "fh": fh, "bits": bits,
+            "tile_at": -(-b.pos // 8), "has_uv": has_uv,
+            "lr_type_at": [at - start * 8 for at, _ in b.calls[first - seq.num_planes:first]],
+            "shifts": (b.calls[first][0] - start * 8, b.calls[k + has_uv - 1][0] - start * 8 + 1)}
+
+
+def _frame_obu(obus: bytes, h: dict, bits: list, tile_data: bytes) -> bytes:
+    """`obus` with the OBU_FRAME that `_lr_header` found rebuilt from the
+    header `bits` (byte-aligned here) and `tile_data`, its size rewritten."""
+    bits = bits + [0] * (-len(bits) % 8)
+    header = bytes(int("".join(map(str, bits[i:i + 8])), 2) for i in range(0, len(bits), 8))
+    payload = header + tile_data
+    size, n = bytearray(), len(payload)
+    while True:
+        size.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            break
+    pos = h["pos"]
+    return obus[:pos] + obus[pos:pos + 1] + bytes(size) + payload + obus[h["end"]:]
+
+
+def av1_lr_unit_rewrite(obus: bytes, unit_shift: int, uv_shift: int) -> bytes:
+    """`obus` (one intra frame in an OBU_FRAME, as aom_encode writes it) with
+    its frame header's lr_unit_shift and lr_uv_shift set anew (the header's
+    other bits and the tile data kept, the OBU's size rewritten).  No
+    encoder here codes a halved 4:2:0 chroma unit; the tile data stays in
+    step only where each plane keeps its number of units (a frame under 96
+    samples a side has one per plane at every size), so the rewritten file
+    tests the header and the sizes, not the symbols."""
+    h = _lr_header(obus)
+    if h["seq"].use_128:
+        new = [unit_shift - 1]
+    else:
+        new = [0] if unit_shift == 0 else [1, unit_shift - 1]
+    if h["has_uv"]:
+        new.append(uv_shift)
+    lo, hi = h["shifts"]
+    return _frame_obu(obus, h, h["bits"][:lo] + new + h["bits"][hi:],
+                      obus[h["tile_at"]:h["end"]])
+
+
+def av1_lr_switchable_rewrite(obus: bytes) -> bytes:
+    """`obus` (one intra frame of one tile in an OBU_FRAME, as aom_encode
+    writes it) with every restoring plane's frame restoration type made
+    SWITCHABLE: the port's decoder reads the tile, recording each symbol
+    with its CDF as read; each unit's use_wiener / use_sgrproj symbol is
+    coded again as switchable_restore for the same unit type (its CDF
+    adapted as the decoder adapts it), every other symbol and bit as it
+    was, by libaom's own od_ec encoder (through ctypes).  libaom's encoder
+    here never writes a switchable frame."""
+    import ctypes
+
+    from kgtpu_torch.data import av1_block, av1_decode, av1_obu
+    from kgtpu_torch.data.av1_symbol import SymbolReader
+    from tools.av1_oracle import LibaomOracle
+    h = _lr_header(obus)
+    seq, fh, tiles = av1_obu.parse_frame(obus)
+    if len(tiles) != 1:
+        raise ValueError("the frame has more than one tile")
+    fr = av1_decode.Frame(seq, fh)
+    rd = SymbolReader(obus, tiles[0][2], tiles[0][3], bool(fh.disable_cdf_update))
+    log = []
+    symbol, read_bool, literal = rd.symbol, rd.bool, rd.literal
+
+    def rec_symbol(cdf):
+        before = cdf[:]
+        v = symbol(cdf)
+        log.append((id(cdf), before, v))
+        return v
+
+    def rec_bool():
+        v = read_bool()
+        log.append((None, 1, v))
+        return v
+
+    def rec_literal(n):
+        v = literal(n)
+        log.append((None, n, v))
+        return v
+    rd.symbol, rd.bool, rd.literal = rec_symbol, rec_bool, rec_literal
+    td = av1_block.TileDecoder(fr, tiles[0][0], tiles[0][1], rd)
+    td.decode()
+    remap = {id(td.cdf["use_wiener"]): (0, av1_obu.RESTORE_WIENER),
+             id(td.cdf["use_sgrproj"]): (0, av1_obu.RESTORE_SGRPROJ)}
+    switchable = fr.new_cdfs()["switchable_restore"]
+    o = LibaomOracle()
+    enc = ctypes.create_string_buffer(512)
+    o.fn("od_ec_enc_init", ctypes.c_void_p, ctypes.c_uint32)(ctypes.addressof(enc), 1 << 16)
+    put = o.fn("od_ec_encode_cdf_q15", ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_int)
+    put_bool = o.fn("od_ec_encode_bool_q15", ctypes.c_void_p, ctypes.c_int, ctypes.c_uint)
+    for cdf_id, cdf, v in log:
+        if cdf_id is None:  # cdf: the literal's bit count
+            for i in reversed(range(cdf)):
+                put_bool(ctypes.addressof(enc), (v >> i) & 1, 16384)
+            continue
+        if cdf_id in remap:
+            v, cdf = remap[cdf_id][v], switchable[:]
+            if not fh.disable_cdf_update:
+                _adapt_cdf(switchable, v)
+        arr = (ctypes.c_uint16 * len(cdf))(*cdf)
+        put(ctypes.addressof(enc), v, ctypes.addressof(arr), len(cdf) - 1)
+    nbytes = ctypes.c_uint32(0)
+    done = ctypes.CFUNCTYPE(ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)(
+        o.base + o.lib.syms["od_ec_enc_done"][0][0])
+    data = ctypes.string_at(done(ctypes.addressof(enc), ctypes.addressof(nbytes)), nbytes.value)
+    o.fn("od_ec_enc_clear", ctypes.c_void_p)(ctypes.addressof(enc))
+    bits = list(h["bits"])
+    for p, at in enumerate(h["lr_type_at"]):
+        if fh.lr_type[p] != av1_obu.RESTORE_NONE:
+            bits[at:at + 2] = [0, 1]  # lr_type 1: RESTORE_SWITCHABLE
+    return _frame_obu(obus, h, bits, data)
+
+
+def _adapt_cdf(cdf: list, s: int) -> None:
+    """libaom's update_cdf on an inverted CDF with its counter, as
+    `av1_symbol.SymbolReader` adapts it."""
+    n = len(cdf) - 1
+    count = cdf[n]
+    rate = (3 if n == 2 else 4 if n == 3 else 5) + (count > 15) + (count > 31) + (n == 2)
+    for i in range(s):
+        cdf[i] += (32768 - cdf[i]) >> rate
+    for i in range(s, n - 1):
+        cdf[i] -= cdf[i] >> rate
+    if count < 32:
+        cdf[n] = count + 1
 
 
 def avif_grid(tiles: list, rows: int, cols: int, tile_w: int, tile_h: int, out_w: int,
